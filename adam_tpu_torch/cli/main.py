@@ -1,0 +1,68 @@
+"""Command line of the port: ``python -m adam_tpu_torch transform ...``.
+
+Flag spellings follow the JAX package's CLI.  This slice supports the
+streamed markdup + BQSR transform::
+
+    python -m adam_tpu_torch transform IN.sam OUT.adam -streaming \\
+        -mark_duplicate_reads -recalibrate_base_qualities \\
+        [-window_reads N] [--device cuda|cpu]
+
+On success the run's stats (stage walls, read counts, kernel launches)
+are printed to standard output as one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="adam_tpu_torch")
+    sub = ap.add_subparsers(dest="command", required=True)
+    p = sub.add_parser(
+        "transform", help="markdup + BQSR over a SAM file -> Parquet parts"
+    )
+    p.add_argument("input", help="input SAM (.sam or .sam.gz)")
+    p.add_argument("output", help="output directory of Parquet parts")
+    p.add_argument("-streaming", action="store_true",
+                   help="the streamed windowed pipeline (the only mode ported)")
+    p.add_argument("-mark_duplicate_reads", action="store_true")
+    p.add_argument("-recalibrate_base_qualities", action="store_true")
+    p.add_argument("-realign_indels", action="store_true")
+    p.add_argument("-dump_observations", default=None,
+                   help="local path to dump BQSR observations to (CSV)")
+    p.add_argument("-window_reads", type=int, default=262_144,
+                   help="ingest window size in reads")
+    p.add_argument("-parquet_compression_codec", default="zstd",
+                   choices=["uncompressed", "snappy", "gzip", "zstd"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the tensor work runs (default: cuda)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    if not args.streaming:
+        print("adam_tpu_torch transform runs only the -streaming pipeline; "
+              "pass -streaming", file=sys.stderr)
+        return 2
+    if args.window_reads <= 0:
+        print(f"-window_reads must be positive (got {args.window_reads})",
+              file=sys.stderr)
+        return 2
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    stats = transform_streamed(
+        args.input, args.output,
+        mark_duplicates=args.mark_duplicate_reads,
+        recalibrate=args.recalibrate_base_qualities,
+        realign=args.realign_indels,
+        window_reads=args.window_reads,
+        compression=args.parquet_compression_codec,
+        dump_observations=args.dump_observations,
+        device=args.device,
+    )
+    print(json.dumps(stats, sort_keys=True))
+    return 0

@@ -1,0 +1,200 @@
+"""Columnar read batches — the port's counterpart of
+``adam_tpu/formats/batch.py``.
+
+A :class:`ReadBatch` is a plain dataclass of padded, masked arrays
+``[N, Lmax]`` / ``[N]``: numpy arrays on the host (what ingest produces
+and what the host-side codecs read), torch tensors after
+:meth:`ReadBatch.to`.  :class:`ReadSidecar` holds the variable-length
+host-only columns (names, tags, MD, OQ) as :class:`StringColumn`\\ s.
+
+The grid helpers (:func:`grid_rows`, :func:`grid_cols`,
+:func:`grid_cigar_cols`, :func:`pad_rows_np`) are kept exactly as in the
+JAX package: they fix every kernel shape, so the port's per-window
+kernels see the same ``[g, gl]`` grids as the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+
+from adam_tpu_torch.formats import schema
+
+Array = Any  # np.ndarray (host) or torch.Tensor
+
+
+def grid_rows(n: int, minimum: int = 1024) -> int:
+    """Device-friendly row count: the next power of two, floored at
+    ``minimum``.  Padding rows carry valid=False and are masked out by
+    every kernel."""
+    n = max(int(n), 1)
+    g = max(minimum, 1 << (n - 1).bit_length())
+    return g
+
+
+def grid_cols(n: int, mult: int = 32) -> int:
+    """Device-friendly lane count: next multiple of ``mult``."""
+    return _round_up(max(int(n), 1), mult)
+
+
+def grid_cigar_cols(width: int) -> int:
+    """Cigar-op grid: multiples of 8 instead of :func:`grid_cols`'s 32."""
+    return grid_cols(width, mult=8)
+
+
+def pad_rows_np(arr, n: int, fill=0, cols: int | None = None):
+    """Pad a numpy array's leading axis up to ``n`` rows (and, for 2-d
+    arrays when ``cols`` is given, the second axis up to ``cols``) with
+    ``fill``."""
+    arr = np.asarray(arr)
+    extra_rows = n - arr.shape[0]
+    extra_cols = (cols - arr.shape[1]) if (cols is not None and arr.ndim > 1) else 0
+    if extra_rows == 0 and extra_cols == 0:
+        return arr
+    pad_width = [(0, extra_rows), (0, extra_cols)] + [(0, 0)] * (arr.ndim - 2)
+    return np.pad(arr, pad_width[: arr.ndim], constant_values=fill)
+
+
+def _round_up(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, np.ndarray):
+        return x
+    if hasattr(x, "detach"):  # a torch tensor, on any device
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@dataclass(frozen=True)
+class ReadBatch:
+    """Struct-of-arrays batch of (up to) N reads, padded to [N, L] / [N, C].
+
+    Padding rows have ``valid == False``; padding lanes within a read have
+    ``bases == BASE_PAD`` and ``quals == QUAL_PAD``.
+    """
+
+    bases: Array          # u8[N, L]   base codes (schema.BASE_*)
+    quals: Array          # u8[N, L]   phred values, QUAL_PAD in padding
+    lengths: Array        # i32[N]     true read length
+    flags: Array          # i32[N]     packed SAM flags
+    contig_idx: Array     # i32[N]     index into SequenceDictionary, -1 unmapped
+    start: Array          # i64[N]     0-based inclusive, -1 if unmapped
+    end: Array            # i64[N]     0-based exclusive (start + ref span)
+    mapq: Array           # i32[N]     255 = unavailable
+    cigar_ops: Array      # u8[N, C]   schema.CIGAR_* codes, CIGAR_PAD pad
+    cigar_lens: Array     # i32[N, C]
+    cigar_n: Array        # i32[N]     number of real cigar ops
+    mate_contig_idx: Array  # i32[N]   -1 if mate unmapped/absent
+    mate_start: Array     # i64[N]
+    tlen: Array           # i32[N]    template length (SAM TLEN)
+    read_group_idx: Array  # i32[N]   index into RecordGroupDictionary, -1 none
+    has_qual: Array       # bool[N]   false when qual was '*'
+    valid: Array          # bool[N]   row mask
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.bases.shape[0])
+
+    @property
+    def lmax(self) -> int:
+        return int(self.bases.shape[1])
+
+    @property
+    def cmax(self) -> int:
+        return int(self.cigar_ops.shape[1])
+
+    def n_valid(self) -> int:
+        return int(_to_numpy(self.valid).sum())
+
+    def arrays(self) -> dict:
+        """Field name -> array, in declaration order."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def replace(self, **kw) -> "ReadBatch":
+        return dataclasses.replace(self, **kw)
+
+    def to_numpy(self) -> "ReadBatch":
+        """Host copy (numpy arrays; a no-op for a host batch)."""
+        return ReadBatch(**{k: _to_numpy(v) for k, v in self.arrays().items()})
+
+    def to(self, device) -> "ReadBatch":
+        """Every field as a torch tensor on ``device``."""
+        import torch
+
+        def move(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.to(device)
+
+        return ReadBatch(**{k: move(v) for k, v in self.arrays().items()})
+
+    @staticmethod
+    def empty(n: int = 0, lmax: int = 0, cmax: int = 0) -> "ReadBatch":
+        return ReadBatch(
+            bases=np.full((n, lmax), schema.BASE_PAD, np.uint8),
+            quals=np.full((n, lmax), schema.QUAL_PAD, np.uint8),
+            lengths=np.zeros(n, np.int32),
+            flags=np.full(n, schema.FLAG_UNMAPPED, np.int32),
+            contig_idx=np.full(n, -1, np.int32),
+            start=np.full(n, -1, np.int64),
+            end=np.full(n, -1, np.int64),
+            mapq=np.full(n, 255, np.int32),
+            cigar_ops=np.full((n, cmax), schema.CIGAR_PAD, np.uint8),
+            cigar_lens=np.zeros((n, cmax), np.int32),
+            cigar_n=np.zeros(n, np.int32),
+            mate_contig_idx=np.full(n, -1, np.int32),
+            mate_start=np.full(n, -1, np.int64),
+            tlen=np.zeros(n, np.int32),
+            read_group_idx=np.full(n, -1, np.int32),
+            has_qual=np.zeros(n, bool),
+            valid=np.zeros(n, bool),
+        )
+
+
+@dataclass
+class ReadSidecar:
+    """Host-side variable-length columns, parallel to ReadBatch rows,
+    stored columnar (:class:`StringColumn`: flat bytes + offsets)."""
+
+    names: Any = field(default_factory=list)       # read names
+    attrs: Any = field(default_factory=list)       # raw SAM tag strings
+    md: Any = field(default_factory=list)          # MD tag string or None
+    orig_quals: Any = field(default_factory=list)  # OQ or None
+    trimmed_from_start: Any = None
+    trimmed_from_end: Any = None
+
+    def __post_init__(self):
+        from adam_tpu_torch.formats.strings import StringColumn
+
+        self.names = StringColumn.of(self.names)
+        self.attrs = StringColumn.of(self.attrs)
+        self.md = StringColumn.of(self.md)
+        self.orig_quals = StringColumn.of(self.orig_quals)
+        n = len(self.names)
+        self.trimmed_from_start = (
+            np.zeros(n, np.int32) if self.trimmed_from_start is None
+            else np.asarray(self.trimmed_from_start, np.int32)
+        )
+        self.trimmed_from_end = (
+            np.zeros(n, np.int32) if self.trimmed_from_end is None
+            else np.asarray(self.trimmed_from_end, np.int32)
+        )
+
+    def take(self, idx) -> "ReadSidecar":
+        idx = np.asarray(idx)
+        return ReadSidecar(
+            names=self.names.take(idx),
+            attrs=self.attrs.take(idx),
+            md=self.md.take(idx),
+            orig_quals=self.orig_quals.take(idx),
+            trimmed_from_start=self.trimmed_from_start[idx],
+            trimmed_from_end=self.trimmed_from_end[idx],
+        )
+
+    def __len__(self) -> int:
+        return len(self.names)

@@ -1,0 +1,398 @@
+"""The port's ctypes loader for the native (C++) host codecs.
+
+``adamtok.cpp`` and ``realign.cpp`` here are unchanged copies of the JAX
+package's sources (the tokenizer's BQSR walk links against
+``realign.cpp``'s MD parser, so the two build together).  They are
+compiled with ``g++`` at first use into ``native/_build/`` (git-ignored),
+keyed by a hash of the sources, the flags and the compiler.
+
+Unlike ``adam_tpu/native``, nothing here degrades to a pure-Python codec:
+a failed build raises.  Only the functions this package calls are bound.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Sequence
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SOURCES = [os.path.join(_DIR, "adamtok.cpp"), os.path.join(_DIR, "realign.cpp")]
+_BUILD_DIR = os.path.join(_DIR, "_build")
+_BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# -march=native first (the scan/fill/LUT loops vectorize); the plain
+# flag set is the fallback for toolchains that refuse it
+_FLAG_SETS = [_BASE_FLAGS + ["-march=native"], _BASE_FLAGS]
+
+_LOCK = threading.Lock()
+_LIB: ct.CDLL | None = None
+
+_i64p = ct.POINTER(ct.c_int64)
+_i32p = ct.POINTER(ct.c_int32)
+_u8p = ct.POINTER(ct.c_uint8)
+
+
+def _cpu_flags() -> str:
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("flags", "Features")):
+                    return line
+    except OSError:
+        pass
+    return ""
+
+
+def _compiler() -> str:
+    res = subprocess.run(["g++", "--version"], capture_output=True, timeout=30)
+    return res.stdout.decode("utf-8", "replace").splitlines()[0]
+
+
+def _build() -> str:
+    """Compile the sources (if not already built) -> path of the .so."""
+    h = hashlib.sha256()
+    for path in _SOURCES:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(_compiler().encode())
+    errors = []
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    for flags in _FLAG_SETS:
+        hf = h.copy()
+        hf.update(" ".join(flags).encode())
+        if "-march=native" in flags:
+            hf.update(_cpu_flags().encode())
+        so_path = os.path.join(_BUILD_DIR, f"adamtok_{hf.hexdigest()[:16]}.so")
+        if os.path.exists(so_path):
+            return so_path
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
+            tmp = os.path.join(td, "adamtok.so")
+            cmd = ["g++", *flags, "-o", tmp, *_SOURCES, "-lz", "-pthread"]
+            res = subprocess.run(cmd, capture_output=True, timeout=600)
+            if res.returncode == 0:
+                os.replace(tmp, so_path)
+                return so_path
+            errors.append(res.stderr.decode("utf-8", "replace")[-2000:])
+    raise RuntimeError("building the native codecs failed:\n" + "\n".join(errors))
+
+
+def _bind(lib: ct.CDLL) -> None:
+    lib.samtok_scan.restype = ct.c_void_p
+    lib.samtok_scan.argtypes = [_u8p, ct.c_int64, ct.c_int64, ct.c_int]
+    lib.samtok_dims.restype = None
+    lib.samtok_dims.argtypes = [ct.c_void_p, _i64p, _i32p, _i32p, _i64p, _i64p]
+    lib.samtok_fill.restype = ct.c_int
+    lib.samtok_fill.argtypes = [
+        ct.c_void_p, _u8p, _i64p, ct.c_int32, _u8p, _i64p, ct.c_int32,
+        _i32p, _i32p, _i64p, _i64p, _i32p, _i32p, _i64p, _i32p,
+        _i32p, _i32p, _u8p,                     # ...has_qual
+        _u8p, _u8p, ct.c_int64,                 # bases, quals, lmax
+        _u8p, _i32p, _i32p, ct.c_int64,         # cigar_*, cmax
+        _u8p, _i64p,                            # name
+        _u8p, _i64p,                            # attrs
+        _u8p, _i64p, _u8p,                      # md
+        _u8p, _i64p, _u8p,                      # oq
+        _i64p, _i64p, _i64p,                    # byte counts out
+    ]
+    lib.samtok_free.restype = None
+    lib.samtok_free.argtypes = [ct.c_void_p]
+    lib.ref_positions.restype = None
+    lib.ref_positions.argtypes = [
+        _u8p, _i32p, _i32p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
+        _i64p, ct.c_int,
+    ]
+    lib.cigar_strings.restype = ct.c_int64
+    lib.cigar_strings.argtypes = [
+        _u8p, _i32p, _i32p, ct.c_int64, ct.c_int64,
+        _u8p, ct.c_int64, _i64p, ct.c_int,
+    ]
+    lib.span_gather.restype = None
+    lib.span_gather.argtypes = [_u8p, _i64p, _i64p, ct.c_int64, _u8p]
+    lib.span_gather_strided.restype = None
+    lib.span_gather_strided.argtypes = [
+        _u8p, _i64p, _i64p, ct.c_int64, ct.c_int64, _u8p,
+    ]
+    lib.lut_compact_rows.restype = None
+    lib.lut_compact_rows.argtypes = [
+        _u8p, _i32p, _i64p, ct.c_int64, ct.c_int64, _u8p, _u8p, ct.c_int,
+    ]
+    lib.line_index_strided.restype = ct.c_int64
+    lib.line_index_strided.argtypes = [
+        _u8p, ct.c_int64, ct.c_int64, ct.c_int64, _i64p, ct.c_int64,
+    ]
+
+
+def lib() -> ct.CDLL:
+    """The loaded library, built on first call (raises if the build or
+    the load fails)."""
+    global _LIB
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                loaded = ct.CDLL(_build())
+                _bind(loaded)
+                _LIB = loaded
+    return _LIB
+
+
+def _nthreads() -> int:
+    return max(1, min(16, os.cpu_count() or 1))
+
+
+def _as_u8(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, dtype=np.uint8)
+    return np.ascontiguousarray(data, dtype=np.uint8)
+
+
+_DUMMY = np.zeros(1, np.uint8)  # stand-in pointer for zero-size buffers
+
+
+def _u8_ptr(a: np.ndarray):
+    if len(a) == 0:
+        a = _DUMMY
+    return a.ctypes.data_as(_u8p)
+
+
+def _str_dict(names: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+    from adam_tpu_torch.formats.strings import StringColumn
+
+    c = StringColumn.from_list(list(names))
+    return c.buf, c.offsets
+
+
+def tokenize_sam(data, body_off: int, contig_names: Sequence[str],
+                 rg_names: Sequence[str]) -> dict | None:
+    """Tokenize SAM body lines into columnar arrays; None on malformed
+    records."""
+    L_ = lib()
+    buf = _as_u8(data)
+    h = L_.samtok_scan(_u8_ptr(buf), len(buf), body_off, _nthreads())
+    if not h:
+        return None
+    try:
+        n = ct.c_int64()
+        lmax = ct.c_int32()
+        cmax = ct.c_int32()
+        nameb = ct.c_int64()
+        tagb = ct.c_int64()
+        L_.samtok_dims(h, ct.byref(n), ct.byref(lmax), ct.byref(cmax),
+                       ct.byref(nameb), ct.byref(tagb))
+        n, L, C = n.value, max(1, lmax.value), max(1, cmax.value)
+        nameb, tagb = nameb.value, tagb.value
+        out = _alloc_columns(n, L, C, nameb, tagb)
+        cbuf, coff = _str_dict(contig_names)
+        gbuf, goff = _str_dict(rg_names)
+        ab = ct.c_int64()
+        mb = ct.c_int64()
+        qb = ct.c_int64()
+        rc = L_.samtok_fill(
+            h,
+            _u8_ptr(cbuf), coff.ctypes.data_as(_i64p), len(contig_names),
+            _u8_ptr(gbuf), goff.ctypes.data_as(_i64p), len(rg_names),
+            out["flags"].ctypes.data_as(_i32p),
+            out["contig_idx"].ctypes.data_as(_i32p),
+            out["start"].ctypes.data_as(_i64p),
+            out["end"].ctypes.data_as(_i64p),
+            out["mapq"].ctypes.data_as(_i32p),
+            out["mate_contig_idx"].ctypes.data_as(_i32p),
+            out["mate_start"].ctypes.data_as(_i64p),
+            out["tlen"].ctypes.data_as(_i32p),
+            out["rg_idx"].ctypes.data_as(_i32p),
+            out["lengths"].ctypes.data_as(_i32p),
+            _u8_ptr(out["has_qual"]),
+            _u8_ptr(out["bases"].reshape(-1)), _u8_ptr(out["quals"].reshape(-1)),
+            ct.c_int64(L),
+            _u8_ptr(out["cigar_ops"].reshape(-1)),
+            out["cigar_lens"].ctypes.data_as(_i32p),
+            out["cigar_n"].ctypes.data_as(_i32p),
+            ct.c_int64(C),
+            _u8_ptr(out["name_buf"]), out["name_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["attr_buf"]), out["attr_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["md_buf"]), out["md_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["md_present"]),
+            _u8_ptr(out["oq_buf"]), out["oq_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["oq_present"]),
+            ct.byref(ab), ct.byref(mb), ct.byref(qb),
+        )
+        if rc != 0:
+            return None
+        out["attr_buf"] = out["attr_buf"][: ab.value]
+        out["md_buf"] = out["md_buf"][: mb.value]
+        out["oq_buf"] = out["oq_buf"][: qb.value]
+        return out
+    finally:
+        L_.samtok_free(h)
+
+
+def _alloc_columns(n: int, L: int, C: int, nameb: int, tagb: int) -> dict:
+    return dict(
+        n=n, lmax=L, cmax=C,
+        flags=np.empty(n, np.int32),
+        contig_idx=np.empty(n, np.int32),
+        start=np.empty(n, np.int64),
+        end=np.empty(n, np.int64),
+        mapq=np.empty(n, np.int32),
+        mate_contig_idx=np.empty(n, np.int32),
+        mate_start=np.empty(n, np.int64),
+        tlen=np.empty(n, np.int32),
+        rg_idx=np.empty(n, np.int32),
+        lengths=np.empty(n, np.int32),
+        has_qual=np.empty(n, np.uint8),
+        bases=np.empty((n, L), np.uint8),
+        quals=np.empty((n, L), np.uint8),
+        cigar_ops=np.empty((n, C), np.uint8),
+        cigar_lens=np.empty((n, C), np.int32),
+        cigar_n=np.empty(n, np.int32),
+        name_buf=np.empty(max(1, nameb), np.uint8)[:nameb],
+        name_off=np.empty(n + 1, np.int64),
+        attr_buf=np.empty(max(1, tagb), np.uint8),
+        attr_off=np.empty(n + 1, np.int64),
+        md_buf=np.empty(max(1, tagb), np.uint8),
+        md_off=np.empty(n + 1, np.int64),
+        md_present=np.empty(n, np.uint8),
+        oq_buf=np.empty(max(1, tagb), np.uint8),
+        oq_off=np.empty(n + 1, np.int64),
+        oq_present=np.empty(n, np.uint8),
+    )
+
+
+def line_index_strided(data, begin: int, stride: int) -> np.ndarray:
+    """Byte offsets of every ``stride``-th line start in ``data[begin:]``
+    plus the final end offset -> i64 array."""
+    L_ = lib()
+    buf = _as_u8(data)
+    n = len(buf)
+    stride = max(1, int(stride))
+    cap = (n - int(begin)) // stride + 3
+    out = np.empty(cap, np.int64)
+    got = L_.line_index_strided(
+        _u8_ptr(buf), ct.c_int64(n), ct.c_int64(begin),
+        ct.c_int64(stride), out.ctypes.data_as(_i64p), ct.c_int64(cap),
+    )
+    if got < 0:
+        raise RuntimeError("line_index_strided: output capacity exceeded")
+    return out[:got]
+
+
+def ref_positions(cigar_ops, cigar_lens, cigar_n, start, lmax: int) -> np.ndarray:
+    """Per-base reference positions -> i64[N, lmax] (-1 off-reference)."""
+    L_ = lib()
+    ops = np.ascontiguousarray(cigar_ops, np.uint8)
+    lens = np.ascontiguousarray(cigar_lens, np.int32)
+    n_ops = np.ascontiguousarray(cigar_n, np.int32)
+    st = np.ascontiguousarray(start, np.int64)
+    N, C = ops.shape
+    out = np.empty((N, lmax), np.int64)
+    L_.ref_positions(
+        _u8_ptr(ops.reshape(-1)), lens.ctypes.data_as(_i32p),
+        n_ops.ctypes.data_as(_i32p), st.ctypes.data_as(_i64p),
+        ct.c_int64(N), ct.c_int64(C), ct.c_int64(lmax),
+        out.ctypes.data_as(_i64p), ct.c_int(_nthreads()),
+    )
+    return out
+
+
+def cigar_strings(cigar_ops, cigar_lens, cigar_n):
+    """Columnar cigars -> (buf u8, offsets i64[N+1]) run-length strings
+    ('*' when no ops)."""
+    L_ = lib()
+    ops = np.ascontiguousarray(cigar_ops, np.uint8)
+    lens = np.ascontiguousarray(cigar_lens, np.int32)
+    n_ops = np.ascontiguousarray(cigar_n, np.int32)
+    n, C = ops.shape if ops.ndim == 2 else (len(n_ops), 0)
+    if C == 0:
+        off = np.arange(n + 1, dtype=np.int64)
+        return np.full(n, ord("*"), np.uint8), off
+    cap = int(12 * int(np.minimum(n_ops, C).clip(0).sum()) + n + 64)
+    out = np.empty(cap, np.uint8)
+    offsets = np.empty(n + 1, np.int64)
+    got = L_.cigar_strings(
+        _u8_ptr(ops.reshape(-1)), lens.ctypes.data_as(_i32p),
+        n_ops.ctypes.data_as(_i32p), ct.c_int64(n), ct.c_int64(C),
+        _u8_ptr(out), ct.c_int64(cap), offsets.ctypes.data_as(_i64p),
+        ct.c_int(_nthreads()),
+    )
+    if got < 0:
+        raise RuntimeError("cigar_strings: output capacity exceeded")
+    return out[:got], offsets
+
+
+def _spans_in_bounds(starts: np.ndarray, lens: np.ndarray, size: int) -> bool:
+    """Corrupt-offset guard: negative lens from non-monotonic offsets
+    would otherwise overflow the output buffers."""
+    if not len(starts):
+        return True
+    return (
+        int((starts + lens).max()) <= size
+        and int(starts.min()) >= 0
+        and int(lens.min()) >= 0
+    )
+
+
+def span_gather(src: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                total: int):
+    """Packed gather of byte spans [starts[i], starts[i]+lens[i]) ->
+    u8[total]; None when the spans fall outside ``src`` (the caller's
+    numpy path then fails safe)."""
+    L_ = lib()
+    src = np.ascontiguousarray(src, np.uint8)
+    starts = np.ascontiguousarray(starts, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    if not _spans_in_bounds(starts, lens, src.size):
+        return None
+    out = np.empty(int(total), np.uint8)
+    L_.span_gather(
+        _u8_ptr(src), starts.ctypes.data_as(_i64p),
+        lens.ctypes.data_as(_i64p), ct.c_int64(len(starts)), _u8_ptr(out),
+    )
+    return out
+
+
+def span_gather_strided(src: np.ndarray, starts: np.ndarray,
+                        lens: np.ndarray, w: int):
+    """Gather byte spans into a zero-padded [n, w] matrix; None when the
+    spans fall outside ``src`` or exceed ``w``."""
+    L_ = lib()
+    src = np.ascontiguousarray(src, np.uint8)
+    starts = np.ascontiguousarray(starts, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    n = len(starts)
+    if not _spans_in_bounds(starts, lens, src.size) or (
+        n and int(lens.max()) > w
+    ):
+        return None
+    out = np.zeros((n, int(w)), np.uint8)
+    L_.span_gather_strided(
+        _u8_ptr(src), starts.ctypes.data_as(_i64p),
+        lens.ctypes.data_as(_i64p), ct.c_int64(n), ct.c_int64(int(w)),
+        _u8_ptr(out.reshape(-1)),
+    )
+    return out
+
+
+def lut_compact_rows(mat: np.ndarray, lens: np.ndarray, lut: np.ndarray):
+    """Padded byte matrix [N, W] -> (LUT-mapped compact string buffer,
+    i64 arrow offsets), one fused native pass."""
+    L_ = lib()
+    mat = np.ascontiguousarray(mat, np.uint8)
+    n, w = mat.shape
+    lens32 = np.clip(np.asarray(lens), 0, w).astype(np.int32)
+    lut = np.ascontiguousarray(lut, np.uint8)
+    if lut.size < 256:
+        raise ValueError("lut_compact_rows needs a 256-entry LUT")
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(lens32, out=off[1:])
+    out = np.empty(max(1, int(off[-1])), np.uint8)
+    L_.lut_compact_rows(
+        _u8_ptr(mat.reshape(-1)), lens32.ctypes.data_as(_i32p),
+        off.ctypes.data_as(_i64p), ct.c_int64(n), ct.c_int64(w),
+        _u8_ptr(lut), _u8_ptr(out), _nthreads(),
+    )
+    return out[: int(off[-1])], off

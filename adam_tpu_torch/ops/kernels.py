@@ -1,0 +1,133 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (``<name>_launch``), loaded
+with ctypes.  The build runs at first use, from the sources in the
+checkout, into ``csrc/_build/`` (git-ignored), keyed by a hash of the
+source and the flags; :func:`build` starts one ``nvcc`` per missing
+library, all at once.  Nothing here is imported or built on a machine
+that never launches a kernel: the CPU path never calls :func:`library`.
+
+Every launch wrapper calls :func:`count_launch` right where it launches
+its kernel, so a run can show that it went through the kernels
+(:func:`launches`, :func:`reset_launches`).
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_BUILD_DIR = os.path.join(_CSRC, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ct.c_void_p
+_I = ct.c_int64
+#: kernel name -> argtypes of its C entry ``<name>_launch`` (returns the
+#: cudaError_t of the launch as an int)
+_SIGNATURES = {
+    "observe_hist": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "pack_rows": [_P, _P, _P, _I, _I, _P, _I, _P],
+}
+KERNELS = tuple(_SIGNATURES)
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+_LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _so_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every named kernel not yet built, one ``nvcc`` each, all
+    started together -> {name: seconds spent building (0.0 if cached)}.
+    Raises with the compiler's output when any build fails."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        so = _so_path(name)
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(_CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+        ), tmp, so, time.monotonic())
+    seconds = {name: 0.0 for name in names}
+    errors = []
+    for name, (proc, tmp, so, t0) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.monotonic() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed:\n"
+                          + out.decode("utf-8", "replace"))
+            continue
+        os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def library(name: str) -> ct.CDLL:
+    """The loaded library of kernel ``name`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ct.CDLL(_so_path(name))
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = _SIGNATURES[name]
+            fn.restype = ct.c_int
+            _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on the current CUDA stream,
+    count the launch, and raise if the launch failed."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(library(name), f"{name}_launch")(*args, stream)
+    _LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+
+
+def launches() -> dict:
+    """Kernel name -> launches since the last :func:`reset_launches`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0

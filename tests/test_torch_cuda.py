@@ -1,0 +1,120 @@
+"""The port's CUDA kernels on the card: each equals its plain PyTorch
+version bit for bit, counts exactly one launch per call, and carries the
+streamed transform to the same bytes as the CPU run.
+
+This file imports nothing of JAX or ``adam_tpu``, so it runs on a GPU
+machine without them (``python -m pytest tests/test_torch_cuda.py -m
+cuda``).  Without a card every test skips."""
+
+import os
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+
+GRIDS = [(16, 24), (48, 40), (96, 96), (4096, 128)]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _window(seed, g, gl, n_rg=3):
+    from adam_tpu_torch.ops.colpack import pack_mask_bits
+
+    rng = np.random.default_rng(seed)
+    arrays = dict(
+        bases=rng.integers(0, 6, (g, gl)).astype(np.uint8),
+        quals=rng.integers(0, 60, (g, gl)).astype(np.uint8),
+        lengths=rng.integers(1, gl, g).astype(np.int32),
+        flags=rng.integers(0, 256, g).astype(np.int32),
+        rg=rng.integers(-1, n_rg - 1, g).astype(np.int32),
+        res_bits=pack_mask_bits(rng.random((g, gl)) < 0.6),
+        mm_bits=pack_mask_bits(rng.random((g, gl)) < 0.2),
+        read_ok=rng.random(g) < 0.8,
+        has_qual=rng.random(g) < 0.9,
+        valid=rng.random(g) < 0.95,
+        table=rng.integers(2, 43, (n_rg, 94, 2 * gl + 1, 17)).astype(np.uint8),
+    )
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+_WINDOW = ("bases", "quals", "lengths", "flags", "rg")
+
+
+@pytest.mark.parametrize("g,gl", GRIDS)
+def test_kernels_equal_plain_versions(cuda_device, g, gl):
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.colpack import pack_rows, pack_rows_plain
+    from adam_tpu_torch.ops.observe import observe_hist, observe_hist_plain
+    from adam_tpu_torch.pipelines.bqsr import covariate_keys
+
+    w = {k: v.to(cuda_device) for k, v in _window(11 + g, g, gl).items()}
+    size = 3 * 94 * (2 * gl + 1) * 17
+    keys = covariate_keys(*(w[n] for n in _WINDOW), 3, gl)
+    masks = (w["res_bits"], w["mm_bits"], w["read_ok"])
+    before = kernels.launches()
+    got = observe_hist(keys, *masks, size)
+    want = observe_hist_plain(keys, *masks, size)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(want[0].sum()) > 0
+    lens = torch.where(w["valid"], w["lengths"].long(), 0)
+    for n in (g * gl, int(lens.sum()) // 2):  # full payload, and one cut short
+        assert torch.equal(pack_rows(w["quals"], lens, n),
+                           pack_rows_plain(w["quals"], lens, n))
+    after = kernels.launches()
+    assert after["observe_hist"] == before["observe_hist"] + 1
+    assert after["pack_rows"] == before["pack_rows"] + 2
+
+
+@pytest.mark.parametrize("g,gl", GRIDS[1:])
+def test_apply_pack2_on_the_card_equals_the_cpu(cuda_device, g, gl):
+    from adam_tpu_torch.pipelines.bqsr import apply_pack2_body
+
+    w = _window(5 + g, g, gl)
+    args = [w[n] for n in (*_WINDOW, "has_qual", "valid", "table")]
+    want = apply_pack2_body(*args, gl, g * gl)
+    got = apply_pack2_body(*(a.to(cuda_device) for a in args), gl, g * gl)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_wrappers_refuse_bad_cuda_inputs(cuda_device):
+    from adam_tpu_torch.ops.colpack import pack_rows
+    from adam_tpu_torch.ops.observe import observe_hist
+
+    keys = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
+    bits = torch.zeros((4, 2), dtype=torch.uint8, device=cuda_device)
+    ok = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        observe_hist(keys, bits, bits, ok.cpu(), 10)
+    with pytest.raises(ValueError):
+        pack_rows(bits, torch.zeros(4, dtype=torch.int64), 8)
+
+
+def test_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    path = str(tmp_path / "in.sam")
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        stats[dev] = transform_streamed(path, str(tmp_path / dev), window_reads=2048,
+                                        device=dev)
+    assert stats["cuda"]["kernel_launches"] == {"observe_hist": 3, "pack_rows": 6}
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == 3
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()

@@ -1,0 +1,99 @@
+"""The port stands alone: importing ``adam_tpu_torch`` loads neither JAX
+nor any module of ``adam_tpu``, no source of the port (or
+``chip_smoke.py``) imports them, and the device rule holds — the card
+unless the caller asks for the CPU."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax_and_no_adam_tpu():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import adam_tpu_torch
+        names = []
+        for m in pkgutil.walk_packages(adam_tpu_torch.__path__, "adam_tpu_torch."):
+            if m.name != "adam_tpu_torch.__main__":
+                importlib.import_module(m.name)
+                names.append(m.name)
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.")
+                     or n == "adam_tpu" or n.startswith("adam_tpu."))
+        print(len(names), bad)
+        assert len(names) >= 20, names
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+adam_tpu(?!_torch)\b"
+    r"|from\s+adam_tpu(?!_torch)\b)",
+    re.MULTILINE,
+)
+
+
+def test_sources_import_no_jax_and_no_adam_tpu():
+    files = sorted((REPO / "adam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    hits = [
+        f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+        for f in files for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not hits, hits
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax import numpy", "import adam_tpu",
+                 "from adam_tpu.io import sam", "    from adam_tpu import native"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import adam_tpu_torch", "from adam_tpu_torch.ops import kernels",
+                 "# the JAX package adam_tpu is the reference"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    from adam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
+    assert DEFAULT_DEVICE == "cuda"
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_streamed_transform_defaults_to_the_card(tmp_path):
+    import inspect
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    assert inspect.signature(transform_streamed).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            transform_streamed(str(tmp_path / "missing.sam"), str(tmp_path / "out"))
+
+
+def test_realign_names_the_next_slice(tmp_path):
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    with pytest.raises(NotImplementedError, match="next slice"):
+        transform_streamed(str(tmp_path / "x.sam"), str(tmp_path / "out"),
+                           realign=True, device="cpu")
