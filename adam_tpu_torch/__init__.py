@@ -12,4 +12,13 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; see :mod:`adam_tpu_torch.device`.
 """
 
+import os
+
+# pyarrow's bundled mimalloc crashes (a segfault in a later arrow call)
+# once short-lived threads that allocated through it have exited — the
+# shape of the streamed transform's writer pool.  Pin the system
+# allocator before pyarrow initializes; io/parquet.py repeats this with
+# set_memory_pool for processes that imported pyarrow first.
+os.environ.setdefault("ARROW_DEFAULT_MEMORY_POOL", "system")
+
 __version__ = "0.1.0"

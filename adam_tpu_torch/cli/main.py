@@ -1,11 +1,15 @@
 """Command line of the port: ``python -m adam_tpu_torch transform ...``.
 
-Flag spellings follow the JAX package's CLI.  This slice supports the
-streamed markdup + BQSR transform::
+Flag spellings follow the JAX package's CLI.  The port runs the streamed
+markdup + realign + BQSR transform::
 
     python -m adam_tpu_torch transform IN.sam OUT.adam -streaming \\
-        -mark_duplicate_reads -recalibrate_base_qualities \\
+        -mark_duplicate_reads -realign_indels -recalibrate_base_qualities \\
         [-window_reads N] [--device cuda|cpu]
+
+``-realign_indels`` realigns with the ``reads`` consensus model, as the
+JAX CLI does (the ``smithwaterman`` model is a library option of
+``transform_streamed``).
 
 On success the run's stats (stage walls, read counts, kernel launches)
 are printed to standard output as one JSON line.
@@ -22,7 +26,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="adam_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser(
-        "transform", help="markdup + BQSR over a SAM file -> Parquet parts"
+        "transform", help="markdup + realign + BQSR over a SAM file -> Parquet parts"
     )
     p.add_argument("input", help="input SAM (.sam or .sam.gz)")
     p.add_argument("output", help="output directory of Parquet parts")

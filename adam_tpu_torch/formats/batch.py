@@ -118,6 +118,43 @@ class ReadBatch:
     def replace(self, **kw) -> "ReadBatch":
         return dataclasses.replace(self, **kw)
 
+    def take(self, idx) -> "ReadBatch":
+        """Row gather of a host batch."""
+        idx = np.asarray(idx)
+        return ReadBatch(**{k: np.asarray(v)[idx] for k, v in self.arrays().items()})
+
+    @staticmethod
+    def concat(batches) -> "ReadBatch":
+        """Concatenate host batches along rows, widening L/C to the max."""
+        batches = [b for b in batches if b.n_rows]
+        if not batches:
+            return ReadBatch.empty()
+        lmax = max(b.lmax for b in batches)
+        cmax = max(b.cmax for b in batches)
+        batches = [b.to_numpy().widen(lmax, cmax) for b in batches]
+        return ReadBatch(**{
+            k: np.concatenate([b.arrays()[k] for b in batches], axis=0)
+            for k in batches[0].arrays()
+        })
+
+    def widen(self, lmax: int, cmax: int) -> "ReadBatch":
+        """Grow a host batch's per-read padding lanes to lmax/cmax."""
+        if lmax == self.lmax and cmax == self.cmax:
+            return self
+
+        def padlane(x, width, fill):
+            x = np.asarray(x)
+            if x.shape[1] == width:
+                return x
+            return np.pad(x, [(0, 0), (0, width - x.shape[1])], constant_values=fill)
+
+        return self.replace(
+            bases=padlane(self.bases, lmax, schema.BASE_PAD),
+            quals=padlane(self.quals, lmax, schema.QUAL_PAD),
+            cigar_ops=padlane(self.cigar_ops, cmax, schema.CIGAR_PAD),
+            cigar_lens=padlane(self.cigar_lens, cmax, 0),
+        )
+
     def to_numpy(self) -> "ReadBatch":
         """Host copy (numpy arrays; a no-op for a host batch)."""
         return ReadBatch(**{k: _to_numpy(v) for k, v in self.arrays().items()})
@@ -194,6 +231,25 @@ class ReadSidecar:
             orig_quals=self.orig_quals.take(idx),
             trimmed_from_start=self.trimmed_from_start[idx],
             trimmed_from_end=self.trimmed_from_end[idx],
+        )
+
+    @staticmethod
+    def concat(sides) -> "ReadSidecar":
+        from adam_tpu_torch.formats.strings import StringColumn
+
+        if not sides:
+            return ReadSidecar()
+        return ReadSidecar(
+            names=StringColumn.concat([s.names for s in sides]),
+            attrs=StringColumn.concat([s.attrs for s in sides]),
+            md=StringColumn.concat([s.md for s in sides]),
+            orig_quals=StringColumn.concat([s.orig_quals for s in sides]),
+            trimmed_from_start=np.concatenate(
+                [np.asarray(s.trimmed_from_start, np.int32) for s in sides]
+            ),
+            trimmed_from_end=np.concatenate(
+                [np.asarray(s.trimmed_from_end, np.int32) for s in sides]
+            ),
         )
 
     def __len__(self) -> int:

@@ -57,6 +57,17 @@ class StringColumn:
             return value
         return StringColumn.from_list(value)
 
+    @staticmethod
+    def full(n: int, value: Optional[str] = None) -> "StringColumn":
+        if value is None:
+            return StringColumn(
+                np.zeros(0, np.uint8), np.zeros(n + 1, np.int64),
+                np.zeros(n, bool),
+            )
+        b = value.encode()
+        offsets = np.arange(n + 1, dtype=np.int64) * len(b)
+        return StringColumn(np.frombuffer(b * n, np.uint8).copy(), offsets)
+
     # ---------------------------------------------------------- list compat
     def __len__(self) -> int:
         return len(self.offsets) - 1
@@ -115,6 +126,21 @@ class StringColumn:
         else:
             out = np.empty(0, dtype=np.uint8)
         return StringColumn(out, new_off, self.valid[idx])
+
+    @staticmethod
+    def concat(cols: Sequence["StringColumn"]) -> "StringColumn":
+        cols = [StringColumn.of(c) for c in cols]
+        if not cols:
+            return StringColumn.full(0)
+        n = sum(len(c) for c in cols)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        lens = np.concatenate([c.lengths() for c in cols])
+        np.cumsum(lens, out=offsets[1:])
+        return StringColumn(
+            np.concatenate([c.buf for c in cols]),
+            offsets,
+            np.concatenate([c.valid for c in cols]),
+        )
 
     def to_fixed_bytes(self) -> np.ndarray:
         """-> S{maxlen} numpy array (for np.unique-style exact grouping)."""
@@ -179,6 +205,29 @@ class StringColumn:
                 pa.py_buffer(np.ascontiguousarray(self.buf)),
             ],
         )
+
+
+def with_overrides(col: "StringColumn", overrides: dict) -> "StringColumn":
+    """Replace a sparse set of rows ({row: str|None}) in one vectorized
+    pass — the whole column is never materialized as python strings."""
+    if not overrides:
+        return col
+    n = len(col)
+    idx = np.fromiter(sorted(overrides), np.int64, len(overrides))
+    vals = [overrides[int(i)] for i in idx]
+    enc = [v.encode("utf-8") if v is not None else b"" for v in vals]
+    lens = np.zeros(n, np.int64)
+    lens[idx] = [len(e) for e in enc]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    buf = np.frombuffer(b"".join(enc), np.uint8)
+    valid = col.valid.copy()
+    valid[idx] = [v is not None for v in vals]
+    repl = StringColumn(buf, offsets, valid)
+    mask = np.zeros(n, bool)
+    mask[idx] = True
+    return StringColumn.where(mask, repl, col)
+
 
 def _span_gather_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Flat source indices covering [starts[i], starts[i]+lens[i]) per row."""

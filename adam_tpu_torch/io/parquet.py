@@ -194,6 +194,11 @@ class PartWriterPool:
     INFLIGHT_PARTS = 3
 
     def __init__(self, compression: str = "zstd"):
+        import pyarrow as pa
+
+        # the system allocator, not pyarrow's mimalloc: see
+        # adam_tpu_torch/__init__.py (pyarrow may have been imported first)
+        pa.set_memory_pool(pa.system_memory_pool())
         self._enc = ThreadPoolExecutor(self.N_ENCODERS)
         self._io = ThreadPoolExecutor(1)
         self._gate = threading.Semaphore(self.INFLIGHT_PARTS)

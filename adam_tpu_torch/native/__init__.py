@@ -7,7 +7,9 @@ compiled with ``g++`` at first use into ``native/_build/`` (git-ignored),
 keyed by a hash of the sources, the flags and the compiler.
 
 Unlike ``adam_tpu/native``, nothing here degrades to a pure-Python codec:
-a failed build raises.  Only the functions this package calls are bound.
+a failed build raises, and so does a binding that cannot do its work
+(where the JAX package's wrappers return None for the caller to fall
+back).  Only the functions this package calls are bound.
 """
 
 from __future__ import annotations
@@ -125,6 +127,40 @@ def _bind(lib: ct.CDLL) -> None:
     lib.line_index_strided.restype = ct.c_int64
     lib.line_index_strided.argtypes = [
         _u8p, ct.c_int64, ct.c_int64, ct.c_int64, _i64p, ct.c_int64,
+    ]
+    lib.realign_prep.restype = ct.c_void_p
+    lib.realign_prep.argtypes = [
+        _u8p, _u8p, ct.c_int64, ct.c_int64,            # bases/quals/N/L
+        _i32p, _i64p,                                  # lengths/start
+        _u8p, _i32p, _i32p, ct.c_int64,                # cigar cols + C
+        _u8p, _i64p, _u8p,                             # md buf/off/valid
+        _i64p, _i64p, ct.c_int64,                      # grows/goff/G
+        ct.c_int,                                      # gen_consensus
+    ]
+    lib.realign_prep_dims.restype = None
+    lib.realign_prep_dims.argtypes = [
+        ct.c_void_p, _i64p, _i64p, _i64p, _i64p, _i64p, _i64p,
+        _i64p, _i64p,
+    ]
+    lib.realign_prep_fill.restype = None
+    lib.realign_prep_fill.argtypes = [
+        ct.c_void_p,
+        _i32p, _u8p, _i64p, _i64p, _i64p,              # targets
+        _i32p, _i64p, _u8p, _i64p, _u8p, _i64p, _u8p,  # reads
+        _u8p, _u8p, _i64p,
+        _i32p, _u8p, _i64p, _i64p, _i64p,              # consensuses
+    ]
+    lib.realign_prep_free.restype = None
+    lib.realign_prep_free.argtypes = [ct.c_void_p]
+    lib.md_move_batch.restype = ct.c_int64
+    lib.md_move_batch.argtypes = [
+        _u8p, ct.c_int64, ct.c_int64, _i32p,
+        _i64p, ct.c_int64,
+        _u8p, _i64p,
+        _i32p, _i64p,
+        _i32p, _i32p, _u8p, _i32p, _i64p,
+        _u8p, ct.c_int64, _i64p,
+        _i64p, _i64p,
     ]
 
 
@@ -396,3 +432,149 @@ def lut_compact_rows(mat: np.ndarray, lens: np.ndarray, lut: np.ndarray):
         _u8_ptr(lut), _u8_ptr(out), _nthreads(),
     )
     return out[: int(off[-1])], off
+
+
+def realign_prep(b, md_col_buf, md_col_off, md_valid, grows, goff,
+                 gen_consensus: bool) -> dict:
+    """Native phase-1 realignment prep (``realign.cpp``): per target the
+    rebuilt reference, per to-clean read its left-normalized CIGAR/MD and
+    original mismatch quality, per target the read-generated consensuses.
+
+    ``b`` is a host ReadBatch of the candidate rows; the groups are the
+    flat row list ``grows`` + offsets ``goff``.  Raises ValueError for
+    malformed MD / missing deleted bases and IndexError for CIGAR
+    overruns, as the Python path does."""
+    L_ = lib()
+    bases = np.ascontiguousarray(b.bases, np.uint8)
+    quals = np.ascontiguousarray(b.quals, np.uint8)
+    N, L = bases.shape
+    lengths = np.ascontiguousarray(b.lengths, np.int32)
+    start = np.ascontiguousarray(b.start, np.int64)
+    ops = np.ascontiguousarray(b.cigar_ops, np.uint8)
+    lens = np.ascontiguousarray(b.cigar_lens, np.int32)
+    n_ops = np.ascontiguousarray(b.cigar_n, np.int32)
+    C = ops.shape[1]
+    md_buf = np.ascontiguousarray(md_col_buf, np.uint8)
+    md_off = np.ascontiguousarray(md_col_off, np.int64)
+    md_val = np.ascontiguousarray(md_valid, np.uint8)
+    grows = np.ascontiguousarray(grows, np.int64)
+    goff = np.ascontiguousarray(goff, np.int64)
+    G = len(goff) - 1
+    h = L_.realign_prep(
+        _u8_ptr(bases), _u8_ptr(quals), ct.c_int64(N), ct.c_int64(L),
+        lengths.ctypes.data_as(_i32p), start.ctypes.data_as(_i64p),
+        _u8_ptr(ops.reshape(-1)), lens.ctypes.data_as(_i32p),
+        n_ops.ctypes.data_as(_i32p), ct.c_int64(C),
+        _u8_ptr(md_buf), md_off.ctypes.data_as(_i64p), _u8_ptr(md_val),
+        grows.ctypes.data_as(_i64p), goff.ctypes.data_as(_i64p),
+        ct.c_int64(G), ct.c_int(1 if gen_consensus else 0),
+    )
+    if not h:
+        raise RuntimeError("realign_prep: the native prep returned no state")
+    try:
+        dims = [np.zeros(1, np.int64) for _ in range(8)]
+        L_.realign_prep_dims(ct.c_void_p(h), *[d.ctypes.data_as(_i64p) for d in dims])
+        (n_reads, cigar_bytes, md_bytes, n_cons, cons_bytes, ref_bytes,
+         err, err_row) = (int(d[0]) for d in dims)
+        if err:
+            if err == 2:
+                raise IndexError(f"realign prep: CIGAR overruns read at row {err_row}")
+            raise ValueError(f"realign prep: malformed MD/alignment at row {err_row}")
+        out = {
+            "t_status": np.zeros(G, np.int32),
+            "t_ref_buf": np.zeros(max(ref_bytes, 1), np.uint8),
+            "t_ref_off": np.zeros(G + 1, np.int64),
+            "t_ref_start": np.zeros(G, np.int64),
+            "t_ref_end": np.zeros(G, np.int64),
+            "r_group": np.zeros(n_reads, np.int32),
+            "r_row": np.zeros(n_reads, np.int64),
+            "r_cigar_buf": np.zeros(max(cigar_bytes, 1), np.uint8),
+            "r_cigar_off": np.zeros(n_reads + 1, np.int64),
+            "r_md_buf": np.zeros(max(md_bytes, 1), np.uint8),
+            "r_md_off": np.zeros(n_reads + 1, np.int64),
+            "r_md_set": np.zeros(n_reads, np.uint8),
+            "r_dirty": np.zeros(n_reads, np.uint8),
+            "r_pure": np.zeros(n_reads, np.uint8),
+            "r_orig_qual": np.zeros(n_reads, np.int64),
+            "c_group": np.zeros(n_cons, np.int32),
+            "c_seq_buf": np.zeros(max(cons_bytes, 1), np.uint8),
+            "c_seq_off": np.zeros(n_cons + 1, np.int64),
+            "c_is": np.zeros(n_cons, np.int64),
+            "c_ie": np.zeros(n_cons, np.int64),
+        }
+        L_.realign_prep_fill(
+            ct.c_void_p(h),
+            out["t_status"].ctypes.data_as(_i32p),
+            _u8_ptr(out["t_ref_buf"]),
+            out["t_ref_off"].ctypes.data_as(_i64p),
+            out["t_ref_start"].ctypes.data_as(_i64p),
+            out["t_ref_end"].ctypes.data_as(_i64p),
+            out["r_group"].ctypes.data_as(_i32p),
+            out["r_row"].ctypes.data_as(_i64p),
+            _u8_ptr(out["r_cigar_buf"]),
+            out["r_cigar_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["r_md_buf"]),
+            out["r_md_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["r_md_set"]),
+            _u8_ptr(out["r_dirty"]),
+            _u8_ptr(out["r_pure"]),
+            out["r_orig_qual"].ctypes.data_as(_i64p),
+            out["c_group"].ctypes.data_as(_i32p),
+            _u8_ptr(out["c_seq_buf"]),
+            out["c_seq_off"].ctypes.data_as(_i64p),
+            out["c_is"].ctypes.data_as(_i64p),
+            out["c_ie"].ctypes.data_as(_i64p),
+        )
+        return out
+    finally:
+        L_.realign_prep_free(ct.c_void_p(h))
+
+
+def md_move_batch(b, rows, ref_buf, ref_off, tloc, offs,
+                  head_len, mid_len, mid_op, end_len, new_start):
+    """Batched ``MdTag.move_alignment`` + canonical ``to_string`` for the
+    realigned reads -> (md_buf u8, md_off i64[K+1])."""
+    L_ = lib()
+    bases = np.ascontiguousarray(b.bases, np.uint8)
+    N, L = bases.shape
+    lengths = np.ascontiguousarray(b.lengths, np.int32)
+    rows = np.ascontiguousarray(rows, np.int64)
+    K = len(rows)
+    ref_buf = np.ascontiguousarray(ref_buf, np.uint8)
+    ref_off = np.ascontiguousarray(ref_off, np.int64)
+    tloc = np.ascontiguousarray(tloc, np.int32)
+    offs = np.ascontiguousarray(offs, np.int64)
+    head_len = np.ascontiguousarray(head_len, np.int32)
+    mid_len = np.ascontiguousarray(mid_len, np.int32)
+    mid_op = np.ascontiguousarray(mid_op, np.uint8)
+    end_len = np.ascontiguousarray(end_len, np.int32)
+    new_start = np.ascontiguousarray(new_start, np.int64)
+    # MD length bound: digits+bases over the span plus deletion bases
+    cap = int(K * (L + 64) + int(mid_len.sum()) + 64)
+    err = np.zeros(1, np.int64)
+    err_row = np.zeros(1, np.int64)
+    for _ in range(2):
+        out = np.zeros(max(cap, 1), np.uint8)
+        out_off = np.zeros(K + 1, np.int64)
+        got = L_.md_move_batch(
+            _u8_ptr(bases), ct.c_int64(N), ct.c_int64(L),
+            lengths.ctypes.data_as(_i32p),
+            rows.ctypes.data_as(_i64p), ct.c_int64(K),
+            _u8_ptr(ref_buf), ref_off.ctypes.data_as(_i64p),
+            tloc.ctypes.data_as(_i32p), offs.ctypes.data_as(_i64p),
+            head_len.ctypes.data_as(_i32p), mid_len.ctypes.data_as(_i32p),
+            _u8_ptr(mid_op), end_len.ctypes.data_as(_i32p),
+            new_start.ctypes.data_as(_i64p),
+            _u8_ptr(out), ct.c_int64(cap), out_off.ctypes.data_as(_i64p),
+            err.ctypes.data_as(_i64p), err_row.ctypes.data_as(_i64p),
+        )
+        if int(err[0]):
+            if int(err[0]) == 2:
+                raise IndexError(
+                    f"md_move_batch: alignment overrun at row {int(err_row[0])}"
+                )
+            raise ValueError(f"md_move_batch: bad alignment at row {int(err_row[0])}")
+        if got >= 0:
+            return out[:got], out_off
+        cap = -got
+    raise RuntimeError("md_move_batch: output capacity exceeded twice")

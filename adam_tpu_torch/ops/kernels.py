@@ -32,11 +32,14 @@ NVCC_FLAGS = [
 
 _P = ct.c_void_p
 _I = ct.c_int64
+_F = ct.c_float
 #: kernel name -> argtypes of its C entry ``<name>_launch`` (returns the
 #: cudaError_t of the launch as an int)
 _SIGNATURES = {
     "observe_hist": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "pack_rows": [_P, _P, _P, _I, _I, _P, _I, _P],
+    "sw_fill": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "sw_score": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, ct.c_int, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -1,5 +1,5 @@
-"""The streamed markdup + BQSR transform on one device — a lean
-counterpart of ``adam_tpu/pipelines/streamed.transform_streamed``.
+"""The streamed markdup + realign + BQSR transform on one device — a
+lean counterpart of ``adam_tpu/pipelines/streamed.transform_streamed``.
 
 The input is tokenized in windows by an ingest thread while the main
 thread runs three passes with two global barriers:
@@ -7,20 +7,31 @@ thread runs three passes with two global barriers:
   pass A     per window: place the window on the device (ingest-once:
              bases, quals, lengths, flags, read groups), dispatch its
              duplicate-marking reductions (5' keys, scores) and fold the
-             fetched columns into a compact host summary.
+             fetched columns into a compact host summary; with
+             realignment, extract the window's indel events.
   barrier 1  resolve duplicates over all windows' summaries (the 9-key
-             lexsort on the device) and set the duplicate flags.
+             lexsort on the device) and set the duplicate flags; merge
+             the indel events of all windows into realignment targets.
+  split      per window: rows mapped to a target are gathered as
+             realignment candidates and masked out of the window.
   pass B     per window: host MD walk -> bit-packed residue-ok and
              mismatch masks, shipped to the device; covariate keys and
              the observe histogram (CUDA kernel ``observe_hist``) run
              there and stay there until the barrier.
+  tail       realign the concatenated candidates (the sweeps, and under
+             ``consensus_model="smithwaterman"`` the Smith-Waterman fill
+             ``sw_fill``, on the device), then observe the realigned part
+             as window ``n_windows`` with its post-realignment alignments
+             (markdup -> realign -> BQSR, the reference's composition).
   barrier 2  fetch and merge the histograms in window order, solve the
              recalibration table on the host (f64 numpy).
   pass C     per window: table gather, SANGER encode, base decode and
              two row-prefix packs (CUDA kernel ``pack_rows``) on the
              device, double-buffered; the packed columns come home
              (``sum(lengths)`` bytes each), OQ is stashed on the host and
-             a writer pool encodes and publishes the Parquet part.
+             a writer pool encodes and publishes the Parquet part.  The
+             realigned part goes first, as part ``n_windows``; a window
+             whose rows were all realigned away writes no part.
 
 Every Parquet part is byte-identical to the JAX package's streamed run on
 the same input and flags (``tests/test_torch_streamed.py``).
@@ -80,7 +91,7 @@ def _observe_window(ds: AlignmentDataset, rw, device):
     from adam_tpu_torch.pipelines import bqsr
 
     b = ds.batch.to_numpy()
-    is_mm, has_md = batch_md_arrays(b, ds.sidecar)
+    is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
     read_ok = bqsr.observe_read_mask(b, has_md)
     residue_ok = bqsr.observe_residue_mask(b)
     n_rg = len(ds.read_groups) + 1
@@ -140,31 +151,40 @@ def transform_streamed(
     mark_duplicates: bool = True,
     recalibrate: bool = True,
     realign: bool = False,
+    consensus_model: str = "reads",
     window_reads: int = 262_144,
     compression: str = "zstd",
+    max_indel_size: int | None = None,
+    max_consensus_number: int | None = None,
+    lod_threshold: float | None = None,
+    max_target_size: int | None = None,
     dump_observations: Optional[str] = None,
     device: str = "cuda",
 ) -> dict:
-    """Run the streamed markdup + BQSR transform -> stats (stage walls in
-    seconds, read and window counts, kernel launches in this run).
+    """Run the streamed markdup + realign + BQSR transform -> stats (stage
+    walls in seconds, read, window and candidate counts, kernel launches
+    in this run).
 
     Output is a Parquet part-file directory, ``out_path/part-r-NNNNN.parquet``
-    with one part per input window.  ``device`` is ``"cuda"`` (default)
-    or ``"cpu"``; the CPU runs each kernel's plain PyTorch version."""
-    if realign:
-        raise NotImplementedError(
-            "indel realignment is not ported yet: it is the next slice of "
-            "the port (pipelines/realign.py, with the smithwaterman "
-            "consensus mode's two kernels); run with realign=False"
-        )
+    with one part per input window that keeps rows, plus the realigned
+    part ``n_windows``.  ``realign`` turns on indel realignment with the
+    ``consensus_model`` ("reads", or "smithwaterman"; "knowns" without a
+    table falls back to read consensuses, as in the JAX package) and the
+    JAX package's tuning knobs (None = its defaults).  ``device`` is
+    ``"cuda"`` (default) or ``"cpu"``; the CPU runs each kernel's plain
+    PyTorch version."""
     from adam_tpu_torch.io.parquet import (
         PartWriterPool, part_path, purge_stale_staging,
     )
     from adam_tpu_torch.parallel.device_pool import ResidentWindow
     from adam_tpu_torch.pipelines import bqsr
     from adam_tpu_torch.pipelines import markdup as md
+    from adam_tpu_torch.pipelines import realign as ra
 
     dev = resolve_device(device)
+    mis, mcn, lod, mts = ra.resolve_tuning(
+        max_indel_size, max_consensus_number, lod_threshold, max_target_size
+    )
     launches0 = kernels.launches()
     t_start = time.monotonic()
     stats: dict = {"device": str(dev)}
@@ -182,6 +202,7 @@ def transform_streamed(
     windows: list[AlignmentDataset] = []
     resident: list = []
     summaries: list[dict] = []
+    events: list = []
     pend_cols: deque = deque()
     header = None
     n_reads = 0
@@ -211,6 +232,8 @@ def transform_streamed(
                 pend_cols.append((win, md.markdup_columns(batch, resident[win])))
                 if len(pend_cols) >= 2:
                     summarize(*pend_cols.popleft())
+            if realign:
+                events.append(ra.extract_indel_event_arrays(batch, max_indel_size=mis))
         while pend_cols:
             summarize(*pend_cols.popleft())
     except BaseException:
@@ -222,7 +245,7 @@ def transform_streamed(
     stats["n_reads"] = n_reads
     stats["n_windows"] = len(windows)
 
-    # ---- barrier 1: resolve duplicates ---------------------------------
+    # ---- barrier 1: resolve duplicates, merge realignment targets -----
     t0 = time.monotonic()
     if mark_duplicates and summaries:
         dup = md.resolve_duplicates(md.concat_summaries(summaries), device=dev)
@@ -235,16 +258,62 @@ def transform_streamed(
             off += n
         stats["n_duplicates"] = int(dup.sum())
     del summaries
+    names = header.seq_dict.names if header is not None else []
+    targets = ra.merge_events(
+        np.concatenate(events, axis=0) if events else np.zeros((0, 5), np.int64),
+        names, mts,
+    ) if realign else []
+    del events
     stats["resolve_s"] = time.monotonic() - t0
+
+    # ---- split: candidate rows leave their windows (pre-BQSR) ----------
+    t0 = time.monotonic()
+    candidates: list[AlignmentDataset] = []
+    window_valid: list[int] = []
+    for i, w in enumerate(windows):
+        n_valid = w.batch.n_rows
+        if targets:
+            cand, w, n_valid = ra.split_realign_candidates(w, targets, names)
+            if cand is not None:
+                candidates.append(cand)
+            windows[i] = w
+        window_valid.append(n_valid)
+    stats["split_s"] = time.monotonic() - t0
+    stats["n_candidates"] = sum(c.batch.n_rows for c in candidates)
 
     # ---- pass B: observe every window (histograms stay on the device) --
     t0 = time.monotonic()
     obs_parts = []
     if recalibrate:
         for i, w in enumerate(windows):
-            if w.batch.n_rows:
+            if window_valid[i]:
                 obs_parts.append(_observe_window(w, resident[i], dev))
     stats["observe_s"] = time.monotonic() - t0
+
+    # ---- tail: realign the candidates, observe the realigned part ------
+    t0 = time.monotonic()
+    realigned = None
+    if candidates:
+        cand = AlignmentDataset.concat(candidates)
+        del candidates
+        realigned = ra.realign_indels(
+            cand, consensus_model=consensus_model, max_indel_size=mis,
+            max_consensus_number=mcn, lod_threshold=lod, max_target_size=mts,
+            device=dev,
+        )
+        stats["n_realigned"] = _n_moved(cand.batch, realigned.batch)
+        del cand
+    else:
+        stats["n_realigned"] = 0
+    stats["realign_s"] = time.monotonic() - t0
+    if realigned is not None:
+        t0 = time.monotonic()
+        # the realigned part is a window too: placed once, it serves both
+        # its observe and its pass-C apply
+        resident.append(ResidentWindow.place(realigned.batch, dev))
+        if recalibrate:
+            obs_parts.append(_observe_window(realigned, resident[-1], dev))
+        stats["observe_s"] += time.monotonic() - t0
 
     # ---- barrier 2: merge histograms, solve the table ------------------
     t0 = time.monotonic()
@@ -263,9 +332,18 @@ def transform_streamed(
     stats["solve_s"] = time.monotonic() - t0
 
     # ---- pass C: apply + pack || encode || part writes -----------------
+    # the realigned part applies and submits first (it is the largest
+    # part, so its encode and write overlap the window applies); windows
+    # with no valid row left write no part
     t0 = time.monotonic()
     pool = PartWriterPool(compression=compression)
-    parts = [i for i, w in enumerate(windows) if w.batch.n_rows]
+    n_win = len(windows)
+    if realigned is not None:
+        windows.append(realigned)
+        window_valid.append(realigned.batch.n_rows)
+    parts = ([n_win] if realigned is not None else []) + [
+        i for i in range(n_win) if window_valid[i]
+    ]
     try:
         if table is not None:
             table_dev = torch.from_numpy(table).to(dev)
@@ -297,6 +375,17 @@ def transform_streamed(
     now = kernels.launches()
     stats["kernel_launches"] = {k: now[k] - launches0[k] for k in now}
     return stats
+
+
+def _n_moved(before, after) -> int:
+    """Rows whose alignment (start or CIGAR) the realignment changed."""
+    a, b = before.to_numpy(), after.to_numpy()
+    moved = (np.asarray(a.start) != np.asarray(b.start)) | (
+        np.asarray(a.cigar_n) != np.asarray(b.cigar_n)
+    )
+    moved |= (np.asarray(a.cigar_ops) != np.asarray(b.cigar_ops)).any(axis=1)
+    moved |= (np.asarray(a.cigar_lens) != np.asarray(b.cigar_lens)).any(axis=1)
+    return int(moved.sum())
 
 
 def _submit_args(done):

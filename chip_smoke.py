@@ -5,18 +5,28 @@ Phases, each of which fails the script on any error:
 1. the card: its name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels (one nvcc per source, started together) and
    the native host codecs;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (g = 262,144 rows, gl = 128 lanes, n_rg = 3),
-   inputs from a numpy seed; bit equality required; times by CUDA events;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   inputs from a numpy seed, bit equality required, times by CUDA events:
+   observe_hist and pack_rows at the main path's shapes (g = 262,144
+   rows, gl = 128 lanes, n_rg = 3); sw_score at ``benchmark_gcups``'
+   shape (B = 8,192, lx = ly = 127) in f32 (weights 1, -0.333, -0.5,
+   -0.5) and i16 (2, -1, -1, -1), each then driven through
+   ``benchmark_gcups`` with its launches counted (GCUPS printed);
 4. main path: a WGS-shaped SAM of 1,048,576 reads x 100 bp (4 contigs x
    800 kb, 2 read groups, PCR duplicates, soft clips) through
    ``python -m adam_tpu_torch transform -streaming -mark_duplicate_reads
-   -recalibrate_base_qualities -window_reads 262144`` on the card, with
-   the kernels' launch counts read around the run and the parts read back;
-   then the same run once more under ``torch.profiler`` for the device's
-   busy share of the wall;
-5. card vs CPU: a 65,536-read input through the same transform on the
-   card and on the CPU (plain versions); the parts must be byte-identical.
+   -realign_indels -recalibrate_base_qualities -window_reads 262144`` on
+   the card, launch counts read around the run, parts read back (one per
+   window plus the realigned part, some rows carrying OC:Z:); the same
+   run once more under ``torch.profiler`` for the device's busy share;
+   then the transform without realignment on the same input;
+4b. the smithwaterman consensus model: ``transform_streamed(...,
+   realign=True, consensus_model="smithwaterman")`` on the same input
+   through the library call, every sw_fill launch's (B, lx, ly) logged;
+   then sw_fill against its plain version at the median launch shape;
+5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
+   the card and on the CPU (plain versions), under both consensus
+   models; the parts must be byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -40,9 +50,12 @@ import time
 
 MAIN_READS = 1_048_576
 WINDOW_READS = 262_144
+SW_READS = 1_048_576
 PARITY_READS = 65_536
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 peak (data sheet)
+SW_WEIGHTS = {"f32": (1.0, -0.333, -0.5, -0.5), "i16": (2.0, -1.0, -1.0, -1.0)}
 
 
 def _log(msg: str) -> None:
@@ -56,10 +69,10 @@ def _smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int = 20) -> float:
+def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -185,7 +198,134 @@ def check_kernels(dev) -> list:
     return out
 
 
-def run_transform(sam: str, out_dir: str, device: str) -> dict:
+def _sw_score_ops_per_cell(lx: int) -> int:
+    """f32/int operations the score fill does per cell (sw_score.cu): the
+    substitution's compare and select, two adds and two maxes
+    (``mx(mx(m, insert), 0)``), an add and a max per doubling step of the
+    delete chain, then the clamp, the mask select and the running-best
+    max: 23 at lx = 127."""
+    n_shifts = 0
+    s = 1
+    while s < lx:
+        n_shifts += 1
+        s *= 2
+    return 6 + 2 * n_shifts + 3
+
+
+def check_sw_score(dev, B: int = 8192, lx: int = 127, ly: int = 127) -> list:
+    """sw_score against its plain version at benchmark_gcups' shape, f32 and
+    i16; then each driven through benchmark_gcups (the GCUPS path), its
+    launches counted around that call."""
+    import numpy as np
+    import torch
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops import smith_waterman as sw
+
+    rng = np.random.default_rng(SEED)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 4, (B, lx)).astype(np.int32), np.full(B, lx, np.int32),
+        rng.integers(0, 4, (B, ly)).astype(np.int32), np.full(B, ly, np.int32))]
+    out = []
+    for dtype_name, w in SW_WEIGHTS.items():
+        got = sw.sw_best_scores(*args, *w, dtype_name=dtype_name)
+        want = sw.sw_score_plain(*args, *w, lx, ly, dtype_name)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ms = _time_ms(lambda: sw.sw_best_scores(*args, *w, dtype_name=dtype_name))
+        plain_ms = _time_ms(lambda: sw.sw_score_plain(*args, *w, lx, ly, dtype_name),
+                            iters=2, warm=1)
+        cells = B * lx * ly
+        ops_ms = cells * _sw_score_ops_per_cell(lx) / F32_OPS_PER_S * 1e3
+        bytes_ms = (4 * B * (lx + ly + 2) + 4 * B) / HBM_BYTES_PER_S * 1e3
+        kernels.reset_launches()
+        gcups_path = sw.benchmark_gcups(B, lx, ly, reps=6, dtype_name=dtype_name,
+                                        trials=3, device="cuda")
+        launched = kernels.launches()["sw_score"]
+        if launched == 0:
+            raise AssertionError("benchmark_gcups launched no sw_score kernel")
+        out.append(dict(
+            name="sw_score" if dtype_name == "f32" else f"sw_score_{dtype_name}",
+            route="cuda", source="adam_tpu_torch/csrc/sw_score.cu",
+            replaces="adam_tpu/ops/smith_waterman.py:516", dtype=dtype_name,
+            equal=bool(torch.equal(got, want)), max_abs_err=err, launches=launched,
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            shape=[B, lx, ly], gcups=cells / (ms / 1e3) / 1e9,
+            benchmark_gcups=gcups_path, launched_by="benchmark_gcups",
+        ))
+    return out
+
+
+def _sw_fill_inputs(B: int, lx: int, ly: int):
+    """Read-vs-region pairs like the smithwaterman path's: 100-base reads
+    cut from their region with 2% substitutions, regions filling the top
+    128 lanes of the bucket."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    yl = rng.integers(max(1, ly - 127), ly + 1, B).astype(np.int32)
+    xl = np.minimum(100, np.minimum(lx, yl)).astype(np.int32)
+    yc = np.full((B, ly), 5, np.int32)
+    xc = np.full((B, lx), 5, np.int32)
+    for b in range(B):
+        y = rng.integers(0, 4, int(yl[b]))
+        s = int(rng.integers(0, yl[b] - xl[b] + 1))
+        x = y[s:s + xl[b]].copy()
+        mut = rng.random(len(x)) < 0.02
+        x[mut] = rng.integers(0, 4, int(mut.sum()))
+        yc[b, :yl[b]] = y
+        xc[b, :xl[b]] = x
+    return xc, xl, yc, yl
+
+
+def check_sw_fill(dev, shape, launched: int) -> dict:
+    """sw_fill against its plain version at one (B, lx, ly) launch shape."""
+    import numpy as np
+    import torch
+
+    from adam_tpu_torch.ops import smith_waterman as sw
+
+    B, lx, ly = shape
+    inputs = _sw_fill_inputs(B, lx, ly)
+    args = [torch.from_numpy(a).to(dev) for a in inputs]
+    w = SW_WEIGHTS["f32"]
+    got = sw.sw_fill(*args, *w, lx, ly)
+    want = sw.sw_fill_plain(*args, *w, lx, ly)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    finite = torch.isfinite(want[1])
+    err = max(int((got[0].int() - want[0].int()).abs().max()),
+              float((got[1][finite] - want[1][finite]).abs().max()),
+              int((got[2] - want[2]).abs().max()))
+    D = lx + ly + 1
+    # what these pairs need: one move byte per cell of each pair's
+    # (xl+1) x (yl+1) matrix (the kernel also writes the cells outside it
+    # and the bucket padding, which the trackback never reads), the best
+    # rows up to xl, each code row and the lengths read once; ~12
+    # operations per interior cell (the substitution's compare and select,
+    # three adds, up to six comparisons of the move rule, the best's compare)
+    xl = inputs[1].astype(np.int64)
+    yl = inputs[3].astype(np.int64)
+    matrix_cells = int(((xl + 1) * (yl + 1)).sum())
+    n_bytes = matrix_cells + 8 * int((xl + 1).sum()) + 4 * int((xl + yl).sum()) + 8 * B
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12 * int((xl * yl).sum()) / F32_OPS_PER_S * 1e3
+    ms = _time_ms(lambda: sw.sw_fill(*args, *w, lx, ly))
+    return dict(
+        name="sw_fill", route="cuda", source="adam_tpu_torch/csrc/sw_fill.cu",
+        replaces="adam_tpu/ops/smith_waterman.py:261", equal=equal,
+        max_abs_err=err, launches=launched, ms=ms,
+        plain_ms=_time_ms(lambda: sw.sw_fill_plain(*args, *w, lx, ly), iters=1, warm=1),
+        library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        shape=[B, lx, ly], moves_bytes_written=B * D * (lx + 1),
+        matrix_cells=matrix_cells, cells_per_s=matrix_cells / (ms / 1e3),
+    )
+
+
+def run_transform(sam: str, out_dir: str, device: str, realign: bool = True) -> dict:
     """The user's entry point, in this process: the CLI's main."""
     from adam_tpu_torch.cli.main import main
 
@@ -193,6 +333,7 @@ def run_transform(sam: str, out_dir: str, device: str) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = main([
             "transform", sam, out_dir, "-streaming", "-mark_duplicate_reads",
+            *(["-realign_indels"] if realign else []),
             "-recalibrate_base_qualities", "-window_reads", str(WINDOW_READS),
             "--device", device,
         ])
@@ -232,6 +373,45 @@ def profile_transform(sam: str, out_dir: str) -> dict:
         "device_busy_s": busy / 1e6, "busy_share": busy / 1e6 / stats["total_s"],
         "device_top_ms": {name: us / 1e3 for name, us in top},
     }
+
+
+def read_parts(out_dir: str) -> dict:
+    """Row, duplicate and realigned (OC:Z:) counts over the parts."""
+    import pyarrow.parquet as pq
+
+    rows = dups = oc = parts = 0
+    for f in sorted(os.listdir(out_dir)):
+        if f.startswith("part-"):
+            parts += 1
+            tbl = pq.read_table(os.path.join(out_dir, f), columns=["flags", "attributes"])
+            flags = tbl.column("flags").to_numpy()
+            rows += len(flags)
+            dups += int(((flags & 0x400) != 0).sum())
+            oc += sum(1 for a in tbl.column("attributes").to_pylist() if a and "OC:Z:" in a)
+    return {"parts": parts, "rows": rows, "duplicates": dups, "realigned_rows": oc}
+
+
+def run_smithwaterman(sam: str, out_dir: str, device: str) -> tuple:
+    """The smithwaterman consensus model through the library call ->
+    (stats, the (B, lx, ly) of every sw_fill call it made)."""
+    from adam_tpu_torch.ops import smith_waterman as sw
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    shapes = []
+    fill = sw.sw_fill
+
+    def logged(x_codes, *a, **k):
+        shapes.append((int(x_codes.shape[0]), int(a[-2]), int(a[-1])))
+        return fill(x_codes, *a, **k)
+
+    sw.sw_fill = logged
+    try:
+        stats = transform_streamed(sam, out_dir, realign=True,
+                                   consensus_model="smithwaterman",
+                                   window_reads=WINDOW_READS, device=device)
+    finally:
+        sw.sw_fill = fill
+    return stats, shapes
 
 
 def _part_hashes(d: str) -> dict:
@@ -276,15 +456,20 @@ def main() -> int:
     _log(f"native codecs built in {time.monotonic() - t0:.2f} s")
 
     # ---- 3. kernels vs plain versions -----------------------------------
-    kern = check_kernels(dev)
+    kern = check_kernels(dev) + check_sw_score(dev)
     for k in kern:
         _log(f"kernel {k['name']}: equal={k['equal']} {k['ms']:.4f} ms "
-             f"(plain {k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
-             f"bound {k['bound_ms']:.4f} ms)")
+             f"(plain {k['plain_ms']:.4f} ms, library {k['library_ms']}, "
+             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})"
+             + (f", {k['gcups']:.2f} GCUPS (benchmark_gcups {k['benchmark_gcups']:.2f}, "
+                f"{k['launches']} launches)" if "gcups" in k else ""))
+    for k in kern:
+        if not k["equal"]:
+            raise AssertionError(f"kernel {k['name']} disagrees with its plain version: {k}")
 
     work = tempfile.mkdtemp(prefix="adam_tpu_torch_smoke_")
     try:
-        # ---- 4. main path -------------------------------------------------
+        # ---- 4. main path: markdup + realign + BQSR ------------------------
         sam = os.path.join(work, "wgs.sam")
         t0 = time.monotonic()
         make_wgs(sam, MAIN_READS, 100, seed=SEED)
@@ -295,51 +480,95 @@ def main() -> int:
         launched = kernels.launches()
         _log("main path stats: " + json.dumps(stats, sort_keys=True))
         n_win = stats["n_windows"]
-        if launched["observe_hist"] < n_win:
-            raise AssertionError(f"observe_hist launched {launched['observe_hist']} "
-                                 f"times for {n_win} windows")
-        if launched["pack_rows"] != 2 * n_win:
-            raise AssertionError(f"pack_rows launched {launched['pack_rows']} "
-                                 f"times for {n_win} windows")
-        import pyarrow.parquet as pq
-
-        rows = dups = 0
-        for f in sorted(os.listdir(out_dir)):
-            if f.startswith("part-"):
-                tbl = pq.read_table(os.path.join(out_dir, f), columns=["flags", "qual"])
-                flags = tbl.column("flags").to_numpy()
-                rows += len(flags)
-                dups += int(((flags & 0x400) != 0).sum())
-        if rows != MAIN_READS or stats["n_reads"] != MAIN_READS:
-            raise AssertionError(f"wrote {rows} rows for {MAIN_READS} input reads")
-        if dups == 0:
-            raise AssertionError("no read was marked duplicate")
-        _log(f"main path: {rows} rows, {dups} duplicates, "
-             f"{stats['reads_per_s']:.0f} reads/s, launches {launched}")
-        for k in kern:
-            k["launches"] = launched[k["name"]]
+        got = read_parts(out_dir)
+        if stats["n_parts"] != n_win + 1 or got["parts"] != n_win + 1:
+            raise AssertionError(f"{got['parts']} parts ({stats['n_parts']} in the stats) "
+                                 f"for {n_win} windows plus the realigned part")
+        if got["rows"] != MAIN_READS or stats["n_reads"] != MAIN_READS:
+            raise AssertionError(f"wrote {got['rows']} rows for {MAIN_READS} input reads")
+        if got["duplicates"] == 0 or got["realigned_rows"] == 0:
+            raise AssertionError(f"no duplicate or no realigned row: {got}")
+        if launched["observe_hist"] < n_win + 1 or launched["pack_rows"] != 2 * (n_win + 1):
+            raise AssertionError(f"launches {launched} for {n_win} windows + 1 part")
+        if launched["sw_fill"] != 0:
+            raise AssertionError("sw_fill ran on the reads-model path")
+        _log(f"main path: {got}, {stats['reads_per_s']:.0f} reads/s, launches {launched}")
+        by_name = {k["name"]: k for k in kern}
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches"] = launched[name]
         shutil.rmtree(out_dir)
         prof = profile_transform(sam, out_dir)
         _log("main path under the profiler: " + json.dumps(prof, sort_keys=True))
         shutil.rmtree(out_dir)
-        os.unlink(sam)
 
-        # ---- 5. card vs CPU -----------------------------------------------
+        # the markdup + BQSR path without realignment, same input
+        kernels.reset_launches()
+        plain_stats = run_transform(sam, out_dir, "cuda", realign=False)
+        plain_launched = kernels.launches()
+        got = read_parts(out_dir)
+        if (got["rows"] != MAIN_READS or got["parts"] != plain_stats["n_windows"]
+                or plain_launched["pack_rows"] != 2 * plain_stats["n_windows"]):
+            raise AssertionError(f"no-realign path: {got}, launches {plain_launched}")
+        _log(f"no-realign path: {got}, {plain_stats['reads_per_s']:.0f} reads/s, "
+             f"launches {plain_launched}")
+        shutil.rmtree(out_dir)
+
+        # ---- 4b. the smithwaterman consensus model ------------------------
+        if SW_READS != MAIN_READS:
+            os.unlink(sam)
+            make_wgs(sam, SW_READS, 100, seed=SEED)
+        kernels.reset_launches()
+        sw_stats, shapes = run_smithwaterman(sam, out_dir, "cuda")
+        sw_launched = kernels.launches()
+        _log("smithwaterman stats: " + json.dumps(sw_stats, sort_keys=True))
+        got = read_parts(out_dir)
+        if sw_launched["sw_fill"] < 1 or sw_launched["sw_fill"] != len(shapes):
+            raise AssertionError(f"sw_fill launches {sw_launched} vs {len(shapes)} calls")
+        if got["rows"] != SW_READS or got["parts"] != sw_stats["n_windows"] + 1:
+            raise AssertionError(f"smithwaterman path: {got}")
+        _log(f"smithwaterman path: {got}, {sw_stats['reads_per_s']:.0f} reads/s, "
+             f"launches {sw_launched}; sw_fill (B, lx, ly) per launch: {shapes}")
+        shutil.rmtree(out_dir)
+        os.unlink(sam)
+        median = sorted(shapes, key=lambda t: t[0] * (t[1] + t[2] + 1) * (t[1] + 1))[
+            len(shapes) // 2]
+        fill = check_sw_fill(dev, median, sw_launched["sw_fill"])
+        _log(f"kernel sw_fill at the median launch {median}: equal={fill['equal']} "
+             f"{fill['ms']:.4f} ms (plain {fill['plain_ms']:.4f} ms, bound "
+             f"{fill['bound_ms']:.4f} ms by {fill['bound_by']})")
+        if not fill["equal"]:
+            raise AssertionError(f"kernel sw_fill disagrees with its plain version: {fill}")
+        kern.insert(2, fill)
+
+        # ---- 5. card vs CPU ------------------------------------------------
         sam = os.path.join(work, "parity.sam")
         make_wgs(sam, PARITY_READS, 100, seed=SEED + 1)
-        run_transform(sam, os.path.join(work, "cuda.adam"), "cuda")
-        run_transform(sam, os.path.join(work, "cpu.adam"), "cpu")
-        a = _part_hashes(os.path.join(work, "cuda.adam"))
-        b = _part_hashes(os.path.join(work, "cpu.adam"))
-        if not a or a != b:
-            raise AssertionError(f"card and CPU parts differ: {a} vs {b}")
-        _log(f"card vs CPU: {len(a)} parts byte-identical ({PARITY_READS} reads)")
+        parity = {}
+        for model in ("reads", "smithwaterman"):
+            hashes = {}
+            for device in ("cuda", "cpu"):
+                d = os.path.join(work, f"{model}.{device}.adam")
+                if model == "reads":
+                    run_transform(sam, d, device)
+                else:
+                    run_smithwaterman(sam, d, device)
+                hashes[device] = _part_hashes(d)
+            if not hashes["cuda"] or hashes["cuda"] != hashes["cpu"]:
+                raise AssertionError(f"{model}: card and CPU parts differ: {hashes}")
+            parity[model] = len(hashes["cuda"])
+            _log(f"card vs CPU ({model}): {parity[model]} parts byte-identical "
+                 f"({PARITY_READS} reads)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    for k in kern:
+        k["kernel_ms"] = k["ms"]
     print(json.dumps({"main_path": {
         "reads": MAIN_READS, "window_reads": WINDOW_READS, "stats": stats,
-        "profile": prof,
+        "profile": prof, "no_realign_stats": plain_stats,
+        "smithwaterman": {"reads": SW_READS, "stats": sw_stats,
+                          "sw_fill_launch_shapes": shapes},
+        "card_vs_cpu_parts": parity,
     }}), flush=True)
     print(json.dumps({"kernels": kern}), flush=True)
     print(smi, flush=True)

@@ -113,8 +113,96 @@ def test_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     for dev in ("cuda", "cpu"):
         stats[dev] = transform_streamed(path, str(tmp_path / dev), window_reads=2048,
                                         device=dev)
-    assert stats["cuda"]["kernel_launches"] == {"observe_hist": 3, "pack_rows": 6}
+    launched = stats["cuda"]["kernel_launches"]
+    assert (launched["observe_hist"], launched["pack_rows"]) == (3, 6)
+    assert launched["sw_fill"] == launched["sw_score"] == 0
     parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
     assert len(parts) == 3
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
+def _sw_pairs(seed, B, lx, ly):
+    rng = np.random.default_rng(seed)
+    xl = rng.integers(1, lx + 1, B).astype(np.int32)
+    yl = rng.integers(1, ly + 1, B).astype(np.int32)
+    xl[0], yl[0] = lx, ly
+    xc = rng.integers(0, 5, (B, lx)).astype(np.int32)
+    yc = rng.integers(0, 5, (B, ly)).astype(np.int32)
+    xc[np.arange(lx)[None, :] >= xl[:, None]] = 5
+    yc[np.arange(ly)[None, :] >= yl[:, None]] = 5
+    return [torch.from_numpy(a) for a in (xc, xl, yc, yl)]
+
+
+SW_W = [(1.0, -0.333, -0.5, -0.5), (2.0, -1.0, -1.0, -1.0)]
+
+
+@pytest.mark.parametrize("w", SW_W)
+@pytest.mark.parametrize("B,lx,ly", [(9, 37, 29), (64, 100, 300), (3, 1, 5),
+                                     (2, 1500, 90), (700, 128, 512)])
+def test_sw_fill_equals_plain(cuda_device, B, lx, ly, w):
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.smith_waterman import sw_fill, sw_fill_plain
+
+    args = _sw_pairs(lx + ly, B, lx, ly)
+    want = sw_fill_plain(*args, *w, lx, ly)
+    before = kernels.launches()["sw_fill"]
+    got = sw_fill(*(a.to(cuda_device) for a in args), *w, lx, ly)
+    torch.cuda.synchronize()
+    assert kernels.launches()["sw_fill"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype_name,w", [("f32", SW_W[0]), ("f32", SW_W[1]),
+                                          ("i32", SW_W[1]), ("i16", SW_W[1])])
+@pytest.mark.parametrize("B,lx,ly", [(24, 31, 45), (300, 127, 127), (5, 1, 9),
+                                     (7, 1000, 60)])
+def test_sw_score_equals_plain(cuda_device, B, lx, ly, dtype_name, w):
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.smith_waterman import sw_best_scores
+
+    args = _sw_pairs(lx * 3 + ly, B, lx, ly)
+    want = sw_best_scores(*args, *w, dtype_name=dtype_name)
+    before = kernels.launches()["sw_score"]
+    got = sw_best_scores(*(a.to(cuda_device) for a in args), *w, dtype_name=dtype_name)
+    torch.cuda.synchronize()
+    assert kernels.launches()["sw_score"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert float(want.max()) > 0
+
+
+def test_alignments_on_the_card_equal_the_cpu(cuda_device):
+    from adam_tpu_torch.ops.smith_waterman import smith_waterman_many
+
+    rng = np.random.default_rng(4)
+    pairs = []
+    for _ in range(50):
+        y = rng.integers(0, 4, int(rng.integers(150, 400))).astype(np.uint8)
+        s = int(rng.integers(0, len(y) - 100))
+        x = y[s:s + 100].copy()
+        x[rng.random(100) < 0.05] = 4
+        pairs.append((x, y))
+    assert smith_waterman_many(pairs, device="cuda") == smith_waterman_many(pairs, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["reads", "smithwaterman"])
+def test_realigning_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path, model):
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    path = str(tmp_path / "in.sam")
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        stats[dev] = transform_streamed(path, str(tmp_path / dev), realign=True,
+                                        consensus_model=model, window_reads=2048,
+                                        device=dev)
+    launched = stats["cuda"]["kernel_launches"]
+    assert launched["observe_hist"] == 4 and launched["pack_rows"] == 8
+    assert (launched["sw_fill"] > 0) == (model == "smithwaterman")
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == stats["cpu"]["n_windows"] + 1
     for f in parts:
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()

@@ -91,9 +91,31 @@ def test_streamed_transform_defaults_to_the_card(tmp_path):
             transform_streamed(str(tmp_path / "missing.sam"), str(tmp_path / "out"))
 
 
-def test_realign_names_the_next_slice(tmp_path):
-    from adam_tpu_torch.pipelines.streamed import transform_streamed
+def test_realign_names_the_next_slice():
+    """What this slice of realignment leaves out (the known-indel table)
+    raises, naming the slice that ports it."""
+    from adam_tpu_torch.api.datasets import AlignmentDataset
+    from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
+    from adam_tpu_torch.io.sam import SamHeader
+    from adam_tpu_torch.pipelines.realign import realign_indels
 
-    with pytest.raises(NotImplementedError, match="next slice"):
-        transform_streamed(str(tmp_path / "x.sam"), str(tmp_path / "out"),
-                           realign=True, device="cpu")
+    ds = AlignmentDataset(ReadBatch.empty(), ReadSidecar(), SamHeader())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        realign_indels(ds, consensus_model="knowns", known_indels=object(), device="cpu")
+
+
+@pytest.mark.parametrize("module", ["adam_tpu_torch.pipelines.realign",
+                                    "adam_tpu_torch.ops.smith_waterman"])
+def test_realign_modules_load_no_jax(module):
+    code = textwrap.dedent(f"""
+        import sys
+        import {module}
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.")
+                     or n == "adam_tpu" or n.startswith("adam_tpu."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

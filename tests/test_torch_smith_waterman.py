@@ -1,0 +1,210 @@
+"""Smith-Waterman parity: the port's plain fills (which run on the CPU) are
+bit-equal to the JAX package's scan fills and its Pallas kernels
+(interpret mode) on the same numpy-seeded inputs — moves, per-row best
+scores and diagonals for the full fill; best scores in f32, i32 and i16
+for the score-only fill — and the batched alignment equals the JAX
+package's per-pair ``smith_waterman``.  The CUDA kernels are held against
+the plain versions in ``test_torch_cuda.py``, on a machine with a card."""
+
+from dataclasses import astuple
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adam_tpu.ops import smith_waterman as jsw
+
+from adam_tpu_torch.formats import schema
+from adam_tpu_torch.ops import smith_waterman as tsw
+
+DEFAULT_W = (1.0, -0.333, -0.5, -0.5)
+WEIGHTS = [DEFAULT_W, (1.0, 0.0, -0.333, -0.333), (2.0, -1.0, -1.0, -1.0)]
+FILL_SHAPES = [(9, 37, 29), (12, 100, 157), (4, 1, 12), (6, 20, 1)]
+
+
+def _pairs(seed, B, lx, ly, min_len=1):
+    """Codes 0..4 (N included), padded variable lengths (PAD beyond)."""
+    rng = np.random.default_rng(seed)
+    xl = rng.integers(min(min_len, lx), lx + 1, B).astype(np.int32)
+    yl = rng.integers(min(min_len, ly), ly + 1, B).astype(np.int32)
+    xl[0], yl[0] = lx, ly
+    xc = rng.integers(0, 5, (B, lx)).astype(np.int32)
+    yc = rng.integers(0, 5, (B, ly)).astype(np.int32)
+    xc[np.arange(lx)[None, :] >= xl[:, None]] = schema.BASE_PAD
+    yc[np.arange(ly)[None, :] >= yl[:, None]] = schema.BASE_PAD
+    return xc, xl, yc, yl
+
+
+def _t(*arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _j(*arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("w", WEIGHTS, ids=["default", "suite", "integral"])
+@pytest.mark.parametrize("B,lx,ly", FILL_SHAPES)
+def test_fill_plain_equals_scan_and_pallas(B, lx, ly, w):
+    xc, xl, yc, yl = _pairs(lx * 7 + ly, B, lx, ly)
+    got = tsw.sw_fill(*_t(xc, xl, yc, yl), *w, lx, ly)
+    scan = jsw._sw_fill_scan_best(*_j(xc, xl, yc, yl), *w, lx, ly)
+    pallas = jsw._sw_fill_pallas(*_j(xc, xl, yc, yl), lx, ly, *w, interpret=True)
+    assert got[0].dtype == torch.uint8 and tuple(got[0].shape) == (B, lx + ly + 1, lx + 1)
+    assert got[1].dtype == torch.float32 and got[2].dtype == torch.int32
+    for want in (scan, pallas):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int((got[0] == tsw.MOVE_B).sum()) > 0
+
+
+@pytest.mark.parametrize("B,lx,ly,seed", [(24, 31, 45, 7), (40, 63, 70, 13), (6, 130, 40, 2)])
+def test_score_plain_equals_scan_and_pallas_f32(B, lx, ly, seed):
+    xc, xl, yc, yl = _pairs(seed, B, lx, ly, min_len=4)
+    got = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *DEFAULT_W)
+    scan = jsw._sw_score_scan(*_j(xc, xl, yc, yl), *DEFAULT_W, lx, ly)
+    pallas = jsw._sw_score_pallas(*_j(xc, xl, yc, yl), lx, ly, *DEFAULT_W,
+                                  interpret=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scan))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    # the score-only fill agrees with the full fill's best scores
+    _, best_sc, _ = tsw.sw_fill(*_t(xc, xl, yc, yl), *DEFAULT_W, lx, ly)
+    np.testing.assert_array_equal(got.numpy(), best_sc.numpy().max(axis=1))
+
+
+@pytest.mark.parametrize("dtype_name", ["i16", "i32"])
+@pytest.mark.parametrize("B,lx,ly,seed", [(40, 63, 70, 13), (8, 127, 127, 0)])
+def test_score_integer_types_equal_pallas_and_scan(B, lx, ly, seed, dtype_name):
+    xc, xl, yc, yl = _pairs(seed, B, lx, ly, min_len=4)
+    w = (2.0, -1.0, -1.0, -1.0)
+    got = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *w, dtype_name=dtype_name)
+    pallas = jsw._sw_score_pallas(*_j(xc, xl, yc, yl), lx, ly, *w, interpret=True,
+                                  dtype_name=dtype_name)
+    scan = jsw._sw_score_scan(*_j(xc, xl, yc, yl), *w, lx, ly)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scan))
+    assert float(got.max()) > 0
+
+
+def test_score_type_guards():
+    xc, xl, yc, yl = _t(*_pairs(3, 4, 31, 40))
+    for dtype_name in ("i16", "i32"):
+        with pytest.raises(ValueError, match="integral"):
+            tsw.sw_best_scores(xc, xl, yc, yl, *DEFAULT_W, dtype_name=dtype_name)
+    with pytest.raises(ValueError, match="overflow"):
+        tsw.sw_best_scores(xc, xl, yc, yl, 2.0, -1.0, -1.0, -600.0, dtype_name="i16")
+    with pytest.raises(ValueError, match="not ported"):
+        tsw.sw_best_scores(xc, xl, yc, yl, dtype_name="bf16")
+    for lx, ly, w in [(127, 127, (2, -1, -1, -1)), (127, 127, DEFAULT_W),
+                      (300, 9000, (2, -1, -1, -1)), (129, 100, (1, -1, -1, -70))]:
+        assert tsw._i16_safe(lx, ly, *w) == jsw._i16_safe(lx, ly, *w)
+
+
+def test_wrappers_check_their_inputs():
+    xc, xl, yc, yl = _t(*_pairs(3, 4, 10, 12))
+    with pytest.raises(ValueError):
+        tsw.sw_fill(xc.float(), xl, yc, yl, *DEFAULT_W, 10, 12)
+    with pytest.raises(ValueError):
+        tsw.sw_fill(xc, xl[:3], yc, yl, *DEFAULT_W, 10, 12)
+    with pytest.raises(ValueError):
+        tsw.sw_fill(xc, xl, yc, yl, *DEFAULT_W, 11, 12)
+    with pytest.raises(ValueError):
+        tsw.sw_best_scores(xc[:, :0], xl, yc, yl)
+
+
+def _random_pairs(seed, n):
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        y = rng.integers(0, 4, int(rng.choice([40, 57]))).astype(np.uint8)
+        lx = int(rng.choice([12, 20]))
+        s = int(rng.integers(0, len(y) - lx))
+        x = y[s:s + lx].copy()
+        x[rng.random(lx) < 0.1] = rng.integers(0, 5)  # mismatches, N
+        if k % 2:
+            x = np.concatenate([x[:5], rng.integers(0, 4, 2).astype(np.uint8), x[5:]])
+        out.append((x, y))
+    return out
+
+
+def test_batched_alignment_equals_per_pair_jax():
+    """One padded batch per shape bucket equals the JAX package's per-pair
+    ``smith_waterman`` on every field."""
+    pairs = _random_pairs(5, 10)
+    got = tsw.smith_waterman_many(pairs, *DEFAULT_W, device="cpu")
+    for (x, y), a in zip(pairs, got):
+        want = jsw.smith_waterman(schema.decode_bases(x), schema.decode_bases(y), *DEFAULT_W)
+        assert astuple(a) == astuple(want)
+    assert any("I" in a.cigar_x for a in got)
+    # one batch of all pairs padded to one shape gives the same alignments
+    lx = max(len(x) for x, _ in pairs)
+    ly = max(len(y) for _, y in pairs)
+    xc = np.full((len(pairs), lx), schema.BASE_PAD, np.uint8)
+    yc = np.full((len(pairs), ly), schema.BASE_PAD, np.uint8)
+    for k, (x, y) in enumerate(pairs):
+        xc[k, :len(x)], yc[k, :len(y)] = x, y
+    batch = tsw.smith_waterman_batch(
+        xc, np.array([len(x) for x, _ in pairs]), yc,
+        np.array([len(y) for _, y in pairs]), *DEFAULT_W, device="cpu",
+    )
+    assert batch == got
+
+
+def test_many_chunks_the_moves_matrix(monkeypatch):
+    pairs = _random_pairs(9, 7)
+    want = tsw.smith_waterman_many(pairs, device="cpu")
+    monkeypatch.setattr(tsw, "MOVES_BYTES_PER_LAUNCH", 1)  # one pair per fill
+    calls = []
+    real = tsw.smith_waterman_batch
+
+    def counting(*a, **k):
+        calls.append(len(a[0]))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tsw, "smith_waterman_batch", counting)
+    assert tsw.smith_waterman_many(pairs, device="cpu") == want
+    assert calls == [1] * len(pairs)
+
+
+# End-to-end vectors of the reference's SmithWatermanSuite, as the JAX
+# package's tests/test_ops.py holds them.
+SUITE = [
+    ("AAAA", "AAAA", (1.0, 0.0, -1.0, -1.0), "4M", "4M", 0, 0),
+    ("ACATGA", "ACGA", (1.0, 0.0, -0.333, -0.333), "2M2I2M", "2M2D2M", None, None),
+    ("ATTAGACTACTTAATATACAGATTTACCCCAATAGA", "ATTAGACTACTTAATATACAGAATTACCCCAATAGA",
+     (1.0, 0.0, -0.333, -0.333), "36M", "36M", None, None),
+    ("ATTAGACTACTTAATATACAGATTTACCCCAATAGA", "ATTAGACTACTTAATATACAGATACCCCAATAGA",
+     (1.0, 0.0, -0.333, -0.333), "22M2I12M", "22M2D12M", None, None),
+    ("ATTAGACTACTTAATATACAGATTTACCCCAATAGA", "ACTTAATATACAGATTTACC",
+     (1.0, 0.0, -0.333, -0.333), "20M", None, 8, 0),
+]
+
+
+@pytest.mark.parametrize("x,y,w,cx,cy,xs,ys", SUITE)
+def test_reference_suite_vectors(x, y, w, cx, cy, xs, ys):
+    a = tsw.smith_waterman(x, y, *w, device="cpu")
+    assert a.cigar_x == cx
+    if cy is not None:
+        assert a.cigar_y == cy
+    if xs is not None:
+        assert (a.x_start, a.y_start) == (xs, ys)
+    assert astuple(a) == astuple(jsw.smith_waterman(x, y, *w))
+
+
+def test_reference_suite_padded_batch():
+    xs, ys = ["AAAA", "ACATGA"], ["AAAA", "ACGA"]
+    xc = np.stack([np.pad(schema.encode_bases(s), (0, 6 - len(s)),
+                          constant_values=schema.BASE_PAD) for s in xs])
+    yc = np.stack([np.pad(schema.encode_bases(s), (0, 4 - len(s)),
+                          constant_values=schema.BASE_PAD) for s in ys])
+    res = tsw.smith_waterman_batch(xc, np.array([4, 6]), yc, np.array([4, 4]),
+                                   1.0, 0.0, -0.333, -0.333, device="cpu")
+    assert [r.cigar_x for r in res] == ["4M", "2M2I2M"]
+
+
+def test_benchmark_gcups_runs_on_the_cpu():
+    assert tsw.benchmark_gcups(B=8, lx=16, ly=16, reps=1, trials=1, device="cpu") > 0
+    assert tsw.benchmark_gcups(B=8, lx=16, ly=16, reps=1, trials=1,
+                               dtype_name="i16", device="cpu") > 0

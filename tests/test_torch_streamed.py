@@ -1,7 +1,11 @@
-"""The slice end to end: the port's streamed markdup + BQSR transform on
-the CPU writes Parquet parts byte-identical to the JAX package's streamed
-run (device BQSR backend, resident windows) on the same SAM, and merges
-the same observation histogram.  The command line writes the same parts
+"""The port end to end: the streamed markdup (+ realign) + BQSR transform
+on the CPU writes Parquet parts byte-identical to the JAX package's
+streamed run (device BQSR backend, resident windows) on the same SAM, and
+merges the same observation histogram — without realignment, and with it
+under both consensus models.  The ``smithwaterman`` reference is the JAX
+run with its ``_sw_preprocess`` wrapped inside the test to refresh a
+rewritten read's implied reference, the one repair the port makes (see
+``tests/test_torch_realign.py``).  The command line writes the same parts
 as the library call."""
 
 import contextlib
@@ -16,11 +20,29 @@ import pytest
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
 
 WINDOW = 2048
+SW_READS = 2500  # the JAX smithwaterman path compiles per shape: a smaller input
 
 
 def _parts(d) -> dict:
     return {f: (pathlib.Path(d) / f).read_bytes()
             for f in sorted(os.listdir(d)) if f.startswith("part-")}
+
+
+class _JaxDeviceBackend:
+    """The JAX streamed run's environment: device BQSR, resident windows."""
+
+    ENV = {"ADAM_TPU_BQSR_BACKEND": "device", "ADAM_TPU_RESIDENT": "1"}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.ENV}
+        os.environ.update(self.ENV)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 @pytest.fixture(scope="module")
@@ -38,19 +60,51 @@ def runs(tmp_path_factory):
         path, str(d / "out.torch"), realign=False, window_reads=WINDOW,
         dump_observations=str(d / "obs.torch.csv"), device="cpu",
     )
-    env = {"ADAM_TPU_BQSR_BACKEND": "device", "ADAM_TPU_RESIDENT": "1"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _JaxDeviceBackend():
         jax_transform(path, str(d / "out.jax"), realign=False, window_reads=WINDOW,
                       dump_observations=str(d / "obs.jax.csv"))
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     return d, path, stats
+
+
+@pytest.fixture(scope="module", params=["reads", "smithwaterman"])
+def realign_runs(request, runs, tmp_path_factory):
+    """Realigning runs of both packages: the reads model on the slice's
+    input, the smithwaterman model on a smaller one."""
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu.pipelines import realign as jra
+    from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    model = request.param
+    d = tmp_path_factory.mktemp(f"realign_{model}")
+    if model == "reads":
+        path = runs[1]
+    else:
+        path = str(d / "in.sam")
+        make_wgs(path, SW_READS, 100, n_contigs=2, contig_len=30_000)
+    stats = transform_streamed(
+        path, str(d / "out.torch"), realign=True, consensus_model=model,
+        window_reads=WINDOW, dump_observations=str(d / "obs.torch.csv"), device="cpu",
+    )
+    orig = jra._sw_preprocess
+
+    def refreshing(reads, reference, ref_start, weights):
+        out = orig(reads, reference, ref_start, weights)
+        return [new if new is old
+                else jra.dc_replace(new, ref=new.md.get_reference(new.seq, new.cigar))
+                for old, new in zip(reads, out)]
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jra, "_sw_preprocess", refreshing)
+    try:
+        with _JaxDeviceBackend():
+            jax_transform(path, str(d / "out.jax"), realign=True, consensus_model=model,
+                          window_reads=WINDOW, dump_observations=str(d / "obs.jax.csv"))
+    finally:
+        mp.undo()
+    return model, d, path, stats
 
 
 def test_parts_byte_identical_to_jax(runs):
@@ -75,7 +129,9 @@ def test_stats_of_a_cpu_run(runs):
     assert stats["n_reads"] == 4500
     assert stats["n_duplicates"] > 0
     # the CPU runs the plain versions: no kernel is launched
-    assert stats["kernel_launches"] == {"observe_hist": 0, "pack_rows": 0}
+    assert set(stats["kernel_launches"]) >= {"observe_hist", "pack_rows", "sw_fill",
+                                             "sw_score"}
+    assert all(n == 0 for n in stats["kernel_launches"].values())
 
 
 def test_cli_writes_the_same_parts(runs, tmp_path):
@@ -92,6 +148,92 @@ def test_cli_writes_the_same_parts(runs, tmp_path):
     assert json.loads(buf.getvalue().splitlines()[-1])["n_reads"] == 4500
     assert _parts(out) == _parts(d / "out.torch")
     assert not (out / "_temporary").exists()
+
+
+def test_realigned_parts_byte_identical_to_jax(realign_runs):
+    model, d, _, stats = realign_runs
+    got, want = _parts(d / "out.torch"), _parts(d / "out.jax")
+    # one part per window plus the realigned part, index n_windows
+    assert len(want) == stats["n_windows"] + 1 == stats["n_parts"]
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], (model, name)
+
+
+def test_realigned_observations_equal_jax(realign_runs):
+    _, d, _, _ = realign_runs
+    got = (d / "obs.torch.csv").read_text()
+    assert got == (d / "obs.jax.csv").read_text()
+    assert len(got.splitlines()) > 1000
+
+
+def test_stats_of_a_realigning_run(realign_runs):
+    import pyarrow.parquet as pq
+
+    model, d, _, stats = realign_runs
+    assert stats["n_candidates"] > 100 and stats["n_realigned"] > 0
+    assert stats["realign_s"] >= 0 and "split_s" in stats
+    assert all(n == 0 for n in stats["kernel_launches"].values())
+    last = pq.read_table(d / "out.torch" / f"part-r-{stats['n_windows']:05d}.parquet")
+    assert last.num_rows == stats["n_candidates"]
+    attrs = last.column("attributes").to_pylist()
+    assert sum("OC:Z:" in (a or "") for a in attrs) > 0, model
+
+
+def test_cli_realign_writes_the_library_parts(runs, tmp_path):
+    """``-realign_indels`` is the library's reads-model realignment."""
+    from adam_tpu_torch.cli.main import main
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    _, path, _ = runs
+    out = tmp_path / "cli.adam"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = main(["transform", path, str(out), "-streaming", "-mark_duplicate_reads",
+                   "-realign_indels", "-recalibrate_base_qualities",
+                   "-window_reads", str(WINDOW), "--device", "cpu"])
+    assert rc == 0
+    stats = transform_streamed(path, str(tmp_path / "lib.adam"), realign=True,
+                               consensus_model="reads", window_reads=WINDOW,
+                               device="cpu")
+    assert _parts(out) == _parts(tmp_path / "lib.adam")
+    assert len(_parts(out)) == stats["n_windows"] + 1
+
+
+@pytest.fixture(scope="module")
+def default_realign_parts(runs, tmp_path_factory):
+    """The port's reads-model realigning run with every tuning knob at its
+    default."""
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    out = tmp_path_factory.mktemp("tuning_default") / "out.adam"
+    transform_streamed(runs[1], str(out), realign=True, window_reads=WINDOW, device="cpu")
+    return _parts(out)
+
+
+@pytest.mark.parametrize("knob", [
+    {"max_indel_size": 3},
+    {"max_consensus_number": 0},
+    {"lod_threshold": 1000.0},
+    {"max_target_size": 40},
+])
+def test_realign_tuning_knob_matches_jax(knob, runs, default_realign_parts, tmp_path):
+    """A non-default value of each realignment knob changes the parts, and
+    the port writes the same parts as the JAX package with that value."""
+    from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    _, path, _ = runs
+    transform_streamed(path, str(tmp_path / "torch"), realign=True, window_reads=WINDOW,
+                       device="cpu", **knob)
+    with _JaxDeviceBackend():
+        jax_transform(path, str(tmp_path / "jax"), realign=True, window_reads=WINDOW,
+                      **knob)
+    got, want = _parts(tmp_path / "torch"), _parts(tmp_path / "jax")
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], (knob, name)
+    assert got != default_realign_parts, knob
 
 
 def test_cli_refuses_what_the_slice_does_not_run(tmp_path, capsys):
