@@ -12,8 +12,12 @@
 // __fmul_rn so it is never fused into the add) and T(s * w_delete) for the
 // integer types, then a clamp at 0 and the pair's row/column mask.  The
 // running best starts at 0.  Templated on the score type: f32, i32, and
-// i16 for integral weights within the wrapper's overflow guard.  Every
-// value is bit-equal to the plain version and to the JAX fills.
+// i16 for integral weights within the wrapper's overflow guard, and the
+// JAX package's measurement-only bf16: every add, max and mask product is
+// one __hadd / __hmax / __hmul on __nv_bfloat16 (one rounding each), the
+// weights and decays rounded once from f32, the mask applied as the
+// Pallas kernel's h * xmask * jok.  Every value is bit-equal to the plain
+// version and to the JAX fills.
 //
 // Bound: operations.  Per cell 6 + 2*ceil(log2(lx)) + 3 integer/float
 // operations (23 at lx = 127: the substitution's compare and select, two
@@ -31,9 +35,30 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+__device__ __forceinline__ T cvt(float v) {
+  return (T)v;
+}
+template <>
+__device__ __forceinline__ bf16 cvt<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+  return (float)v;
+}
+template <>
+__device__ __forceinline__ float to_f32<bf16>(bf16 v) {
+  return __bfloat162float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T add(T a, T b) {
@@ -42,6 +67,10 @@ __device__ __forceinline__ T add(T a, T b) {
 template <>
 __device__ __forceinline__ float add<float>(float a, float b) {
   return __fadd_rn(a, b);
+}
+template <>
+__device__ __forceinline__ bf16 add<bf16>(bf16 a, bf16 b) {
+  return __hadd(a, b);
 }
 
 template <typename T>
@@ -52,6 +81,21 @@ template <>
 __device__ __forceinline__ float mx<float>(float a, float b) {
   return fmaxf(a, b);
 }
+template <>
+__device__ __forceinline__ bf16 mx<bf16>(bf16 a, bf16 b) {
+  return __hmax(a, b);
+}
+
+// the pair's row/column mask: a select (v >= 0, so the JAX product
+// h * xmask * jok gives the same), or for bf16 that product itself
+template <typename T>
+__device__ __forceinline__ T masked(T v, bool row_in, bool col_in) {
+  return row_in && col_in ? v : cvt<T>(0.f);
+}
+template <>
+__device__ __forceinline__ bf16 masked<bf16>(bf16 v, bool row_in, bool col_in) {
+  return __hmul(__hmul(v, cvt<bf16>(row_in ? 1.f : 0.f)), cvt<bf16>(col_in ? 1.f : 0.f));
+}
 
 template <typename T>
 __device__ __forceinline__ T decay(int s, float w_delete) {
@@ -60,6 +104,10 @@ __device__ __forceinline__ T decay(int s, float w_delete) {
 template <>
 __device__ __forceinline__ float decay<float>(int s, float w_delete) {
   return __fmul_rn((float)s, w_delete);
+}
+template <>
+__device__ __forceinline__ bf16 decay<bf16>(int s, float w_delete) {
+  return __float2bfloat16_rn(__fmul_rn((float)s, w_delete));
 }
 
 template <typename T>
@@ -71,8 +119,9 @@ __global__ void sw_score_kernel(const int32_t* __restrict__ x,
                                 float w_insert, float w_delete,
                                 float* __restrict__ out) {
   extern __shared__ int32_t smem_i[];
-  __shared__ T dec[32];
+  __shared__ __align__(8) unsigned char dec_raw[32 * sizeof(T)];
   __shared__ float red[32];
+  T* dec = reinterpret_cast<T*>(dec_raw);
   int32_t* ys = smem_i;                                   // ly
   T* h = reinterpret_cast<T*>(smem_i + ly);               // 2 * blockDim.x
   const int nt = blockDim.x;
@@ -83,8 +132,8 @@ __global__ void sw_score_kernel(const int32_t* __restrict__ x,
   const bool row_ok = t < lx;
   const bool in_x = row_ok && t + 1 <= xl;
   const int xc = row_ok ? x[b * lx + t] : 0;
-  const T wm = (T)w_match, wx = (T)w_mismatch, wi = (T)w_insert;
-  const T zero = (T)0;
+  const T wm = cvt<T>(w_match), wx = cvt<T>(w_mismatch), wi = cvt<T>(w_insert);
+  const T zero = cvt<T>(0.f);
   int n_shifts = 0;
   for (int s = 1; s < lx; s *= 2) ++n_shifts;
   for (int k = t; k < ly; k += nt) ys[k] = y[b * ly + k];
@@ -109,8 +158,7 @@ __global__ void sw_score_kernel(const int32_t* __restrict__ x,
       const int s = 1 << k;
       if (row_ok && t >= s) v = mx(v, add(h[cur * nt + t - s], dec[k]));
     }
-    v = mx(v, zero);
-    if (!(in_x && j + 1 <= yl)) v = zero;
+    v = masked(mx(v, zero), in_x, j + 1 <= yl);
     best = mx(best, v);
     cur ^= 1;
     h[cur * nt + t] = v;
@@ -118,7 +166,7 @@ __global__ void sw_score_kernel(const int32_t* __restrict__ x,
   }
 
   // block max of the per-row bests (exact: max of values, cast to f32)
-  float bf = (float)best;
+  float bf = to_f32(best);
   for (int o = 16; o > 0; o >>= 1)
     bf = fmaxf(bf, __shfl_down_sync(0xffffffffu, bf, o));
   if ((t & 31) == 0) red[t >> 5] = bf;
@@ -150,7 +198,7 @@ int launch(const void* x, const void* y, const void* x_len, const void* y_len,
 
 }  // namespace
 
-// dtype: 0 f32, 1 i32, 2 i16
+// dtype: 0 f32, 1 i32, 2 i16, 3 bf16
 extern "C" int sw_score_launch(const void* x, const void* y,
                                const void* x_len, const void* y_len,
                                int64_t B, int64_t lx, int64_t ly, float wm,
@@ -166,6 +214,8 @@ extern "C" int sw_score_launch(const void* x, const void* y,
       return launch<int32_t>(x, y, x_len, y_len, B, lx, ly, wm, wx, wi, wd, out, s);
     case 2:
       return launch<int16_t>(x, y, x_len, y_len, B, lx, ly, wm, wx, wi, wd, out, s);
+    case 3:
+      return launch<bf16>(x, y, x_len, y_len, B, lx, ly, wm, wx, wi, wd, out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

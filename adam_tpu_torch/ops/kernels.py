@@ -8,9 +8,10 @@ source and the flags; :func:`build` starts one ``nvcc`` per missing
 library, all at once.  Nothing here is imported or built on a machine
 that never launches a kernel: the CPU path never calls :func:`library`.
 
-Every launch wrapper calls :func:`count_launch` right where it launches
-its kernel, so a run can show that it went through the kernels
-(:func:`launches`, :func:`reset_launches`).
+Every launch goes through :func:`launch`, which counts it, so a run can
+show that it went through the kernels (:func:`launches`,
+:func:`reset_launches`); a wrapper with modes (``pack_rows``' encodes)
+names the mode, counted apart too (:func:`variant_launches`).
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ _F = ct.c_float
 #: kernel name -> argtypes of its C entry ``<name>_launch`` (returns the
 #: cudaError_t of the launch as an int)
 _SIGNATURES = {
-    "observe_hist": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "pack_rows": [_P, _P, _P, _I, _I, _P, _I, _P],
+    "observe_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "pack_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "sw_fill": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
     "sw_score": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, ct.c_int, _P, _P],
 }
@@ -46,6 +47,7 @@ KERNELS = tuple(_SIGNATURES)
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
+_VARIANT_LAUNCHES: dict = {}
 
 
 def nvcc_path() -> str:
@@ -114,14 +116,18 @@ def library(name: str) -> ct.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, variant: str | None = None) -> None:
     """Call ``<name>_launch(*args, stream)`` on the current CUDA stream,
-    count the launch, and raise if the launch failed."""
+    count the launch (and, where given, the launch of that ``variant``),
+    and raise if the launch failed."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(library(name), f"{name}_launch")(*args, stream)
     _LAUNCHES[name] += 1
+    if variant is not None:
+        key = f"{name}:{variant}"
+        _VARIANT_LAUNCHES[key] = _VARIANT_LAUNCHES.get(key, 0) + 1
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
 
@@ -131,6 +137,12 @@ def launches() -> dict:
     return dict(_LAUNCHES)
 
 
+def variant_launches() -> dict:
+    """``"<kernel>:<variant>"`` -> launches since the last reset."""
+    return dict(_VARIANT_LAUNCHES)
+
+
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _VARIANT_LAUNCHES.clear()

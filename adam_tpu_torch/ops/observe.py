@@ -24,9 +24,11 @@ def unpack_bits(packed: torch.Tensor, n_cols: int) -> torch.Tensor:
     return bits.reshape(packed.shape[0], -1)[:, :n_cols].bool()
 
 
-def observe_hist_plain(flat_key, res_bits, mm_bits, read_ok, size: int):
+def observe_hist_plain(flat_key, res_bits, mm_bits, read_ok, size: int,
+                       slab_w: int | None = None):
     """Plain PyTorch version: unpack the masks, then scatter-add ones
-    into i32 bins (``index_add_``), as the XLA body does."""
+    into i32 bins (``index_add_``), as the XLA body does.  ``slab_w`` is
+    the kernel's partition of the bins and changes nothing here."""
     n, l = flat_key.shape
     include = unpack_bits(res_bits, l) & read_ok[:, None]
     mm = include & unpack_bits(mm_bits, l)
@@ -38,7 +40,13 @@ def observe_hist_plain(flat_key, res_bits, mm_bits, read_ok, size: int):
     return total, mism
 
 
-def _check(flat_key, res_bits, mm_bits, read_ok, size):
+#: slabs one pass of the kernel sorts by (csrc/observe_hist.cu kGroup)
+_GROUP = 4096
+#: the widest rows the kernel takes (its scatter stages a row in shared memory)
+_MAX_LANES = 8192
+
+
+def _check(flat_key, res_bits, mm_bits, read_ok, size, slab_w):
     if flat_key.dim() != 2 or flat_key.dtype != torch.int32:
         raise ValueError("flat_key must be i32[n, l]")
     n, l = flat_key.shape
@@ -53,12 +61,17 @@ def _check(flat_key, res_bits, mm_bits, read_ok, size):
         raise ValueError(f"inputs on several devices: {devs}")
     if size <= 0:
         raise ValueError("size must be positive")
+    if slab_w <= 0 or size % slab_w:
+        raise ValueError(f"slab width {slab_w} does not divide size {size}")
 
 
-def observe_hist(flat_key, res_bits, mm_bits, read_ok, size: int):
+def observe_hist(flat_key, res_bits, mm_bits, read_ok, size: int, slab_w: int):
     """(total, mism) i32[size] observe histograms; the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
-    _check(flat_key, res_bits, mm_bits, read_ok, size)
+    CUDA tensors, the plain version for CPU tensors.  ``slab_w`` is the
+    bin count of one (read group, quality) slab of the table,
+    ``(2*l+1)*17`` for BQSR keys: the kernel counts one slab at a time in
+    shared memory.  It must divide ``size``."""
+    _check(flat_key, res_bits, mm_bits, read_ok, size, slab_w)
     if flat_key.device.type == "cpu":
         return observe_hist_plain(flat_key, res_bits, mm_bits, read_ok, size)
     if flat_key.device.type != "cuda":
@@ -68,11 +81,19 @@ def observe_hist(flat_key, res_bits, mm_bits, read_ok, size: int):
     mm = mm_bits.contiguous()
     rdok = read_ok.contiguous()
     n, l = keys.shape
-    total = torch.zeros(size, dtype=torch.int32, device=keys.device)
-    mism = torch.zeros(size, dtype=torch.int32, device=keys.device)
+    if n * l >= 2**31 or size >= 2**31 or l > _MAX_LANES:
+        raise ValueError(f"observe_hist kernel: {n} x {l} keys, {size} bins exceed "
+                         f"its 2^31 keys / 2^31 bins / {_MAX_LANES}-lane limits")
+    n_slabs = size // slab_w
+    rec_bytes = 2 if slab_w <= 32768 else 4
+    scratch_bytes = -(-n * l * rec_bytes // 16) * 16 + 4 * (3 * min(n_slabs, _GROUP) + 4)
+    # total, mism and the kernel's per-slab counts: one buffer, zeroed by
+    # the kernel's entry with one memset
+    hist = torch.empty(2 * size + n_slabs, dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=keys.device)
     kernels.launch(
         "observe_hist", keys.data_ptr(), res.data_ptr(), mm.data_ptr(),
-        rdok.data_ptr(), n, l, res.shape[1], total.data_ptr(),
-        mism.data_ptr(),
+        rdok.data_ptr(), n, l, res.shape[1], size, slab_w, hist.data_ptr(),
+        scratch.data_ptr(), scratch_bytes,
     )
-    return total, mism
+    return hist[:size], hist[size:2 * size]

@@ -46,8 +46,9 @@ MOVE_J = 2  # consume x only
 MOVE_I = 3  # consume y only
 
 _LANE = 128  # the TPU kernels' lane padding, kept in the i16 overflow guard
-_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i16": torch.int16}
-_DTYPE_CODES = {"f32": 0, "i32": 1, "i16": 2}
+_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i16": torch.int16,
+           "bf16": torch.bfloat16}
+_DTYPE_CODES = {"f32": 0, "i32": 1, "i16": 2, "bf16": 3}
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block can use
 
 
@@ -187,13 +188,10 @@ def _score_weights(dtype_name, w_match, w_mismatch, w_insert, w_delete, lx, ly):
     """Validate a score type against the weights -> the per-shift decay
     constants of the delete chain (shifts s = 1, 2, 4, ... < lx), each
     computed as the TPU kernel computes it: ``np.float32(s) *
-    np.float32(w_delete)`` for f32, ``T(s * w_delete)`` for the integer
-    types."""
+    np.float32(w_delete)`` for f32 and bf16 (rounded once more to bf16
+    where used), ``T(s * w_delete)`` for the integer types."""
     if dtype_name not in _DTYPES:
-        if dtype_name == "bf16":
-            raise ValueError("the bf16 score fill is a measurement-only "
-                             "variant of the JAX package and is not ported")
-        raise ValueError(f"unknown score type {dtype_name!r} (f32, i32, i16)")
+        raise ValueError(f"unknown score type {dtype_name!r} (f32, i32, i16, bf16)")
     weights = (w_match, w_mismatch, w_insert, w_delete)
     if dtype_name in ("i16", "i32"):
         for w in weights:
@@ -211,7 +209,7 @@ def _score_weights(dtype_name, w_match, w_mismatch, w_insert, w_delete, lx, ly):
     while s < lx:
         shifts.append(s)
         s *= 2
-    if dtype_name == "f32":
+    if dtype_name in ("f32", "bf16"):
         decays = [float(np.float32(s) * np.float32(w_delete)) for s in shifts]
     else:
         decays = [int(s * w_delete) for s in shifts]
@@ -225,13 +223,14 @@ def sw_score_plain(x_codes, x_len, y_codes, y_len, w_match, w_mismatch,
     same-row delete chain H[i] = max(tmp[i], H[i-1] + wd) solved by the
     doubling steps of the JAX package's ``_sw_score_scan`` /
     ``_sw_score_kernel`` (pad -inf, or -16384 for the integer types,
-    then a clamp at 0)."""
+    then a clamp at 0).  In bf16 every torch op rounds once to bf16, as
+    the kernel's ``__hadd``/``__hmax``/``__hmul`` do."""
     shifts, decays = _score_weights(dtype_name, w_match, w_mismatch,
                                     w_insert, w_delete, lx, ly)
     dt = _DTYPES[dtype_name]
     dev = x_codes.device
     B = x_codes.shape[0]
-    integral = dtype_name != "f32"
+    integral = dtype_name in ("i16", "i32")
 
     def const(v):
         return torch.tensor(int(v) if integral else _f32(v), dtype=dt, device=dev)
@@ -293,8 +292,9 @@ def sw_best_scores(x_codes, x_len, y_codes, y_len,
 
     ``dtype_name`` is the score type: "f32" (exact for the fractional
     default weights), or "i32"/"i16" for integral weights ("i16" only
-    within :func:`_i16_safe`).  The CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    within :func:`_i16_safe`), or the JAX package's measurement-only
+    "bf16" (integer scores above 256 round).  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     _check_pair_inputs(x_codes, x_len, y_codes, y_len)
     lx = int(x_codes.shape[1])
     ly = int(y_codes.shape[1])
@@ -329,7 +329,7 @@ def benchmark_gcups(B: int = 8192, lx: int = 127, ly: int = 127, reps: int = 6,
                     device: str = "cuda") -> float:
     """Measured score-only fill throughput in GCUPS (giga cell updates per
     second, B·lx·ly over the time of one fill), the best of ``trials``
-    timed runs of ``reps`` fills each.  Integer score types use the
+    timed runs of ``reps`` fills each.  Integer score types and bf16 use the
     integral scheme (2, -1, -1, -1) SW search tools bench with, f32 the
     fractional defaults.  On the card the time comes from CUDA events."""
     dev = resolve_device(device)

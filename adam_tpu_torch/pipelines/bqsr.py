@@ -29,7 +29,7 @@ import torch
 from adam_tpu_torch.api.datasets import AlignmentDataset
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.ops import cigar as cigar_ops
-from adam_tpu_torch.ops.colpack import base_decode_body, pack_rows, sanger_body
+from adam_tpu_torch.ops.colpack import pack_rows
 from adam_tpu_torch.ops.observe import observe_hist
 from adam_tpu_torch.ops.phred import PHRED_TO_ERROR
 
@@ -153,7 +153,8 @@ def observe_packed_body(bases, quals, lengths, flags, read_group_idx,
     keys = covariate_keys(bases, quals, lengths, flags, read_group_idx,
                           n_rg, lmax)
     size = n_rg * N_QUAL * n_cyc * N_DINUC
-    total, mism = observe_hist(keys, res_bits, mm_bits, read_ok, size)
+    total, mism = observe_hist(keys, res_bits, mm_bits, read_ok, size,
+                               n_cyc * N_DINUC)
     shape = (n_rg, N_QUAL, n_cyc, N_DINUC)
     return (total.reshape(shape).to(torch.int64),
             mism.reshape(shape).to(torch.int64))
@@ -320,16 +321,16 @@ def apply_pack2_body(bases, quals, lengths, flags, read_group_idx,
     """Apply + both column packs -> (packed_quals, packed_bases), each
     u8[size]: the recalibrated quals SANGER-encoded and the decoded
     bases, each row's in-read prefix at its exclusive-cumsum offset
-    (:func:`adam_tpu_torch.ops.colpack.pack_rows`, the CUDA kernel on
-    the card, launched twice)."""
+    (:func:`adam_tpu_torch.ops.colpack.pack_rows` with the encode fused
+    in, the CUDA kernel on the card, launched twice)."""
     new_q = apply_table_body(bases, quals, lengths, flags, read_group_idx,
                              has_qual, valid, phred_table, lmax)
     lens = lengths.to(torch.int64)
     qual_lens = torch.where(valid & has_qual, lens, 0)
     base_lens = torch.where(valid, lens, 0)
     return (
-        pack_rows(sanger_body(new_q), qual_lens, size),
-        pack_rows(base_decode_body(bases), base_lens, size),
+        pack_rows(new_q, qual_lens, size, encode="sanger"),
+        pack_rows(bases, base_lens, size, encode="base_decode"),
     )
 
 

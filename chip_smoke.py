@@ -8,10 +8,12 @@ Phases, each of which fails the script on any error:
 3. kernels: each kernel against its plain PyTorch version on the card,
    inputs from a numpy seed, bit equality required, times by CUDA events:
    observe_hist and pack_rows at the main path's shapes (g = 262,144
-   rows, gl = 128 lanes, n_rg = 3); sw_score at ``benchmark_gcups``'
-   shape (B = 8,192, lx = ly = 127) in f32 (weights 1, -0.333, -0.5,
-   -0.5) and i16 (2, -1, -1, -1), each then driven through
-   ``benchmark_gcups`` with its launches counted (GCUPS printed);
+   rows, gl = 128 lanes, n_rg = 3), pack_rows once more with the SANGER
+   encode fused in, timed beside the unfused ``sanger_body`` + pack pair;
+   sw_score at ``benchmark_gcups``' shape (B = 8,192, lx = ly = 127) in
+   f32 (weights 1, -0.333, -0.5, -0.5), i16 and bf16 (2, -1, -1, -1),
+   each then driven through ``benchmark_gcups`` with its launches
+   counted (GCUPS printed);
 4. main path: a WGS-shaped SAM of 1,048,576 reads x 100 bp (4 contigs x
    800 kb, 2 read groups, PCR duplicates, soft clips) through
    ``python -m adam_tpu_torch transform -streaming -mark_duplicate_reads
@@ -55,7 +57,8 @@ PARITY_READS = 65_536
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 peak (data sheet)
-SW_WEIGHTS = {"f32": (1.0, -0.333, -0.5, -0.5), "i16": (2.0, -1.0, -1.0, -1.0)}
+SW_WEIGHTS = {"f32": (1.0, -0.333, -0.5, -0.5), "i16": (2.0, -1.0, -1.0, -1.0),
+              "bf16": (2.0, -1.0, -1.0, -1.0)}
 
 
 def _log(msg: str) -> None:
@@ -127,13 +130,14 @@ def check_kernels(dev) -> list:
 
     t, g, gl = _kernel_inputs(dev)
     n_rg = 3
-    size_h = n_rg * bqsr.N_QUAL * (2 * gl + 1) * bqsr.N_DINUC
+    slab_w = (2 * gl + 1) * bqsr.N_DINUC
+    size_h = n_rg * bqsr.N_QUAL * slab_w
     keys = bqsr.covariate_keys(t["bases"], t["quals"], t["lengths"], t["flags"],
                                t["rg"], n_rg, gl)
     out = []
 
     # ---- kernel 1: observe_hist -----------------------------------------
-    args = (keys, t["res_bits"], t["mm_bits"], t["read_ok"], size_h)
+    args = (keys, t["res_bits"], t["mm_bits"], t["read_ok"], size_h, slab_w)
     got = observe.observe_hist(*args)
     want = observe.observe_hist_plain(*args)
     torch.cuda.synchronize()
@@ -166,31 +170,43 @@ def check_kernels(dev) -> list:
         residues_counted=counted,
     ))
 
-    # ---- kernel 2: pack_rows --------------------------------------------
-    mat = colpack.sanger_body(t["quals"])
+    # ---- kernel 2: pack_rows, plain and with the SANGER encode fused ----
+    quals = t["quals"]
+    mat = colpack.sanger_body(quals)
     lens = t["lengths"].to(torch.int64)
     size_p = g * gl
-    got = colpack.pack_rows(mat, lens, size_p)
-    want = colpack.pack_rows_plain(mat, lens, size_p)
-    torch.cuda.synchronize()
-    err = int((got.int() - want.int()).abs().max())
-    mask = torch.arange(gl, device=dev)[None, :] < lens[:, None]
-    lib = torch.masked_select(mat, mask)
     total = int(lens.sum())
-    equal = torch.equal(got, want) and torch.equal(lib, want[:total]) \
-        and not bool(want[total:].any())
+    mask = torch.arange(gl, device=dev)[None, :] < lens[:, None]
+    # the least it can take: the in-row bytes of mat, the i64 lens, one
+    # write of the output
     n_bytes = total + 8 * g + size_p
-    out.append(dict(
-        name="pack_rows", route="cuda",
-        source="adam_tpu_torch/csrc/pack_rows.cu",
-        replaces="adam_tpu/ops/colpack.py:111",
-        equal=equal, max_abs_err=err,
-        ms=_time_ms(lambda: colpack.pack_rows(mat, lens, size_p)),
-        plain_ms=_time_ms(lambda: colpack.pack_rows_plain(mat, lens, size_p)),
-        library_ms=_time_ms(lambda: torch.masked_select(mat, mask)),
-        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes_packed=total,
-    ))
+    for encode, src in (("none", mat), ("sanger", quals)):
+        got = colpack.pack_rows(src, lens, size_p, encode=encode)
+        want = colpack.pack_rows_plain(mat, lens, size_p)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        lib = torch.masked_select(mat, mask)
+        equal = torch.equal(got, want) and torch.equal(lib, want[:total]) \
+            and not bool(want[total:].any())
+        k = dict(
+            name="pack_rows" if encode == "none" else f"pack_rows_{encode}",
+            route="cuda", source="adam_tpu_torch/csrc/pack_rows.cu",
+            replaces="adam_tpu/ops/colpack.py:111", encode=encode,
+            equal=equal, max_abs_err=err,
+            ms=_time_ms(lambda: colpack.pack_rows(src, lens, size_p, encode=encode)),
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes_packed=total,
+        )
+        if encode == "none":
+            k["plain_ms"] = _time_ms(lambda: colpack.pack_rows_plain(mat, lens, size_p))
+            k["library_ms"] = _time_ms(lambda: torch.masked_select(mat, mask))
+        else:  # no one PyTorch call encodes and packs
+            k["plain_ms"] = _time_ms(lambda: colpack.pack_rows_plain(
+                colpack.sanger_body(quals), lens, size_p))
+            k["library_ms"] = None
+            k["unfused_ms"] = _time_ms(lambda: colpack.pack_rows(
+                colpack.sanger_body(quals), lens, size_p))
+        out.append(k)
     for k in out:
         k["kernel_ms"] = k["ms"]
         if not k["equal"]:
@@ -462,7 +478,9 @@ def main() -> int:
              f"(plain {k['plain_ms']:.4f} ms, library {k['library_ms']}, "
              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})"
              + (f", {k['gcups']:.2f} GCUPS (benchmark_gcups {k['benchmark_gcups']:.2f}, "
-                f"{k['launches']} launches)" if "gcups" in k else ""))
+                f"{k['launches']} launches)" if "gcups" in k else "")
+             + (f", unfused sanger_body + pack {k['unfused_ms']:.4f} ms"
+                if "unfused_ms" in k else ""))
     for k in kern:
         if not k["equal"]:
             raise AssertionError(f"kernel {k['name']} disagrees with its plain version: {k}")
@@ -478,6 +496,7 @@ def main() -> int:
         kernels.reset_launches()
         stats = run_transform(sam, out_dir, "cuda")
         launched = kernels.launches()
+        variants = kernels.variant_launches()
         _log("main path stats: " + json.dumps(stats, sort_keys=True))
         n_win = stats["n_windows"]
         got = read_parts(out_dir)
@@ -490,12 +509,16 @@ def main() -> int:
             raise AssertionError(f"no duplicate or no realigned row: {got}")
         if launched["observe_hist"] < n_win + 1 or launched["pack_rows"] != 2 * (n_win + 1):
             raise AssertionError(f"launches {launched} for {n_win} windows + 1 part")
+        if (variants.get("pack_rows:sanger") != n_win + 1
+                or variants.get("pack_rows:base_decode") != n_win + 1):
+            raise AssertionError(f"pack_rows encode launches {variants}")
         if launched["sw_fill"] != 0:
             raise AssertionError("sw_fill ran on the reads-model path")
         _log(f"main path: {got}, {stats['reads_per_s']:.0f} reads/s, launches {launched}")
         by_name = {k["name"]: k for k in kern}
-        for name in ("observe_hist", "pack_rows"):
+        for name in ("observe_hist", "pack_rows"):  # pack_rows: both encodes
             by_name[name]["launches"] = launched[name]
+        by_name["pack_rows_sanger"]["launches"] = variants["pack_rows:sanger"]
         shutil.rmtree(out_dir)
         prof = profile_transform(sam, out_dir)
         _log("main path under the profiler: " + json.dumps(prof, sort_keys=True))
@@ -538,7 +561,7 @@ def main() -> int:
              f"{fill['bound_ms']:.4f} ms by {fill['bound_by']})")
         if not fill["equal"]:
             raise AssertionError(f"kernel sw_fill disagrees with its plain version: {fill}")
-        kern.insert(2, fill)
+        kern.insert(3, fill)
 
         # ---- 5. card vs CPU ------------------------------------------------
         sam = os.path.join(work, "parity.sam")

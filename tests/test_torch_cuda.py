@@ -63,7 +63,7 @@ def test_kernels_equal_plain_versions(cuda_device, g, gl):
     keys = covariate_keys(*(w[n] for n in _WINDOW), 3, gl)
     masks = (w["res_bits"], w["mm_bits"], w["read_ok"])
     before = kernels.launches()
-    got = observe_hist(keys, *masks, size)
+    got = observe_hist(keys, *masks, size, (2 * gl + 1) * 17)
     want = observe_hist_plain(keys, *masks, size)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -75,6 +75,76 @@ def test_kernels_equal_plain_versions(cuda_device, g, gl):
     after = kernels.launches()
     assert after["observe_hist"] == before["observe_hist"] + 1
     assert after["pack_rows"] == before["pack_rows"] + 2
+
+
+# (g, gl, n_rg, case): widths up to 1,024 lanes (two bin parts of u32
+# records per slab), 100 read groups (two slab groups), every residue on
+# one key, no read counted, one row
+OBSERVE_CASES = [(3000, 24, 3, "random"), (3000, 128, 3, "random"),
+                 (1500, 256, 3, "random"), (300, 1024, 3, "random"),
+                 (2000, 24, 100, "random"), (3000, 128, 3, "hot"),
+                 (3000, 128, 3, "none_ok"), (1, 128, 3, "random"),
+                 (700, 100, 3, "random")]
+
+
+@pytest.mark.parametrize("g,gl,n_rg,case", OBSERVE_CASES)
+def test_observe_hist_equals_plain(cuda_device, g, gl, n_rg, case):
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.colpack import pack_mask_bits
+    from adam_tpu_torch.ops.observe import observe_hist, observe_hist_plain
+    from adam_tpu_torch.pipelines.bqsr import covariate_keys
+
+    w = _window(13 + g + gl, g, gl, n_rg)
+    keys = covariate_keys(*(w[n] for n in _WINDOW), n_rg, gl)
+    if case == "hot":
+        keys[:] = keys[0, 0]
+        w["res_bits"] = torch.from_numpy(pack_mask_bits(np.ones((g, gl), bool)))
+        w["read_ok"][:] = True
+    elif case == "none_ok":
+        w["read_ok"][:] = False
+    slab_w = (2 * gl + 1) * 17
+    size = n_rg * 94 * slab_w
+    args = (keys, w["res_bits"], w["mm_bits"], w["read_ok"], size)
+    want = observe_hist_plain(*args)
+    before = kernels.launches()["observe_hist"]
+    got = observe_hist(*(a.to(cuda_device) for a in args[:4]), size, slab_w)
+    torch.cuda.synchronize()
+    assert kernels.launches()["observe_hist"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
+    assert (int(want[0].sum()) > 0) == (case != "none_ok")
+
+
+@pytest.mark.parametrize("encode", ["none", "sanger", "base_decode"])
+@pytest.mark.parametrize("g,gl,case", [(4096, 128, "read_lengths"), (1000, 100, "long_rows"),
+                                       (333, 40, "read_lengths"), (500, 64, "zero"),
+                                       (77, 3000, "read_lengths")])
+@pytest.mark.parametrize("cut", ["exact", "short", "past"])
+def test_pack_rows_equals_plain(cuda_device, encode, g, gl, case, cut):
+    """Every encode mode on the card equals its plain version: rows longer
+    than the width, row counts that are no multiple of the tile, all-zero
+    lengths, rows too wide for the shared buffers, and a size cut short of
+    or past sum(lens)."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.colpack import pack_rows
+
+    rng = np.random.default_rng(g + gl)
+    mat = torch.from_numpy((rng.integers(0, 6, (g, gl)) if encode == "base_decode"
+                            else rng.integers(0, 256, (g, gl))).astype(np.uint8))
+    lens = rng.integers(0, gl + 1, g).astype(np.int64)
+    if case == "long_rows":
+        lens[::3] = gl + rng.integers(1, 300, len(lens[::3]))
+    elif case == "zero":
+        lens[:] = 0
+    total = int(lens.sum())
+    size = {"exact": total, "short": total // 2, "past": total + 1000}[cut]
+    lens = torch.from_numpy(lens)
+    want = pack_rows(mat, lens, size, encode=encode)
+    before = kernels.launches()["pack_rows"]
+    got = pack_rows(mat.to(cuda_device), lens.to(cuda_device), size, encode=encode)
+    torch.cuda.synchronize()
+    assert kernels.launches()["pack_rows"] == before + 1
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("g,gl", GRIDS[1:])
@@ -97,7 +167,7 @@ def test_wrappers_refuse_bad_cuda_inputs(cuda_device):
     bits = torch.zeros((4, 2), dtype=torch.uint8, device=cuda_device)
     ok = torch.ones(4, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
-        observe_hist(keys, bits, bits, ok.cpu(), 10)
+        observe_hist(keys, bits, bits, ok.cpu(), 10, 5)
     with pytest.raises(ValueError):
         pack_rows(bits, torch.zeros(4, dtype=torch.int64), 8)
 
@@ -155,7 +225,8 @@ def test_sw_fill_equals_plain(cuda_device, B, lx, ly, w):
 
 
 @pytest.mark.parametrize("dtype_name,w", [("f32", SW_W[0]), ("f32", SW_W[1]),
-                                          ("i32", SW_W[1]), ("i16", SW_W[1])])
+                                          ("i32", SW_W[1]), ("i16", SW_W[1]),
+                                          ("bf16", SW_W[0]), ("bf16", SW_W[1])])
 @pytest.mark.parametrize("B,lx,ly", [(24, 31, 45), (300, 127, 127), (5, 1, 9),
                                      (7, 1000, 60)])
 def test_sw_score_equals_plain(cuda_device, B, lx, ly, dtype_name, w):

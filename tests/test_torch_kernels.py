@@ -74,21 +74,33 @@ def test_covariate_keys_match_jax(g, gl):
     np.testing.assert_array_equal(_port_keys(k).numpy(), _jax_keys(k))
 
 
-@pytest.mark.parametrize("g,gl", GRIDS)
-def test_observe_hist_plain_equals_pallas_interpret(g, gl):
+# (g, gl, n_rg, hot): the kernel-parity grid, 40 read groups (3,760
+# slabs), and every residue on one key
+OBSERVE_CASES = [(g, gl, 3, False) for g, gl in GRIDS] + [(48, 40, 40, False),
+                                                         (48, 40, 3, True)]
+
+
+@pytest.mark.parametrize("g,gl,n_rg,hot", OBSERVE_CASES)
+def test_observe_hist_plain_equals_pallas_interpret(g, gl, n_rg, hot):
     from adam_tpu.ops.pallas_observe import observe_hist_pallas
 
+    from adam_tpu_torch.ops.colpack import pack_mask_bits
     from adam_tpu_torch.ops.observe import observe_hist
 
-    k = _inputs(11 + g, g, gl)
+    k = _inputs(11 + g, g, gl, n_rg)
     keys = _jax_keys(k)
+    if hot:
+        keys[:] = keys[0, 0]
+        k["res_bits"] = pack_mask_bits(np.ones((g, gl), bool))
     want = observe_hist_pallas(keys, k["res_bits"], k["mm_bits"], k["read_ok"], _size(k))
     got = observe_hist(torch.from_numpy(keys), *_t(k, "res_bits", "mm_bits", "read_ok"),
-                       _size(k))
+                       _size(k), (2 * gl + 1) * 17)
     for a, b in zip(got, want):
         assert a.dtype == torch.int32
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert int(got[0].sum()) > 0
+    if hot:
+        assert int(got[0][keys[0, 0]]) == int(k["read_ok"].sum()) * gl
 
 
 @pytest.mark.parametrize("g,gl", GRIDS)
@@ -128,6 +140,45 @@ def test_pack_rows_plain_equals_pallas_and_xla(g, gl):
         want = np.asarray(pack_rows_body(k["quals"], lens, short))
     got = pack_rows(torch.from_numpy(k["quals"]), torch.from_numpy(lens), short).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _pack_lens(g, gl, seed, case):
+    """Row lengths of one pack edge case: the read lengths, some rows
+    longer than the row width, or none at all."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, gl + 1, g).astype(np.int64)
+    if case == "long_rows":
+        lens[::3] = gl + rng.integers(1, 40, len(lens[::3]))
+    elif case == "zero":
+        lens[:] = 0
+    return lens
+
+
+@pytest.mark.parametrize("encode", ["none", "sanger", "base_decode"])
+@pytest.mark.parametrize("case", ["read_lengths", "long_rows", "zero"])
+@pytest.mark.parametrize("cut", ["exact", "short", "past"])
+def test_pack_rows_encodes_equal_jax(encode, case, cut):
+    """pack_rows(..., encode=) equals the JAX pack of the encoded matrix
+    (pack_rows_body of sanger_body / base_decode_body), with rows longer
+    than the width, a size cut short of sum(lens) and one past it."""
+    from adam_tpu.ops.colpack import base_decode_body, pack_rows_body, sanger_body
+
+    from adam_tpu_torch.ops.colpack import pack_rows
+
+    g, gl = 37, 40
+    rng = np.random.default_rng(5)
+    mat = (rng.integers(0, 6, (g, gl)) if encode == "base_decode"
+           else rng.integers(0, 256, (g, gl))).astype(np.uint8)
+    lens = _pack_lens(g, gl, 7, case)
+    total = int(lens.sum())
+    size = {"exact": total, "short": total // 2, "past": total + 77}[cut]
+    jax_encode = {"none": lambda m: m, "sanger": sanger_body,
+                  "base_decode": base_decode_body}[encode]
+    with backend_scope("xla"):
+        want = np.asarray(pack_rows_body(jax_encode(mat), lens, size))
+    got = pack_rows(torch.from_numpy(mat), torch.from_numpy(lens), size, encode=encode)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (size,)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("g,gl", GRIDS)
@@ -179,12 +230,16 @@ def test_wrappers_check_their_inputs():
     bits = torch.zeros((4, 2), dtype=torch.uint8)
     ok = torch.ones(4, dtype=torch.bool)
     with pytest.raises(ValueError):
-        observe_hist(keys.long(), bits, bits, ok, 10)
+        observe_hist(keys.long(), bits, bits, ok, 10, 5)
     with pytest.raises(ValueError):
-        observe_hist(keys, bits[:, :1], bits, ok, 10)
+        observe_hist(keys, bits[:, :1], bits, ok, 10, 5)
     with pytest.raises(ValueError):
-        observe_hist(keys, bits, bits, ok.int(), 10)
+        observe_hist(keys, bits, bits, ok.int(), 10, 5)
+    with pytest.raises(ValueError, match="slab width"):
+        observe_hist(keys, bits, bits, ok, 10, 3)
     with pytest.raises(ValueError):
         pack_rows(bits, torch.zeros(4, dtype=torch.int32), 8)
     with pytest.raises(ValueError):
         pack_rows(keys, torch.zeros(4, dtype=torch.int64), 8)
+    with pytest.raises(ValueError, match="encode"):
+        pack_rows(bits, torch.zeros(4, dtype=torch.int64), 8, encode="phred")

@@ -1,8 +1,8 @@
 """Smith-Waterman parity: the port's plain fills (which run on the CPU) are
 bit-equal to the JAX package's scan fills and its Pallas kernels
 (interpret mode) on the same numpy-seeded inputs — moves, per-row best
-scores and diagonals for the full fill; best scores in f32, i32 and i16
-for the score-only fill — and the batched alignment equals the JAX
+scores and diagonals for the full fill; best scores in f32, i32, i16 and
+bf16 for the score-only fill — and the batched alignment equals the JAX
 package's per-pair ``smith_waterman``.  The CUDA kernels are held against
 the plain versions in ``test_torch_cuda.py``, on a machine with a card."""
 
@@ -74,9 +74,11 @@ def test_score_plain_equals_scan_and_pallas_f32(B, lx, ly, seed):
     np.testing.assert_array_equal(got.numpy(), best_sc.numpy().max(axis=1))
 
 
-@pytest.mark.parametrize("dtype_name", ["i16", "i32"])
+@pytest.mark.parametrize("dtype_name", ["i16", "i32", "bf16"])
 @pytest.mark.parametrize("B,lx,ly,seed", [(40, 63, 70, 13), (8, 127, 127, 0)])
 def test_score_integer_types_equal_pallas_and_scan(B, lx, ly, seed, dtype_name):
+    # with these weights every score is an integer below 256, which bf16
+    # holds exactly, so the bf16 fill equals the scan too
     xc, xl, yc, yl = _pairs(seed, B, lx, ly, min_len=4)
     w = (2.0, -1.0, -1.0, -1.0)
     got = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *w, dtype_name=dtype_name)
@@ -88,6 +90,23 @@ def test_score_integer_types_equal_pallas_and_scan(B, lx, ly, seed, dtype_name):
     assert float(got.max()) > 0
 
 
+@pytest.mark.parametrize("B,lx,ly,seed", [(24, 31, 45, 7), (40, 63, 70, 13),
+                                          (8, 127, 127, 0), (6, 130, 40, 2)])
+def test_score_bf16_default_weights_equal_pallas(B, lx, ly, seed):
+    """The measurement-only bf16 fill with ADAM's fractional defaults,
+    every add and max rounded once to bf16, equals the Pallas kernel in
+    bf16 (interpret mode) bit for bit."""
+    xc, xl, yc, yl = _pairs(seed, B, lx, ly, min_len=4)
+    got = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *DEFAULT_W, dtype_name="bf16")
+    pallas = jsw._sw_score_pallas(*_j(xc, xl, yc, yl), lx, ly, *DEFAULT_W,
+                                  interpret=True, dtype_name="bf16")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    # bf16 rounds: the f32 fill gives other scores on these pairs
+    f32 = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *DEFAULT_W)
+    assert not torch.equal(got, f32)
+
+
 def test_score_type_guards():
     xc, xl, yc, yl = _t(*_pairs(3, 4, 31, 40))
     for dtype_name in ("i16", "i32"):
@@ -95,8 +114,6 @@ def test_score_type_guards():
             tsw.sw_best_scores(xc, xl, yc, yl, *DEFAULT_W, dtype_name=dtype_name)
     with pytest.raises(ValueError, match="overflow"):
         tsw.sw_best_scores(xc, xl, yc, yl, 2.0, -1.0, -1.0, -600.0, dtype_name="i16")
-    with pytest.raises(ValueError, match="not ported"):
-        tsw.sw_best_scores(xc, xl, yc, yl, dtype_name="bf16")
     for lx, ly, w in [(127, 127, (2, -1, -1, -1)), (127, 127, DEFAULT_W),
                       (300, 9000, (2, -1, -1, -1)), (129, 100, (1, -1, -1, -70))]:
         assert tsw._i16_safe(lx, ly, *w) == jsw._i16_safe(lx, ly, *w)
