@@ -10,8 +10,9 @@ that never launches a kernel: the CPU path never calls :func:`library`.
 
 Every launch goes through :func:`launch`, which counts it, so a run can
 show that it went through the kernels (:func:`launches`,
-:func:`reset_launches`); a wrapper with modes (``pack_rows``' encodes)
-names the mode, counted apart too (:func:`variant_launches`).
+:func:`reset_launches`); a wrapper with modes (``pack_rows``' encodes,
+``sw_fill``'s routes) names the mode, counted apart too
+(:func:`variant_launches`).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ _F = ct.c_float
 _SIGNATURES = {
     "observe_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     "pack_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
-    "sw_fill": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "sw_fill": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, ct.c_int, _P, _P, _P, _P],
     "sw_score": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, ct.c_int, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)

@@ -138,16 +138,35 @@ def sw_fill_plain(x_codes, x_len, y_codes, y_len, w_match, w_mismatch,
     return moves, best_sc, best_d
 
 
+#: the fill's warp route (a warp per pair, R = ceil(lx/32) rows a lane in
+#: registers) takes lx up to this; longer rows take the block route
+SW_FILL_WARP_MAX_LX = 128
+_SW_FILL_TILE_DIAGS = 32  # diagonals per staged move tile (warp route)
+_SW_FILL_ROUTES = {"warp": 0, "block": 1}
+
+
+def sw_fill_route(lx: int) -> str:
+    """The fill kernel's route for rows of ``lx``: "warp" or "block"."""
+    return "warp" if lx <= SW_FILL_WARP_MAX_LX else "block"
+
+
 def sw_fill_smem_bytes(lx: int, ly: int) -> int:
-    """Shared memory the fill kernel needs for one pair: three rolling
-    f32 diagonals of lx+1 lanes and both code rows as i32."""
+    """Shared memory the fill kernel needs for one pair.  Warp route: the
+    staging tile of 32 diagonals x (lx+1) move bytes plus 16 bytes to
+    align it, and y as i32, each rounded up to 16 bytes (a block holds up
+    to four such warps, as many as fit).  Block route: three rolling f32
+    diagonals of lx+1 lanes and both code rows as i32."""
+    if sw_fill_route(lx) == "warp":
+        return (_round_up(_SW_FILL_TILE_DIAGS * (lx + 1) + 16, 16)
+                + _round_up(4 * ly, 16))
     return 3 * (lx + 1) * 4 + (lx + ly) * 4
 
 
 def sw_fill(x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert,
             w_delete, lx: int, ly: int):
     """Diagonal-layout fill -> (moves u8[B, D, lx+1], best_sc f32[B, lx+1],
-    best_d i32[B, lx+1]); the CUDA kernel for CUDA tensors, the plain
+    best_d i32[B, lx+1]); the CUDA kernel for CUDA tensors (on the route
+    :func:`sw_fill_route` picks, counted as its variant), the plain
     version for CPU tensors."""
     _check_pair_inputs(x_codes, x_len, y_codes, y_len)
     if tuple(x_codes.shape[1:]) != (lx,) or tuple(y_codes.shape[1:]) != (ly,):
@@ -162,6 +181,7 @@ def sw_fill(x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert,
     if lx + 1 > 8192 or sw_fill_smem_bytes(lx, ly) > SMEM_LIMIT:
         raise ValueError(f"sw_fill kernel: lx={lx}, ly={ly} exceed its "
                          "8,192-row / shared-memory limits")
+    route = sw_fill_route(lx)
     B = x_codes.shape[0]
     D = lx + ly + 1
     xc = x_codes.to(torch.int32).contiguous()
@@ -176,7 +196,8 @@ def sw_fill(x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert,
             "sw_fill", xc.data_ptr(), yc.data_ptr(), xl.data_ptr(), yl.data_ptr(),
             B, lx, ly, *(ct.c_float(_f32(w)) for w in
                          (w_match, w_mismatch, w_insert, w_delete)),
-            moves.data_ptr(), best_sc.data_ptr(), best_d.data_ptr(),
+            _SW_FILL_ROUTES[route], moves.data_ptr(), best_sc.data_ptr(),
+            best_d.data_ptr(), variant=route,
         )
     return moves, best_sc, best_d
 
@@ -278,12 +299,6 @@ def _i16_safe(lx: int, ly: int, w_match: float, w_mismatch: float,
     return (max(lx, ly) + 1) * wmax < 16000 and L * abs(w_delete) < 16000
 
 
-def sw_score_smem_bytes(lx: int, ly: int, dtype_name: str) -> int:
-    """Shared memory of the score kernel for one pair: the y codes as
-    i32 and two ping-pong columns of the block's row lanes."""
-    return 4 * ly + 2 * _round_up(lx, 32) * _DTYPES[dtype_name].itemsize
-
-
 def sw_best_scores(x_codes, x_len, y_codes, y_len,
                    w_match: float = 1.0, w_mismatch: float = -0.333,
                    w_insert: float = -0.5, w_delete: float = -0.5,
@@ -305,9 +320,8 @@ def sw_best_scores(x_codes, x_len, y_codes, y_len,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _score_weights(dtype_name, w_match, w_mismatch, w_insert, w_delete, lx, ly)
-    if lx > 1024 or sw_score_smem_bytes(lx, ly, dtype_name) > SMEM_LIMIT:
-        raise ValueError(f"sw_score kernel: lx={lx}, ly={ly} exceed its "
-                         "1,024-row / shared-memory limits")
+    if lx > 1024:
+        raise ValueError(f"sw_score kernel: lx={lx} exceeds its 1,024 rows")
     B = x_codes.shape[0]
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B:

@@ -2,7 +2,9 @@
 
 Phases, each of which fails the script on any error:
 
-1. the card: its name, and its name and power limit from nvidia-smi;
+1. the card: its name, its name and power limit from nvidia-smi, and its
+   instruction issue rate (SMs x 128 lanes x the maximum SM clock), the
+   rate the Smith-Waterman kernels' operation bounds use;
 2. build: the CUDA kernels (one nvcc per source, started together) and
    the native host codecs;
 3. kernels: each kernel against its plain PyTorch version on the card,
@@ -24,8 +26,10 @@ Phases, each of which fails the script on any error:
    then the transform without realignment on the same input;
 4b. the smithwaterman consensus model: ``transform_streamed(...,
    realign=True, consensus_model="smithwaterman")`` on the same input
-   through the library call, every sw_fill launch's (B, lx, ly) logged;
-   then sw_fill against its plain version at the median launch shape;
+   through the library call, every sw_fill launch's (B, lx, ly) and route
+   logged; then sw_fill against its plain version at the median launch
+   shape (warp route) and at SW_BLOCK_SHAPE (block route), and the
+   ``moves.cpu()`` copy of the median launch's output timed;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models; the parts must be byte-identical.
@@ -56,7 +60,8 @@ SW_READS = 1_048_576
 PARITY_READS = 65_536
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 peak (data sheet)
+LANES_PER_SM = 128         # Hopper: an add, max, compare or select per lane per clock
+SW_BLOCK_SHAPE = (1024, 160, 384)  # 150 bp reads: sw_fill's block route
 SW_WEIGHTS = {"f32": (1.0, -0.333, -0.5, -0.5), "i16": (2.0, -1.0, -1.0, -1.0),
               "bf16": (2.0, -1.0, -1.0, -1.0)}
 
@@ -70,6 +75,22 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def issue_rate() -> dict:
+    """The card's non-tensor instruction issue rate: SMs (from torch) x
+    128 lanes x the maximum SM clock (nvidia-smi), in operations/s.  An
+    FMA counts one operation here, so this is half the f32 data-sheet
+    FLOP/s; the SW kernels do adds, maxes, compares and selects."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    return {"sms": sms, "sm_clock_max_mhz": mhz,
+            "ops_per_s": sms * LANES_PER_SM * mhz * 1e6}
 
 
 def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -228,16 +249,21 @@ def _sw_score_ops_per_cell(lx: int) -> int:
     return 6 + 2 * n_shifts + 3
 
 
-def check_sw_score(dev, B: int = 8192, lx: int = 127, ly: int = 127) -> list:
-    """sw_score against its plain version at benchmark_gcups' shape, f32 and
-    i16; then each driven through benchmark_gcups (the GCUPS path), its
-    launches counted around that call."""
+def check_sw_score(dev, B: int = 8192, lx: int = 127, ly: int = 127,
+                   rate: dict | None = None) -> list:
+    """sw_score against its plain version at benchmark_gcups' shape, f32,
+    i16 and bf16; then each driven through benchmark_gcups (the GCUPS
+    path), its launches counted around that call.  The operation bound is
+    at the card's issue rate (:func:`issue_rate`); i16 and bf16 count two
+    cells per lane-instruction, as the card's packed 16-bit forms (the
+    i16 kernel's DPX s16x2 instructions, bf16x2) do."""
     import numpy as np
     import torch
 
     from adam_tpu_torch.ops import kernels
     from adam_tpu_torch.ops import smith_waterman as sw
 
+    rate = rate or issue_rate()
     rng = np.random.default_rng(SEED)
     args = [torch.from_numpy(a).to(dev) for a in (
         rng.integers(0, 4, (B, lx)).astype(np.int32), np.full(B, lx, np.int32),
@@ -252,7 +278,8 @@ def check_sw_score(dev, B: int = 8192, lx: int = 127, ly: int = 127) -> list:
         plain_ms = _time_ms(lambda: sw.sw_score_plain(*args, *w, lx, ly, dtype_name),
                             iters=2, warm=1)
         cells = B * lx * ly
-        ops_ms = cells * _sw_score_ops_per_cell(lx) / F32_OPS_PER_S * 1e3
+        per_lane = 2 if dtype_name in ("i16", "bf16") else 1
+        ops_ms = cells * _sw_score_ops_per_cell(lx) / per_lane / rate["ops_per_s"] * 1e3
         bytes_ms = (4 * B * (lx + ly + 2) + 4 * B) / HBM_BYTES_PER_S * 1e3
         kernels.reset_launches()
         gcups_path = sw.benchmark_gcups(B, lx, ly, reps=6, dtype_name=dtype_name,
@@ -296,13 +323,17 @@ def _sw_fill_inputs(B: int, lx: int, ly: int):
     return xc, xl, yc, yl
 
 
-def check_sw_fill(dev, shape, launched: int) -> dict:
-    """sw_fill against its plain version at one (B, lx, ly) launch shape."""
+def check_sw_fill(dev, shape, launched: int, rate: dict | None = None,
+                  block_shape=None) -> dict:
+    """sw_fill against its plain version at one (B, lx, ly) launch shape,
+    plus the ``moves.cpu()`` copy the smithwaterman path makes of each
+    launch's output; with ``block_shape``, also the block route there."""
     import numpy as np
     import torch
 
     from adam_tpu_torch.ops import smith_waterman as sw
 
+    rate = rate or issue_rate()
     B, lx, ly = shape
     inputs = _sw_fill_inputs(B, lx, ly)
     args = [torch.from_numpy(a).to(dev) for a in inputs]
@@ -327,8 +358,23 @@ def check_sw_fill(dev, shape, launched: int) -> dict:
     matrix_cells = int(((xl + 1) * (yl + 1)).sum())
     n_bytes = matrix_cells + 8 * int((xl + 1).sum()) + 4 * int((xl + yl).sum()) + 8 * B
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 12 * int((xl * yl).sum()) / F32_OPS_PER_S * 1e3
+    ops_ms = 12 * int((xl * yl).sum()) / rate["ops_per_s"] * 1e3
     ms = _time_ms(lambda: sw.sw_fill(*args, *w, lx, ly))
+    moves = got[0]
+    d2h_ms = _time_ms(lambda: moves.cpu(), iters=5, warm=1)
+    extra = {}
+    if block_shape is not None:
+        bB, blx, bly = block_shape
+        if sw.sw_fill_route(blx) != "block":
+            raise AssertionError(f"{block_shape} is not on the block route")
+        bargs = [torch.from_numpy(a).to(dev) for a in _sw_fill_inputs(bB, blx, bly)]
+        bgot = sw.sw_fill(*bargs, *w, blx, bly)
+        bwant = sw.sw_fill_plain(*bargs, *w, blx, bly)
+        torch.cuda.synchronize()
+        extra = {"block_route_shape": [bB, blx, bly],
+                 "block_route_equal": all(torch.equal(a, b) for a, b in zip(bgot, bwant)),
+                 "block_route_ms": _time_ms(lambda: sw.sw_fill(*bargs, *w, blx, bly))}
+        equal = equal and extra["block_route_equal"]
     return dict(
         name="sw_fill", route="cuda", source="adam_tpu_torch/csrc/sw_fill.cu",
         replaces="adam_tpu/ops/smith_waterman.py:261", equal=equal,
@@ -338,6 +384,7 @@ def check_sw_fill(dev, shape, launched: int) -> dict:
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         shape=[B, lx, ly], moves_bytes_written=B * D * (lx + 1),
         matrix_cells=matrix_cells, cells_per_s=matrix_cells / (ms / 1e3),
+        fill_route=sw.sw_fill_route(lx), moves_cpu_ms=d2h_ms, **extra,
     )
 
 
@@ -461,6 +508,9 @@ def main() -> int:
     smi = _smi()
     _log(f"device: {kind} (count {torch.cuda.device_count()})")
     _log(f"nvidia-smi: {smi}")
+    rate = issue_rate()
+    _log(f"issue rate: {rate['sms']} SMs x {LANES_PER_SM} lanes x "
+         f"{rate['sm_clock_max_mhz']} MHz (clocks.max.sm) = {rate['ops_per_s']:.6g} ops/s")
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.monotonic()
@@ -472,7 +522,7 @@ def main() -> int:
     _log(f"native codecs built in {time.monotonic() - t0:.2f} s")
 
     # ---- 3. kernels vs plain versions -----------------------------------
-    kern = check_kernels(dev) + check_sw_score(dev)
+    kern = check_kernels(dev) + check_sw_score(dev, rate=rate)
     for k in kern:
         _log(f"kernel {k['name']}: equal={k['equal']} {k['ms']:.4f} ms "
              f"(plain {k['plain_ms']:.4f} ms, library {k['library_ms']}, "
@@ -543,22 +593,30 @@ def main() -> int:
         kernels.reset_launches()
         sw_stats, shapes = run_smithwaterman(sam, out_dir, "cuda")
         sw_launched = kernels.launches()
+        sw_routes = {k: v for k, v in kernels.variant_launches().items()
+                     if k.startswith("sw_fill:")}
         _log("smithwaterman stats: " + json.dumps(sw_stats, sort_keys=True))
         got = read_parts(out_dir)
-        if sw_launched["sw_fill"] < 1 or sw_launched["sw_fill"] != len(shapes):
-            raise AssertionError(f"sw_fill launches {sw_launched} vs {len(shapes)} calls")
+        if (sw_launched["sw_fill"] < 1 or sw_launched["sw_fill"] != len(shapes)
+                or sum(sw_routes.values()) != len(shapes)):
+            raise AssertionError(f"sw_fill launches {sw_launched} ({sw_routes}) "
+                                 f"vs {len(shapes)} calls")
         if got["rows"] != SW_READS or got["parts"] != sw_stats["n_windows"] + 1:
             raise AssertionError(f"smithwaterman path: {got}")
         _log(f"smithwaterman path: {got}, {sw_stats['reads_per_s']:.0f} reads/s, "
-             f"launches {sw_launched}; sw_fill (B, lx, ly) per launch: {shapes}")
+             f"launches {sw_launched} (routes {sw_routes}); sw_fill (B, lx, ly) per "
+             f"launch: {shapes}")
         shutil.rmtree(out_dir)
         os.unlink(sam)
         median = sorted(shapes, key=lambda t: t[0] * (t[1] + t[2] + 1) * (t[1] + 1))[
             len(shapes) // 2]
-        fill = check_sw_fill(dev, median, sw_launched["sw_fill"])
+        fill = check_sw_fill(dev, median, sw_launched["sw_fill"], rate=rate,
+                             block_shape=SW_BLOCK_SHAPE)
         _log(f"kernel sw_fill at the median launch {median}: equal={fill['equal']} "
-             f"{fill['ms']:.4f} ms (plain {fill['plain_ms']:.4f} ms, bound "
-             f"{fill['bound_ms']:.4f} ms by {fill['bound_by']})")
+             f"{fill['ms']:.4f} ms on the {fill['fill_route']} route (plain "
+             f"{fill['plain_ms']:.4f} ms, bound {fill['bound_ms']:.4f} ms by "
+             f"{fill['bound_by']}); block route at {SW_BLOCK_SHAPE}: "
+             f"{fill['block_route_ms']:.4f} ms; moves.cpu() {fill['moves_cpu_ms']:.4f} ms")
         if not fill["equal"]:
             raise AssertionError(f"kernel sw_fill disagrees with its plain version: {fill}")
         kern.insert(3, fill)
@@ -586,11 +644,13 @@ def main() -> int:
 
     for k in kern:
         k["kernel_ms"] = k["ms"]
+        k["x_bound"] = k["ms"] / k["bound_ms"]
     print(json.dumps({"main_path": {
         "reads": MAIN_READS, "window_reads": WINDOW_READS, "stats": stats,
         "profile": prof, "no_realign_stats": plain_stats,
         "smithwaterman": {"reads": SW_READS, "stats": sw_stats,
-                          "sw_fill_launch_shapes": shapes},
+                          "sw_fill_launch_shapes": shapes, "sw_fill_routes": sw_routes},
+        "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)
     print(json.dumps({"kernels": kern}), flush=True)

@@ -192,11 +192,14 @@ def test_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
 
 
-def _sw_pairs(seed, B, lx, ly):
+def _sw_pairs(seed, B, lx, ly, x_len=None):
+    """Random pairs; ``x_len`` "one" or "full" pins every x length."""
     rng = np.random.default_rng(seed)
     xl = rng.integers(1, lx + 1, B).astype(np.int32)
     yl = rng.integers(1, ly + 1, B).astype(np.int32)
     xl[0], yl[0] = lx, ly
+    if x_len is not None:
+        xl[:] = 1 if x_len == "one" else lx
     xc = rng.integers(0, 5, (B, lx)).astype(np.int32)
     yc = rng.integers(0, 5, (B, ly)).astype(np.int32)
     xc[np.arange(lx)[None, :] >= xl[:, None]] = 5
@@ -204,36 +207,50 @@ def _sw_pairs(seed, B, lx, ly):
     return [torch.from_numpy(a) for a in (xc, xl, yc, yl)]
 
 
-SW_W = [(1.0, -0.333, -0.5, -0.5), (2.0, -1.0, -1.0, -1.0)]
+# the third set is the order trap: w_delete not a dyadic fraction, where
+# the doubling delete chain and the sequential one round apart in f32
+SW_W = [(1.0, -0.333, -0.5, -0.5), (2.0, -1.0, -1.0, -1.0), (1.0, -0.333, -0.3, -0.3)]
 
 
+# (B, lx, ly, x_len): the warp route's edges (lx 1, 31, 32, 33 and its
+# limit 128), the block route (limit + 1, 1500), B = 1 and B not a
+# multiple of the four pairs a block, every x_len 1 or lx
 @pytest.mark.parametrize("w", SW_W)
-@pytest.mark.parametrize("B,lx,ly", [(9, 37, 29), (64, 100, 300), (3, 1, 5),
-                                     (2, 1500, 90), (700, 128, 512)])
-def test_sw_fill_equals_plain(cuda_device, B, lx, ly, w):
+@pytest.mark.parametrize("B,lx,ly,x_len", [
+    (9, 37, 29, None), (64, 100, 300, None), (3, 1, 5, None), (2, 1500, 90, None),
+    (700, 128, 512, None), (1, 31, 40, None), (5, 32, 33, None), (6, 33, 70, None),
+    (1, 128, 128, None), (130, 129, 200, None), (13, 128, 256, "one"),
+    (13, 128, 256, "full"), (7, 129, 64, "full"), (11, 64, 96, "one")])
+def test_sw_fill_equals_plain(cuda_device, B, lx, ly, x_len, w):
     from adam_tpu_torch.ops import kernels
-    from adam_tpu_torch.ops.smith_waterman import sw_fill, sw_fill_plain
+    from adam_tpu_torch.ops.smith_waterman import SW_FILL_WARP_MAX_LX, sw_fill, sw_fill_plain
 
-    args = _sw_pairs(lx + ly, B, lx, ly)
+    args = _sw_pairs(lx + ly, B, lx, ly, x_len)
     want = sw_fill_plain(*args, *w, lx, ly)
+    route = "warp" if lx <= SW_FILL_WARP_MAX_LX else "block"
     before = kernels.launches()["sw_fill"]
+    before_route = kernels.variant_launches().get(f"sw_fill:{route}", 0)
     got = sw_fill(*(a.to(cuda_device) for a in args), *w, lx, ly)
     torch.cuda.synchronize()
     assert kernels.launches()["sw_fill"] == before + 1
+    assert kernels.variant_launches()[f"sw_fill:{route}"] == before_route + 1
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("dtype_name,w", [("f32", SW_W[0]), ("f32", SW_W[1]),
                                           ("i32", SW_W[1]), ("i16", SW_W[1]),
-                                          ("bf16", SW_W[0]), ("bf16", SW_W[1])])
-@pytest.mark.parametrize("B,lx,ly", [(24, 31, 45), (300, 127, 127), (5, 1, 9),
-                                     (7, 1000, 60)])
-def test_sw_score_equals_plain(cuda_device, B, lx, ly, dtype_name, w):
+                                          ("bf16", SW_W[0]), ("bf16", SW_W[1]),
+                                          ("f32", SW_W[2]), ("bf16", SW_W[2])])
+@pytest.mark.parametrize("B,lx,ly,x_len", [
+    (24, 31, 45, None), (300, 127, 127, None), (5, 1, 9, None), (7, 1000, 60, None),
+    (1, 32, 40, None), (9, 33, 50, None), (6, 128, 64, None), (3, 129, 30, None),
+    (2, 1024, 20, None), (17, 64, 70, "one"), (17, 64, 70, "full")])
+def test_sw_score_equals_plain(cuda_device, B, lx, ly, x_len, dtype_name, w):
     from adam_tpu_torch.ops import kernels
     from adam_tpu_torch.ops.smith_waterman import sw_best_scores
 
-    args = _sw_pairs(lx * 3 + ly, B, lx, ly)
+    args = _sw_pairs(lx * 3 + ly, B, lx, ly, x_len)
     want = sw_best_scores(*args, *w, dtype_name=dtype_name)
     before = kernels.launches()["sw_score"]
     got = sw_best_scores(*(a.to(cuda_device) for a in args), *w, dtype_name=dtype_name)

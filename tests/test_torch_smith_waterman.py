@@ -74,6 +74,56 @@ def test_score_plain_equals_scan_and_pallas_f32(B, lx, ly, seed):
     np.testing.assert_array_equal(got.numpy(), best_sc.numpy().max(axis=1))
 
 
+# w_delete not a dyadic fraction: the doubling delete chain and the
+# sequential one (H[i] = max(tmp[i], H[i-1] + wd)) round apart in f32
+ORDER_TRAP_W = (1.0, -0.333, -0.3, -0.3)
+
+
+@pytest.mark.parametrize("B,lx,ly,seed", [(24, 31, 45, 7), (40, 63, 70, 13), (6, 130, 40, 2),
+                                          (64, 127, 127, 3)])
+def test_score_plain_equals_scan_and_pallas_f32_order_trap(B, lx, ly, seed):
+    """Under weights where the order of the delete chain's sums shows,
+    the plain score fill still equals the JAX scan and Pallas kernel."""
+    xc, xl, yc, yl = _pairs(seed, B, lx, ly, min_len=4)
+    got = tsw.sw_best_scores(*_t(xc, xl, yc, yl), *ORDER_TRAP_W)
+    scan = jsw._sw_score_scan(*_j(xc, xl, yc, yl), *ORDER_TRAP_W, lx, ly)
+    pallas = jsw._sw_score_pallas(*_j(xc, xl, yc, yl), lx, ly, *ORDER_TRAP_W,
+                                  interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scan))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+@pytest.mark.parametrize("w,differ", [(ORDER_TRAP_W, True), (DEFAULT_W, False)])
+def test_doubling_and_sequential_delete_chains_differ_under_the_trap(w, differ):
+    """The full fill chains one + w_delete per row; the score fill doubles.
+    Under the trap weights the two disagree on some of 256 random pairs, so
+    a score kernel that took the sequential chain would fail its parity
+    tests; under ADAM's defaults (w_delete -0.5, exact) they agree."""
+    B, lx, ly = 256, 127, 127
+    args = _t(*_pairs(11, B, lx, ly, min_len=lx))
+    score = tsw.sw_score_plain(*args, *w, lx, ly)
+    _, best_sc, _ = tsw.sw_fill_plain(*args, *w, lx, ly)
+    n_differ = int((score != best_sc.max(dim=1).values).sum())
+    assert (n_differ > 0) == differ, n_differ
+
+
+@pytest.mark.parametrize("lx,route", [(1, "warp"), (31, "warp"), (32, "warp"), (33, "warp"),
+                                      (128, "warp"), (129, "block"), (1500, "block")])
+def test_fill_route_and_shared_memory(lx, route):
+    """The fill kernel's route follows lx alone (warp up to its limit of
+    128 rows), and its shared memory per pair: on the warp route a staging
+    tile of 32 diagonals plus 16 bytes of alignment and y as i32, each
+    rounded to 16 bytes; on the block route three f32 diagonals and both
+    code rows as i32."""
+    assert tsw.sw_fill_route(lx) == route
+    assert tsw.SW_FILL_WARP_MAX_LX == 128
+    ly = 384
+    want = ((-(-(32 * (lx + 1) + 16) // 16) * 16 + 4 * ly) if route == "warp"
+            else 12 * (lx + 1) + 4 * (lx + ly))
+    assert tsw.sw_fill_smem_bytes(lx, ly) == want
+    assert tsw.sw_fill_smem_bytes(128, 384) == 4144 + 1536
+
+
 @pytest.mark.parametrize("dtype_name", ["i16", "i32", "bf16"])
 @pytest.mark.parametrize("B,lx,ly,seed", [(40, 63, 70, 13), (8, 127, 127, 0)])
 def test_score_integer_types_equal_pallas_and_scan(B, lx, ly, seed, dtype_name):

@@ -2,9 +2,12 @@
 ``python3 tools/compare_kernels.py PARENT_DIR CHANGE_DIR``).
 
 Runs ``chip_smoke.check_kernels`` (phase 3's observe_hist and pack_rows
-at the main path's shapes, each checked against its plain version and
-timed over the whole wrapper call by CUDA events, 3 warm-up and 20 timed
-calls) in PARENT, CHANGE, CHANGE, PARENT order, each run in its own
+at the main path's shapes), ``chip_smoke.check_sw_score`` (sw_score f32,
+i16 and bf16 at ``benchmark_gcups``' 8,192 x 127 x 127) and
+``chip_smoke.check_sw_fill`` at the smithwaterman path's median launch
+shape (SW_FILL_SHAPE), each checked against its plain version and timed
+over the whole wrapper call by CUDA events, 3 warm-up and 20 timed
+calls, in PARENT, CHANGE, CHANGE, PARENT order, each run in its own
 process from its own checkout (so each builds and loads its own
 kernels).  Each run also times the unfused SANGER pair,
 ``pack_rows(sanger_body(quals))``, which both versions accept.  Prints
@@ -19,13 +22,18 @@ import os
 import subprocess
 import sys
 
+#: (B, lx, ly) of the median sw_fill launch of the smithwaterman path on
+#: chip_smoke.py's 1M-read input
+SW_FILL_SHAPE = (4056, 128, 384)
+
 SNIPPET = r"""
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke
 from adam_tpu_torch.ops import colpack
 dev = torch.device("cuda")
-kern = chip_smoke.check_kernels(dev)
+kern = chip_smoke.check_kernels(dev) + chip_smoke.check_sw_score(dev)
+kern.append(chip_smoke.check_sw_fill(dev, SW_FILL_SHAPE, 0))
 t, g, gl = chip_smoke._kernel_inputs(dev)
 lens = t["lengths"].to(torch.int64)
 pair = chip_smoke._time_ms(
@@ -49,7 +57,8 @@ def main(argv) -> int:
     sides = {"parent": os.path.abspath(argv[0]), "change": os.path.abspath(argv[1])}
     runs = {"parent": [], "change": []}
     for side in ("parent", "change", "change", "parent"):
-        proc = subprocess.run([sys.executable, "-c", SNIPPET], cwd=sides[side],
+        snippet = SNIPPET.replace("SW_FILL_SHAPE", repr(SW_FILL_SHAPE))
+        proc = subprocess.run([sys.executable, "-c", snippet], cwd=sides[side],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
