@@ -1,6 +1,7 @@
-"""The dataset handle: a read batch, its sidecar and its header
+"""The dataset handles: a read batch, its sidecar and its header
 (the counterpart of ``adam_tpu/api/datasets.AlignmentDataset``, with the
-pieces the streamed transform uses)."""
+pieces the streamed transform uses), and the VCF's variants and
+genotypes (``GenotypeDataset``, the source of the known-sites tables)."""
 
 from __future__ import annotations
 
@@ -66,3 +67,68 @@ class AlignmentDataset:
         from adam_tpu_torch.pipelines.realign import realign_indels
 
         return realign_indels(self, **kw)
+
+
+@dataclass
+class GenotypeDataset:
+    """Variant sites + per-sample calls (the counterpart of
+    ``adam_tpu/api/datasets.GenotypeDataset``, with the VCF load and the
+    two known-sites tables).  Variants and genotypes stay columnar
+    (:mod:`adam_tpu_torch.formats.variants`), linked by
+    ``genotypes.variant_idx``."""
+
+    variants: "object"  # formats.variants.VariantBatch
+    genotypes: "object"  # formats.variants.GenotypeBatch
+    seq_dict: "object"  # SequenceDictionary
+
+    @staticmethod
+    def load(path: str, **kw) -> "GenotypeDataset":
+        """.vcf / .vcf.gz -> the VCF reader (``contig_names=`` fixes the
+        contig index space, e.g. to the SAM header's)."""
+        p = str(path)
+        if not p.endswith((".vcf", ".vcf.gz")):
+            raise ValueError(
+                f"{p!r}: the port loads genotypes from .vcf or .vcf.gz only "
+                "(the genotype Parquet reader is not ported)"
+            )
+        from adam_tpu_torch.io import vcf as vcf_io
+
+        return GenotypeDataset(*vcf_io.read_vcf(p, **kw))
+
+    def __len__(self) -> int:
+        return len(self.variants)
+
+    @property
+    def contig_names(self) -> list:
+        return [r.name for r in self.seq_dict.records]
+
+    def snp_table(self):
+        """Known-sites table for BQSR: every ref position of every variant
+        masks.  gVCF reference-model rows (alt None) are skipped: their
+        END-extended spans are non-variant sequence, not known sites."""
+        from adam_tpu_torch.models.snp_table import SnpTable
+
+        names = self.contig_names
+        side = self.variants.sidecar
+        pairs = []
+        for i in range(len(self.variants)):
+            if side.alt_allele[i] is None:
+                continue
+            c = names[self.variants.contig_idx[i]]
+            start = int(self.variants.start[i])
+            for p in range(start, start + int(self.variants.ref_len[i])):
+                pairs.append((c, p))
+        return SnpTable.from_variants(pairs)
+
+    def indel_table(self):
+        """Known-indels table for the ``knowns`` realignment model."""
+        from adam_tpu_torch.models.snp_table import IndelTable
+
+        names = self.contig_names
+        side = self.variants.sidecar
+        return IndelTable.from_variants([
+            (names[self.variants.contig_idx[i]], int(self.variants.start[i]),
+             side.ref_allele[i], side.alt_allele[i])
+            for i in range(len(self.variants))
+            if side.alt_allele[i]
+        ])

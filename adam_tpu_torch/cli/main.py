@@ -5,11 +5,18 @@ markdup + realign + BQSR transform::
 
     python -m adam_tpu_torch transform IN.sam OUT.adam -streaming \\
         -mark_duplicate_reads -realign_indels -recalibrate_base_qualities \\
-        [-window_reads N] [--device cuda|cpu]
+        [-known_snps K.vcf] [-known_indels I.vcf] \\
+        [-known_recalibration_table T.npz] [-window_reads N] \\
+        [--device cuda|cpu]
 
 ``-realign_indels`` realigns with the ``reads`` consensus model, as the
-JAX CLI does (the ``smithwaterman`` model is a library option of
-``transform_streamed``).
+JAX CLI does, or with ``knowns`` when ``-known_indels`` is given (the
+``smithwaterman`` model is a library option of ``transform_streamed``).
+The known-sites VCFs (``.vcf`` or ``.vcf.gz``) load in the SAM header's
+contig index space.  ``-known_recalibration_table`` is an ``.npz`` with
+``table`` (u8[n_rg, 94, 2*gl+1, 17]) and ``gl``, applied instead of the
+solved table; it arms the fused B->C tier (``ADAM_TPU_FUSED_BC=0`` is
+the unfused leg).
 
 On success the run's stats (stage walls, read counts, kernel launches)
 are printed to standard output as one JSON line.
@@ -35,6 +42,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-mark_duplicate_reads", action="store_true")
     p.add_argument("-recalibrate_base_qualities", action="store_true")
     p.add_argument("-realign_indels", action="store_true")
+    p.add_argument("-known_snps", default=None,
+                   help="VCF of known SNPs, masked out of the BQSR observations")
+    p.add_argument("-known_indels", default=None,
+                   help="VCF of known INDELs; without it the consensus-from-reads "
+                   "model is used")
+    p.add_argument("-known_recalibration_table", default=None,
+                   help="npz with 'table' (u8[n_rg, 94, 2*gl+1, 17]) and 'gl': "
+                   "applied instead of the table solved at barrier 2")
     p.add_argument("-dump_observations", default=None,
                    help="local path to dump BQSR observations to (CSV)")
     p.add_argument("-window_reads", type=int, default=262_144,
@@ -56,13 +71,33 @@ def main(argv=None) -> int:
         print(f"-window_reads must be positive (got {args.window_reads})",
               file=sys.stderr)
         return 2
+    from adam_tpu_torch.api.datasets import GenotypeDataset
     from adam_tpu_torch.pipelines.streamed import transform_streamed
 
+    known = indels = table = None
+    if args.known_snps or args.known_indels:
+        from adam_tpu_torch.io.sam import peek_sam_header
+
+        names = peek_sam_header(args.input).seq_dict.names
+        if args.known_snps:
+            known = GenotypeDataset.load(args.known_snps, contig_names=names).snp_table()
+        if args.known_indels:
+            indels = GenotypeDataset.load(args.known_indels,
+                                          contig_names=names).indel_table()
+    if args.known_recalibration_table:
+        import numpy as np
+
+        # checked by convert.table_from_numpy inside the transform
+        with np.load(args.known_recalibration_table) as z:
+            table = (np.asarray(z["table"]), int(z["gl"]))
     stats = transform_streamed(
         args.input, args.output,
         mark_duplicates=args.mark_duplicate_reads,
         recalibrate=args.recalibrate_base_qualities,
         realign=args.realign_indels,
+        known_snps=known,
+        known_indels=indels,
+        known_table=table,
         window_reads=args.window_reads,
         compression=args.parquet_compression_codec,
         dump_observations=args.dump_observations,

@@ -1,1 +1,1 @@
-"""Columnar data model: schema constants, string columns, read batches."""
+"""Columnar data model: schema constants, string columns, read batches, variant batches."""

@@ -1,1 +1,1 @@
-"""Ingest (SAM) and output (Parquet parts)."""
+"""Ingest (SAM, VCF) and output (Parquet parts)."""

@@ -1,1 +1,1 @@
-"""Header dictionaries."""
+"""Header dictionaries, genomic coordinates and the known-variant tables."""

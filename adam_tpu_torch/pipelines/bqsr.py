@@ -14,6 +14,11 @@
   quality >= Q5 only), then the SANGER encode and the row-prefix pack of
   both the recalibrated quals and the decoded bases
   (:func:`apply_pack2_body`).
+* **Fused B->C** (a table known before pass B): each window's observe
+  and apply + pack run back to back over its resident tensors
+  (:func:`fused_bc_dispatch`), and pass C only fetches.
+* **Known SNPs** are masked out of the observe's residue filter
+  (:func:`observe_residue_mask`), on the host.
 
 Integer widths follow the JAX package, which runs with x64 on: keys and
 counts accumulate in i32 per window and widen to i64; merges sum in i64.
@@ -114,17 +119,24 @@ def observe_read_mask(b, has_md: np.ndarray) -> np.ndarray:
     )
 
 
-def observe_residue_mask(b) -> np.ndarray:
+def observe_residue_mask(ds: AlignmentDataset, b, known_snps=None) -> np.ndarray:
     """The per-residue observe filter (q > 0, regular ACGT base, aligned
-    to the reference) -> bool[N, L]."""
+    to the reference, not a known SNP) -> bool[N, L].  ``known_snps`` (a
+    :class:`~adam_tpu_torch.models.snp_table.SnpTable`) is tested on the
+    host against each residue's reference position."""
     ref_pos = cigar_ops.reference_positions_np(
         b.cigar_ops, b.cigar_lens, b.cigar_n, b.start, b.lmax
     )
     quals = np.asarray(b.quals)
-    return (
+    rok = (
         (quals > 0) & (quals < schema.QUAL_PAD)
         & (np.asarray(b.bases) < 4) & (ref_pos >= 0)
     )
+    if known_snps is not None and len(known_snps):
+        rok &= ~known_snps.mask_positions(
+            ds.seq_dict.names, np.asarray(b.contig_idx), ref_pos
+        )
+    return rok
 
 
 def covariate_keys(bases, quals, lengths, flags, read_group_idx,
@@ -291,13 +303,19 @@ def apply_table_body(bases, quals, lengths, flags, read_group_idx,
                      has_qual, valid, phred_table, lmax: int):
     """Recalibrated quals u8[N, lmax]: one gather from the u8 table per
     residue, applied where the reported quality is >= Q5 (in-read, qual
-    present, valid row).  The table's cycle axis spans [-gl, gl] with
-    gl >= lmax, so narrower windows gather from its middle."""
+    present, valid row).  The table's cycle axis spans [-gl, gl] (its own
+    gl, which may exceed lmax: narrower windows gather from its
+    middle)."""
     n_rg, _, n_cyc, _ = phred_table.shape
     gl = (n_cyc - 1) // 2
-    rg = _rg_bins(read_group_idx, n_rg)
+    # a known table may come from another cohort, with fewer read-group
+    # bins or a narrower cycle axis than this window: its indices follow
+    # the JAX gather, which counts a negative index from the end of its
+    # axis and clamps what is still outside
+    rg = torch.clamp(_rg_bins(read_group_idx, n_rg), 0, n_rg - 1)
     q = torch.clamp(quals.to(torch.int64), 0, N_QUAL - 1)
     cycles = compute_cycles(lengths, flags, lmax) + gl
+    cycles = torch.clamp(torch.where(cycles < 0, cycles + n_cyc, cycles), 0, n_cyc - 1)
     dinucs = compute_dinucs(bases, lengths, flags, lmax)
     flat = ((rg[:, None] * N_QUAL + q) * n_cyc + cycles) * N_DINUC + dinucs
     new_q = phred_table.reshape(-1)[flat]
@@ -354,3 +372,128 @@ def stash_orig_quals(ds: AlignmentDataset, b) -> AlignmentDataset:
     else:
         merged = StringColumn.where(set_mask, stashed, old_oq)
     return ds.with_batch(b, dc_replace(side, orig_quals=merged))
+
+
+# --------------------------------------------------------------------------
+# Windows: observe, apply, and the fused B->C tier
+# --------------------------------------------------------------------------
+def _put(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(arr).to(device)
+
+
+def _observe_masks(ds: AlignmentDataset, rw, known_snps) -> tuple:
+    """Host side of one resident window's observe: the MD walk, the read
+    and residue filters (known SNPs masked), bit-packed and shipped to
+    the window's device -> (res_bits, mm_bits, read_ok)."""
+    from adam_tpu_torch.formats.batch import pad_rows_np
+    from adam_tpu_torch.ops.colpack import pack_mask_bits
+    from adam_tpu_torch.ops.mdtag import batch_md_arrays
+
+    b = ds.batch.to_numpy()
+    is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
+    read_ok = observe_read_mask(b, has_md)
+    residue_ok = observe_residue_mask(ds, b, known_snps)
+    g, gl, dev = rw.g, rw.gl, rw.device
+    return (
+        _put(pack_mask_bits(pad_rows_np(residue_ok, g, False, cols=gl)), dev),
+        _put(pack_mask_bits(pad_rows_np(is_mm, g, False, cols=gl)), dev),
+        _put(pad_rows_np(read_ok, g, False), dev),
+    )
+
+
+def _apply_masks(b, rw) -> tuple:
+    """The post-split ``has_qual`` / ``valid`` bools of pass C, padded to
+    the window's rows, on its device."""
+    from adam_tpu_torch.formats.batch import pad_rows_np
+
+    return (_put(pad_rows_np(b.has_qual, rw.g, False), rw.device),
+            _put(pad_rows_np(b.valid, rw.g, False), rw.device))
+
+
+def _apply_handle(ds: AlignmentDataset, b, pq, pb) -> tuple:
+    from adam_tpu_torch.ops.colpack import pack_lengths
+
+    return (ds, b, pq, pack_lengths(b.lengths, b.valid, b.has_qual),
+            pb, pack_lengths(b.lengths, b.valid))
+
+
+def observe_window(ds: AlignmentDataset, rw, known_snps=None) -> tuple:
+    """Pass B for one resident window -> (total, mism, gl): lazy i64
+    histograms on the window's device and its grid width."""
+    total, mism = observe_packed_body(
+        *rw.args(), *_observe_masks(ds, rw, known_snps),
+        len(ds.read_groups) + 1, rw.gl,
+    )
+    return total, mism, rw.gl
+
+
+def apply_dispatch(ds: AlignmentDataset, rw, table_dev) -> tuple:
+    """Pass C dispatch for one resident window -> handle for
+    :func:`apply_finish` (the packed columns are still being computed on
+    the device)."""
+    b = ds.batch.to_numpy()
+    pq, pb = apply_pack2_body(*rw.args(), *_apply_masks(b, rw), table_dev,
+                              rw.gl, rw.g * rw.gl)
+    return _apply_handle(ds, b, pq, pb)
+
+
+def apply_finish(handle) -> tuple:
+    """Fetch a dispatched window's packed columns (exactly
+    ``sum(lengths)`` bytes each) and stash OQ -> (dataset, packed)."""
+    from adam_tpu_torch.io.arrow_pack import PackedColumns, PackedQuals
+
+    ds, b, pq, lens_q, pb, lens_b = handle
+    packed = PackedColumns(
+        quals=PackedQuals(pq[: int(lens_q.sum())].cpu().numpy(), lens_q),
+        bases=PackedQuals(pb[: int(lens_b.sum())].cpu().numpy(), lens_b),
+    )
+    return stash_orig_quals(ds, b), packed
+
+
+def fused_bc_enabled(default: bool = True) -> bool:
+    """The ``ADAM_TPU_FUSED_BC`` toggle of the fused B->C tier, parsed as
+    the JAX package parses it: ``auto``/unset -> ``default``,
+    ``1/on/true`` and ``0/off/false`` force.  The off position is the
+    unfused A/B leg."""
+    from adam_tpu_torch.utils.retry import env_toggle
+
+    return env_toggle("ADAM_TPU_FUSED_BC", default)
+
+
+def fused_bc_body(bases, quals, lengths, flags, read_group_idx,
+                  res_bits, mm_bits, read_ok, has_qual, valid,
+                  phred_table, n_rg: int, lmax: int, size: int):
+    """Fused pass B->C over one window's resident tensors, for a table
+    known before pass B: :func:`observe_packed_body` (kernel 1, on the
+    original quals, as in the unfused order) then
+    :func:`apply_pack2_body` (kernel 2, SANGER and base decode) ->
+    ``(total, mism, packed_quals, packed_bases)``, bitwise the separate
+    passes' outputs."""
+    total, mism = observe_packed_body(
+        bases, quals, lengths, flags, read_group_idx,
+        res_bits, mm_bits, read_ok, n_rg, lmax,
+    )
+    pq, pb = apply_pack2_body(
+        bases, quals, lengths, flags, read_group_idx, has_qual, valid,
+        phred_table, lmax, size,
+    )
+    return total, mism, pq, pb
+
+
+def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None):
+    """One fused B->C dispatch for a resident window whose recalibration
+    table is already known -> ``(handle, (total, mism, gl))`` — the
+    handle is :func:`apply_dispatch`'s, finished by :func:`apply_finish`
+    without a second dispatch — or None when the window is not eligible:
+    the table must have the window's read-group bins and a cycle axis at
+    least as wide as the window's grid (``n_cyc >= 2*gl + 1``).  An
+    ineligible window takes the separate passes, as in the JAX package."""
+    n_rg = len(ds.read_groups) + 1
+    if table_dev.shape[0] != n_rg or table_dev.shape[2] < 2 * rw.gl + 1:
+        return None
+    b = ds.batch.to_numpy()
+    total, mism, pq, pb = fused_bc_body(
+        *rw.args(), *_observe_masks(ds, rw, known_snps), *_apply_masks(b, rw),
+        table_dev, n_rg, rw.gl, rw.g * rw.gl,
+    )
+    return _apply_handle(ds, b, pq, pb), (total, mism, rw.gl)

@@ -24,8 +24,10 @@ Semantics of the reference's ``rdd/read/realignment/`` +
 
 Two implementations serve :func:`realign_indels`, as in the JAX package:
 the native path (per-read string work in ``native/realign.cpp``) for the
-``reads`` consensus model, and the Python path for ``smithwaterman``,
-whose preprocessing aligns every read to its target's reference with
+``reads`` and ``knowns`` consensus models (under ``knowns`` with a
+known-indel table the consensuses are the table's indels overlapping the
+target), and the Python path for ``smithwaterman``, whose preprocessing
+aligns every read to its target's reference with
 :mod:`adam_tpu_torch.ops.smith_waterman` (the ``sw_fill`` kernel on the
 card), batched across all targets.
 
@@ -39,9 +41,7 @@ preprocessing refreshes ``ref`` from the rewritten read's new MD, as the
 upstream ``MdTag.moveAlignment(read, cigar)`` derives the reference from
 the read's current MD.  Everything else is bit-for-bit the JAX package's.
 
-Left out of this slice: ``consensus_model="knowns"`` with a known-indel
-table (it needs the known-indel table and the VCF reader, a later slice
-of the port), the multi-device sweep fan-out and the timers.
+Left out of this slice: the multi-device sweep fan-out and the timers.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from adam_tpu_torch.device import resolve_device
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch
 from adam_tpu_torch.formats.strings import StringColumn, with_overrides
+from adam_tpu_torch.models.positions import ReferenceRegion
 from adam_tpu_torch.ops.mdtag import MdTag, batch_md_arrays, parse_cigar
 from adam_tpu_torch.ops.smith_waterman import smith_waterman_many
 
@@ -753,30 +754,36 @@ def realign_indels(
 ) -> AlignmentDataset:
     """GATK-style local realignment (RealignIndels.realignTargetGroup).
 
-    The ``reads`` (and table-less ``knowns``) consensus model runs the
-    native-prep path (C++ per-read string walks + the tiled sweep); the
-    ``smithwaterman`` model runs the Python path, whose preprocessing
+    The ``reads`` and ``knowns`` consensus models run the native-prep
+    path (C++ per-read string walks + the tiled sweep); under ``knowns``
+    with a ``known_indels`` table (``models.snp_table.IndelTable``) each
+    target's consensuses are the table's indels that overlap it, and
+    without a table they come from the reads.  The ``smithwaterman``
+    model runs the Python path, whose preprocessing
     Smith-Waterman-aligns every read to its target's reference.  The
     sweeps and the Smith-Waterman fill run on ``device`` (default: the
     card)."""
     if consensus_model not in CONSENSUS_MODELS:
         raise ValueError(f"consensus_model {consensus_model!r}: one of {CONSENSUS_MODELS}")
-    if known_indels is not None:
-        raise NotImplementedError(
-            "consensus_model='knowns' with a known-indel table is not ported "
-            "yet: it needs the known-indel table and the VCF reader, a later "
-            "slice of the port"
-        )
     dev = resolve_device(device)
     if consensus_model == "smithwaterman":
         return _realign_indels_py(
-            ds, consensus_model, max_indel_size, max_consensus_number,
-            lod_threshold, max_target_size, sw_weights, rng, device=dev,
+            ds, consensus_model, known_indels, max_indel_size,
+            max_consensus_number, lod_threshold, max_target_size, sw_weights,
+            rng, device=dev,
         )
     return _realign_indels_native(
-        ds, max_indel_size, max_consensus_number, lod_threshold,
-        max_target_size, rng, device=dev,
+        ds, consensus_model, known_indels, max_indel_size,
+        max_consensus_number, lod_threshold, max_target_size, rng, device=dev,
     )
+
+
+def _known_consensuses(known_indels, name: str, ref_start: int, ref_end: int) -> list:
+    """The known indels overlapping a target's reference span, in table
+    order -> [(consensus, index_start, index_end)]."""
+    region = ReferenceRegion(name, ref_start, ref_end)
+    return [(rec.consensus, rec.region.start, rec.region.end)
+            for rec in known_indels.get_indels_in_region(region)]
 
 
 def _score_consensuses(q: np.ndarray, orig: np.ndarray):
@@ -799,6 +806,7 @@ def _score_consensuses(q: np.ndarray, orig: np.ndarray):
 def _realign_indels_py(
     ds: AlignmentDataset,
     consensus_model: str = "reads",
+    known_indels=None,
     max_indel_size: int = MAX_INDEL_SIZE,
     max_consensus_number: int = MAX_CONSENSUS_NUMBER,
     lod_threshold: float = LOD_THRESHOLD,
@@ -955,12 +963,18 @@ def _realign_indels_py(
         to_clean = processed
 
         consensuses: list[Consensus] = []
-        for r in to_clean:
-            if r.md is None:
-                continue
-            c = generate_alternate_consensus(r.seq, r.start, contig_idx, r.cigar)
-            if c is not None:
-                consensuses.append(c)
+        if consensus_model == "knowns" and known_indels is not None:
+            for cs, cis, cie in _known_consensuses(
+                known_indels, names[contig_idx], ref_start, ref_end
+            ):
+                consensuses.append(Consensus(cs, contig_idx, cis, cie))
+        else:
+            for r in to_clean:
+                if r.md is None:
+                    continue
+                c = generate_alternate_consensus(r.seq, r.start, contig_idx, r.cigar)
+                if c is not None:
+                    consensuses.append(c)
         seen = set()
         uniq = []
         for c in consensuses:
@@ -1138,6 +1152,8 @@ def _pow2_vec(n: np.ndarray, minimum: int) -> np.ndarray:
 
 def _realign_indels_native(
     ds: AlignmentDataset,
+    consensus_model: str,
+    known_indels,
     max_indel_size: int,
     max_consensus_number: int,
     lod_threshold: float,
@@ -1147,10 +1163,10 @@ def _realign_indels_native(
     device: torch.device,
 ):
     """Same decisions as :func:`_realign_indels_py` under the ``reads``
-    model (the JAX package's ``_realign_indels_native``), with the
-    per-read host work (MD parse / reference rebuild / left-normalization
-    / consensus generation / MD rewrite) in C++ (``native/realign.cpp``)
-    and the sweep tiles batched on ``device``."""
+    and ``knowns`` models (the JAX package's ``_realign_indels_native``),
+    with the per-read host work (MD parse / reference rebuild /
+    left-normalization / consensus generation / MD rewrite) in C++
+    (``native/realign.cpp``) and the sweep tiles batched on ``device``."""
     from adam_tpu_torch import native
 
     b = ds.batch.to_numpy()
@@ -1179,8 +1195,11 @@ def _realign_indels_native(
         md_off = np.zeros(n + 1, np.int64)
         md_valid = np.zeros(n, bool)
 
+    # consensuses come from the indel table under the knowns model with a
+    # table; otherwise the prep generates them from the reads
+    known = consensus_model == "knowns" and known_indels is not None
     prep = native.realign_prep(
-        b, md_buf, md_off, md_valid.astype(np.uint8), srows, goff, True,
+        b, md_buf, md_off, md_valid.astype(np.uint8), srows, goff, not known,
     )
     t_status = prep["t_status"]
     t_ref_off = prep["t_ref_off"]
@@ -1213,12 +1232,18 @@ def _realign_indels_native(
             continue
         if rg_off[g + 1] == rg_off[g]:
             continue
-        cons = [
-            (c_all[c_off[k]:c_off[k + 1]], int(c_is[k]), int(c_ie[k]))
-            for k in range(cg_off[g], cg_off[g + 1])
-        ]
-        # distinct (the native prep pre-dedupes; the Python path shares
-        # this exact dedup)
+        if known:
+            cons = _known_consensuses(
+                known_indels, names[targets[int(gtid[g])].contig_idx],
+                int(t_ref_start[g]), int(t_ref_end[g]),
+            )
+        else:
+            cons = [
+                (c_all[c_off[k]:c_off[k + 1]], int(c_is[k]), int(c_ie[k]))
+                for k in range(cg_off[g], cg_off[g + 1])
+            ]
+        # distinct (the native prep pre-dedupes the reads model; the
+        # knowns model and the Python path share this exact dedup)
         seen = set()
         uniq = []
         for c in cons:

@@ -14,24 +14,28 @@ thread runs three passes with two global barriers:
              the indel events of all windows into realignment targets.
   split      per window: rows mapped to a target are gathered as
              realignment candidates and masked out of the window.
-  pass B     per window: host MD walk -> bit-packed residue-ok and
-             mismatch masks, shipped to the device; covariate keys and
-             the observe histogram (CUDA kernel ``observe_hist``) run
-             there and stay there until the barrier.
+  pass B     per window: host MD walk -> bit-packed residue-ok (known
+             SNPs masked out) and mismatch masks, shipped to the device;
+             covariate keys and the observe histogram (CUDA kernel
+             ``observe_hist``) run there and stay there until the barrier.
+             With a known recalibration table (the fused B->C tier) the
+             window's apply + pack follows from the same dispatch.
   tail       realign the concatenated candidates (the sweeps, and under
              ``consensus_model="smithwaterman"`` the Smith-Waterman fill
              ``sw_fill``, on the device), then observe the realigned part
              as window ``n_windows`` with its post-realignment alignments
              (markdup -> realign -> BQSR, the reference's composition).
   barrier 2  fetch and merge the histograms in window order, solve the
-             recalibration table on the host (f64 numpy).
+             recalibration table on the host (f64 numpy) unless a known
+             table was given.
   pass C     per window: table gather, SANGER encode, base decode and
              two row-prefix packs (CUDA kernel ``pack_rows``) on the
-             device, double-buffered; the packed columns come home
-             (``sum(lengths)`` bytes each), OQ is stashed on the host and
-             a writer pool encodes and publishes the Parquet part.  The
-             realigned part goes first, as part ``n_windows``; a window
-             whose rows were all realigned away writes no part.
+             device, double-buffered (a fused window only fetches); the
+             packed columns come home (``sum(lengths)`` bytes each), OQ
+             is stashed on the host and a writer pool encodes and
+             publishes the Parquet part.  The realigned part goes
+             first, as part ``n_windows``; a window whose rows were all
+             realigned away writes no part.
 
 Every Parquet part is byte-identical to the JAX package's streamed run on
 the same input and flags (``tests/test_torch_streamed.py``).
@@ -82,68 +86,6 @@ def _ingest_windows(path: str, window_reads: int, out_q: queue.Queue,
         put(e)
 
 
-def _observe_window(ds: AlignmentDataset, rw, device):
-    """Pass B for one window -> lazy (total, mism) i64 device histograms
-    and the window's grid width ``gl``."""
-    from adam_tpu_torch.formats.batch import pad_rows_np
-    from adam_tpu_torch.ops.colpack import pack_mask_bits
-    from adam_tpu_torch.ops.mdtag import batch_md_arrays
-    from adam_tpu_torch.pipelines import bqsr
-
-    b = ds.batch.to_numpy()
-    is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
-    read_ok = bqsr.observe_read_mask(b, has_md)
-    residue_ok = bqsr.observe_residue_mask(b)
-    n_rg = len(ds.read_groups) + 1
-    g, gl = rw.g, rw.gl
-
-    def put(arr):
-        return torch.from_numpy(arr).to(device)
-
-    total, mism = bqsr.observe_packed_body(
-        *rw.args(),
-        put(pack_mask_bits(pad_rows_np(residue_ok, g, False, cols=gl))),
-        put(pack_mask_bits(pad_rows_np(is_mm, g, False, cols=gl))),
-        put(pad_rows_np(read_ok, g, False)),
-        n_rg, gl,
-    )
-    return total, mism, gl
-
-
-def _dispatch_apply(ds: AlignmentDataset, rw, table_dev):
-    """Pass C dispatch for one window -> handle for :func:`_finish_apply`
-    (the packed columns are still being computed on the device)."""
-    from adam_tpu_torch.formats.batch import pad_rows_np
-    from adam_tpu_torch.ops.colpack import pack_lengths
-    from adam_tpu_torch.pipelines import bqsr
-
-    b = ds.batch.to_numpy()
-    g, gl, dev = rw.g, rw.gl, rw.device
-    pq, pb = bqsr.apply_pack2_body(
-        *rw.args(),
-        torch.from_numpy(pad_rows_np(b.has_qual, g, False)).to(dev),
-        torch.from_numpy(pad_rows_np(b.valid, g, False)).to(dev),
-        table_dev, gl, g * gl,
-    )
-    lens_q = pack_lengths(b.lengths, b.valid, b.has_qual)
-    lens_b = pack_lengths(b.lengths, b.valid)
-    return ds, b, pq, lens_q, pb, lens_b
-
-
-def _finish_apply(handle):
-    """Fetch a dispatched window's packed columns (exactly
-    ``sum(lengths)`` bytes each) and stash OQ -> (dataset, packed)."""
-    from adam_tpu_torch.io.arrow_pack import PackedColumns, PackedQuals
-    from adam_tpu_torch.pipelines import bqsr
-
-    ds, b, pq, lens_q, pb, lens_b = handle
-    packed = PackedColumns(
-        quals=PackedQuals(pq[: int(lens_q.sum())].cpu().numpy(), lens_q),
-        bases=PackedQuals(pb[: int(lens_b.sum())].cpu().numpy(), lens_b),
-    )
-    return bqsr.stash_orig_quals(ds, b), packed
-
-
 def transform_streamed(
     path: str,
     out_path: str,
@@ -151,6 +93,8 @@ def transform_streamed(
     mark_duplicates: bool = True,
     recalibrate: bool = True,
     realign: bool = False,
+    known_snps=None,
+    known_indels=None,
     consensus_model: str = "reads",
     window_reads: int = 262_144,
     compression: str = "zstd",
@@ -159,6 +103,7 @@ def transform_streamed(
     lod_threshold: float | None = None,
     max_target_size: int | None = None,
     dump_observations: Optional[str] = None,
+    known_table: Optional[tuple] = None,
     device: str = "cuda",
 ) -> dict:
     """Run the streamed markdup + realign + BQSR transform -> stats (stage
@@ -168,11 +113,22 @@ def transform_streamed(
     Output is a Parquet part-file directory, ``out_path/part-r-NNNNN.parquet``
     with one part per input window that keeps rows, plus the realigned
     part ``n_windows``.  ``realign`` turns on indel realignment with the
-    ``consensus_model`` ("reads", or "smithwaterman"; "knowns" without a
-    table falls back to read consensuses, as in the JAX package) and the
+    ``consensus_model`` ("reads", "smithwaterman" or "knowns") and the
     JAX package's tuning knobs (None = its defaults).  ``device`` is
     ``"cuda"`` (default) or ``"cpu"``; the CPU runs each kernel's plain
-    PyTorch version."""
+    PyTorch version.
+
+    The known-sites inputs, as in the JAX package: ``known_snps`` (a
+    ``models.snp_table.SnpTable``) is masked out of every observe;
+    ``known_indels`` (a ``models.snp_table.IndelTable``) supplies the
+    consensuses, and turns the ``reads`` model into ``knowns``;
+    ``known_table`` is a pre-solved recalibration table ``(u8[n_rg, 94,
+    2*gl+1, 17], gl)``, applied in place of the barrier-2 solve (the
+    histograms are still merged, and dumped under ``dump_observations``).
+    With a known table the fused B->C tier is armed (``ADAM_TPU_FUSED_BC``,
+    on unless set to 0): each eligible window's observe and apply + pack
+    run back to back from one dispatch in pass B, and pass C only fetches
+    them.  Output bytes are the same fused or not."""
     from adam_tpu_torch.io.parquet import (
         PartWriterPool, part_path, purge_stale_staging,
     )
@@ -182,12 +138,27 @@ def transform_streamed(
     from adam_tpu_torch.pipelines import realign as ra
 
     dev = resolve_device(device)
+    if known_indels is not None and consensus_model == "reads":
+        # known indels imply the knowns consensus model (the reference's
+        # -known_indels semantics)
+        consensus_model = "knowns"
     mis, mcn, lod, mts = ra.resolve_tuning(
         max_indel_size, max_consensus_number, lod_threshold, max_target_size
     )
     launches0 = kernels.launches()
     t_start = time.monotonic()
     stats: dict = {"device": str(dev)}
+    known_dev = None
+    if recalibrate and known_table is not None:
+        from adam_tpu_torch.convert import table_from_numpy
+
+        known_dev = table_from_numpy(np.asarray(known_table[0]),
+                                     int(known_table[1])).to(dev)
+    # the fused B->C tier: with the applied table known before pass B,
+    # each eligible window's observe and apply + pack run back to back
+    fused = known_dev is not None and bqsr.fused_bc_enabled()
+    fused_handles: dict = {}
+    stats["fused_bc"] = fused
     os.makedirs(out_path, exist_ok=True)
     purge_stale_staging(out_path)
 
@@ -282,12 +253,22 @@ def transform_streamed(
     stats["n_candidates"] = sum(c.batch.n_rows for c in candidates)
 
     # ---- pass B: observe every window (histograms stay on the device) --
+    def observe(i, w):
+        """Observe window ``i`` (fused with its apply + pack when the tier
+        is armed and the window eligible) -> its lazy histograms."""
+        if fused:
+            got = bqsr.fused_bc_dispatch(w, known_dev, resident[i], known_snps)
+            if got is not None:
+                fused_handles[i] = got[0]
+                return got[1]
+        return bqsr.observe_window(w, resident[i], known_snps)
+
     t0 = time.monotonic()
     obs_parts = []
     if recalibrate:
         for i, w in enumerate(windows):
             if window_valid[i]:
-                obs_parts.append(_observe_window(w, resident[i], dev))
+                obs_parts.append(observe(i, w))
     stats["observe_s"] = time.monotonic() - t0
 
     # ---- tail: realign the candidates, observe the realigned part ------
@@ -297,9 +278,9 @@ def transform_streamed(
         cand = AlignmentDataset.concat(candidates)
         del candidates
         realigned = ra.realign_indels(
-            cand, consensus_model=consensus_model, max_indel_size=mis,
-            max_consensus_number=mcn, lod_threshold=lod, max_target_size=mts,
-            device=dev,
+            cand, consensus_model=consensus_model, known_indels=known_indels,
+            max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
+            max_target_size=mts, device=dev,
         )
         stats["n_realigned"] = _n_moved(cand.batch, realigned.batch)
         del cand
@@ -312,12 +293,15 @@ def transform_streamed(
         # its observe and its pass-C apply
         resident.append(ResidentWindow.place(realigned.batch, dev))
         if recalibrate:
-            obs_parts.append(_observe_window(realigned, resident[-1], dev))
+            obs_parts.append(observe(len(windows), realigned))
         stats["observe_s"] += time.monotonic() - t0
+    stats["n_fused_windows"] = len(fused_handles)
 
     # ---- barrier 2: merge histograms, solve the table ------------------
+    # (a known table is applied as it is, with its own gl: the merge still
+    # runs for the observation dump, the solve does not)
     t0 = time.monotonic()
-    table = None
+    table_dev = known_dev
     if obs_parts:
         total, mism, gl = bqsr.merge_observations(obs_parts)
         obs_parts.clear()
@@ -328,7 +312,9 @@ def transform_streamed(
                 total, mism, header.read_groups.names + ["null"], gl,
                 dump_observations,
             )
-        table = bqsr.solve_recalibration_table(total, mism)
+        if known_dev is None:
+            table_dev = torch.from_numpy(
+                bqsr.solve_recalibration_table(total, mism)).to(dev)
     stats["solve_s"] = time.monotonic() - t0
 
     # ---- pass C: apply + pack || encode || part writes -----------------
@@ -345,18 +331,21 @@ def transform_streamed(
         i for i in range(n_win) if window_valid[i]
     ]
     try:
-        if table is not None:
-            table_dev = torch.from_numpy(table).to(dev)
+        if table_dev is not None:
             pend: deque = deque()
             for i in parts:
-                pend.append((i, _dispatch_apply(windows[i], resident[i], table_dev)))
+                # a fused window's columns are already computed: fetch only
+                h = fused_handles.pop(i, None)
+                if h is None:
+                    h = bqsr.apply_dispatch(windows[i], resident[i], table_dev)
+                pend.append((i, h))
                 windows[i] = resident[i] = None  # free as we go
                 if len(pend) >= 2:
                     j, h = pend.popleft()
-                    pool.submit(part_path(out_path, j), *_submit_args(_finish_apply(h)))
+                    pool.submit(part_path(out_path, j), *_submit_args(bqsr.apply_finish(h)))
             while pend:
                 j, h = pend.popleft()
-                pool.submit(part_path(out_path, j), *_submit_args(_finish_apply(h)))
+                pool.submit(part_path(out_path, j), *_submit_args(bqsr.apply_finish(h)))
         else:
             for i in parts:
                 w = windows[i]

@@ -30,9 +30,22 @@ Phases, each of which fails the script on any error:
    logged; then sw_fill against its plain version at the median launch
    shape (warp route) and at SW_BLOCK_SHAPE (block route), and the
    ``moves.cpu()`` copy of the median launch's output timed;
+4c. the known-sites path on the main path's input: its known-SNP VCF
+   (``make_wgs(..., known_sites_out=...)``) and a known-indel VCF derived
+   from the SAM (``tools/make_known_indels_vcf.py``) through the CLI's
+   ``-known_snps -known_indels`` (the ``knowns`` consensus model),
+   beside the same run without the SNP VCF; both dump their
+   observations, and the SNP mask must leave fewer observed residues;
+   the table the port solves there is saved as an ``.npz``;
+4d. that table through ``-known_recalibration_table`` (with both VCFs),
+   once with ``ADAM_TPU_FUSED_BC=1`` and once with ``=0``: the parts of
+   the two legs and of 4c byte-identical, every observed part fused in
+   the fused leg and none in the other, kernels 1 and 2 launched once
+   per part (kernel 2 once per encode);
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
-   models; the parts must be byte-identical.
+   models and on the known-sites path (known SNPs + known indels + the
+   4d table, fused); the parts must be byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -388,8 +401,10 @@ def check_sw_fill(dev, shape, launched: int, rate: dict | None = None,
     )
 
 
-def run_transform(sam: str, out_dir: str, device: str, realign: bool = True) -> dict:
-    """The user's entry point, in this process: the CLI's main."""
+def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
+                  extra: tuple = ()) -> dict:
+    """The user's entry point, in this process: the CLI's main (``extra``:
+    more of its flags)."""
     from adam_tpu_torch.cli.main import main
 
     buf = io.StringIO()
@@ -398,7 +413,7 @@ def run_transform(sam: str, out_dir: str, device: str, realign: bool = True) -> 
             "transform", sam, out_dir, "-streaming", "-mark_duplicate_reads",
             *(["-realign_indels"] if realign else []),
             "-recalibrate_base_qualities", "-window_reads", str(WINDOW_READS),
-            "--device", device,
+            *extra, "--device", device,
         ])
     if rc != 0:
         raise RuntimeError(f"transform exited {rc}")
@@ -477,6 +492,134 @@ def run_smithwaterman(sam: str, out_dir: str, device: str) -> tuple:
     return stats, shapes
 
 
+def observed_residues(csv_path: str) -> int:
+    """The residues an observe counted: the sum of the dumped
+    observation table's TotalCount column."""
+    with open(csv_path) as fh:
+        next(fh)
+        return sum(int(line.split(",")[4]) for line in fh)
+
+
+def run_solving(sam: str, out_dir: str, device: str, extra: tuple) -> tuple:
+    """A run of the CLI that keeps the table the port solves at barrier 2
+    -> (stats, table)."""
+    from adam_tpu_torch.pipelines import bqsr
+
+    solve = bqsr.solve_recalibration_table
+    solved = []
+
+    def keep(total, mism):
+        solved.append(solve(total, mism))
+        return solved[-1]
+
+    bqsr.solve_recalibration_table = keep
+    try:
+        stats = run_transform(sam, out_dir, device, extra=extra)
+    finally:
+        bqsr.solve_recalibration_table = solve
+    if len(solved) != 1:
+        raise AssertionError(f"{len(solved)} solves in one run")
+    return stats, solved[0]
+
+
+def _stage_walls(stats: dict) -> str:
+    keys = ("ingest_pass_s", "resolve_s", "split_s", "observe_s", "realign_s",
+            "obs_merge_s", "solve_s", "apply_s", "write_wait_s", "total_s")
+    return ", ".join(f"{k} {stats[k]:.3f}" for k in keys if k in stats)
+
+
+def _check_part_launches(label: str, launched: dict, variants: dict, n_parts: int) -> None:
+    """Kernel 1 once per observed part, kernel 2 once per part and encode."""
+    if (launched["observe_hist"] != n_parts or launched["pack_rows"] != 2 * n_parts
+            or variants.get("pack_rows:sanger") != n_parts
+            or variants.get("pack_rows:base_decode") != n_parts
+            or launched["sw_fill"] != 0):
+        raise AssertionError(f"{label}: launches {launched} {variants} for {n_parts} parts")
+
+
+def check_known_sites(work: str, sam: str, snps_vcf: str, indels_vcf: str,
+                      device: str = "cuda") -> dict:
+    """Phases 4c and 4d on ``sam`` (the main path's input) -> their record.
+
+    4c: the CLI with ``-known_indels`` alone and with ``-known_snps
+    -known_indels``, both dumping observations (the SNP mask must leave
+    fewer observed residues), the table the second run solves saved as
+    ``known_table.npz``.  4d: that table through
+    ``-known_recalibration_table`` with both VCFs, fused and unfused; both
+    legs must write 4c's parts, the fused leg fuse every observed part and
+    the unfused leg none.  On the card each run must launch kernel 1 once
+    per part and kernel 2 once per part and encode."""
+    import numpy as np
+
+    from adam_tpu_torch.ops import kernels
+
+    def launches(label, n_parts):
+        lv, vv = kernels.launches(), kernels.variant_launches()
+        if device == "cuda":
+            _check_part_launches(label, lv, vv, n_parts)
+        return lv, vv
+
+    out_dir = os.path.join(work, "known.adam")
+    obs_csv = {k: os.path.join(work, f"obs.{k}.csv") for k in ("no_snps", "snps")}
+    ref_stats = run_transform(sam, out_dir, device, extra=(
+        "-known_indels", indels_vcf, "-dump_observations", obs_csv["no_snps"]))
+    shutil.rmtree(out_dir)
+    kernels.reset_launches()
+    ks_stats, table = run_solving(sam, out_dir, device, (
+        "-known_snps", snps_vcf, "-known_indels", indels_vcf,
+        "-dump_observations", obs_csv["snps"]))
+    n_parts = ks_stats["n_parts"]
+    ks_launched, ks_variants = launches("known-sites path", n_parts)
+    got = read_parts(out_dir)
+    if (got["parts"] != n_parts or n_parts != ks_stats["n_windows"] + 1
+            or got["rows"] != ks_stats["n_reads"] or got["realigned_rows"] == 0
+            or ks_stats["n_realigned"] == 0):
+        raise AssertionError(f"known-sites path: {got}, stats {ks_stats}")
+    residues = {k: observed_residues(v) for k, v in obs_csv.items()}
+    if not residues["snps"] < residues["no_snps"]:
+        raise AssertionError(f"the SNP mask removed no residue: {residues}")
+    _log("known-sites path stats: " + json.dumps(ks_stats, sort_keys=True))
+    _log(f"known-sites path: {got}, {ks_stats['reads_per_s']:.0f} reads/s "
+         f"(without the SNP VCF {ref_stats['reads_per_s']:.0f}); observe_s "
+         f"{ks_stats['observe_s']:.3f} s with the SNP VCF, {ref_stats['observe_s']:.3f} s "
+         f"without; observed residues {residues['snps']} vs {residues['no_snps']}; "
+         f"launches {ks_launched} {ks_variants}")
+    _log(f"known-sites stage walls: {_stage_walls(ks_stats)}")
+    _log(f"without the SNP VCF, stage walls: {_stage_walls(ref_stats)}")
+    table_npz = os.path.join(work, "known_table.npz")
+    np.savez(table_npz, table=table, gl=np.int64((table.shape[2] - 1) // 2))
+
+    legs = {}
+    ks_hashes = _part_hashes(out_dir)
+    for leg, flag in (("fused", "1"), ("unfused", "0")):
+        d = os.path.join(work, f"table.{leg}.adam")
+        os.environ["ADAM_TPU_FUSED_BC"] = flag
+        kernels.reset_launches()
+        try:
+            st = run_transform(sam, d, device, extra=(
+                "-known_snps", snps_vcf, "-known_indels", indels_vcf,
+                "-known_recalibration_table", table_npz))
+        finally:
+            os.environ.pop("ADAM_TPU_FUSED_BC")
+        lv, vv = launches(f"known table, {leg}", st["n_parts"])
+        want_fused = st["n_parts"] if leg == "fused" else 0
+        if st["fused_bc"] != (leg == "fused") or st["n_fused_windows"] != want_fused:
+            raise AssertionError(f"known table, {leg}: fused_bc {st['fused_bc']}, "
+                                 f"{st['n_fused_windows']} fused of {st['n_parts']} parts")
+        if _part_hashes(d) != ks_hashes:
+            raise AssertionError(f"known table, {leg}: parts differ from the known-sites run")
+        shutil.rmtree(d)
+        legs[leg] = {"stats": st, "launches": lv, "variant_launches": vv}
+        _log(f"known table ({leg}, ADAM_TPU_FUSED_BC={flag}): "
+             f"{st['reads_per_s']:.0f} reads/s, {st['n_fused_windows']} of "
+             f"{st['n_parts']} parts fused, launches {lv} {vv}; stage walls: "
+             f"{_stage_walls(st)}")
+    shutil.rmtree(out_dir)
+    return {"no_snps_stats": ref_stats, "stats": ks_stats, "observed_residues": residues,
+            "launches": ks_launched, "variant_launches": ks_variants,
+            "table_legs": legs, "table_npz": table_npz}
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -496,6 +639,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     sys.path.insert(0, os.path.join(here, "tools"))
+    from make_known_indels_vcf import make_known_indels_vcf
     from make_wgs_sam import make_wgs
 
     from adam_tpu_torch import native
@@ -539,8 +683,11 @@ def main() -> int:
     try:
         # ---- 4. main path: markdup + realign + BQSR ------------------------
         sam = os.path.join(work, "wgs.sam")
+        snps_vcf = os.path.join(work, "wgs.snps.vcf")
         t0 = time.monotonic()
-        make_wgs(sam, MAIN_READS, 100, seed=SEED)
+        # the known-sites VCF is written beside the SAM; the SAM does not
+        # depend on it, and only phases 4c-4d read it
+        make_wgs(sam, MAIN_READS, 100, seed=SEED, known_sites_out=snps_vcf)
         _log(f"generated {MAIN_READS} reads in {time.monotonic() - t0:.1f} s")
         out_dir = os.path.join(work, "wgs.adam")
         kernels.reset_launches()
@@ -587,11 +734,12 @@ def main() -> int:
         shutil.rmtree(out_dir)
 
         # ---- 4b. the smithwaterman consensus model ------------------------
+        sw_sam = sam
         if SW_READS != MAIN_READS:
-            os.unlink(sam)
-            make_wgs(sam, SW_READS, 100, seed=SEED)
+            sw_sam = os.path.join(work, "sw.sam")
+            make_wgs(sw_sam, SW_READS, 100, seed=SEED)
         kernels.reset_launches()
-        sw_stats, shapes = run_smithwaterman(sam, out_dir, "cuda")
+        sw_stats, shapes = run_smithwaterman(sw_sam, out_dir, "cuda")
         sw_launched = kernels.launches()
         sw_routes = {k: v for k, v in kernels.variant_launches().items()
                      if k.startswith("sw_fill:")}
@@ -607,7 +755,8 @@ def main() -> int:
              f"launches {sw_launched} (routes {sw_routes}); sw_fill (B, lx, ly) per "
              f"launch: {shapes}")
         shutil.rmtree(out_dir)
-        os.unlink(sam)
+        if sw_sam != sam:
+            os.unlink(sw_sam)
         median = sorted(shapes, key=lambda t: t[0] * (t[1] + t[2] + 1) * (t[1] + 1))[
             len(shapes) // 2]
         fill = check_sw_fill(dev, median, sw_launched["sw_fill"], rate=rate,
@@ -621,18 +770,45 @@ def main() -> int:
             raise AssertionError(f"kernel sw_fill disagrees with its plain version: {fill}")
         kern.insert(3, fill)
 
+        # ---- 4c-4d. the known-sites path, then its known table -------------
+        indels_vcf = os.path.join(work, "wgs.indels.vcf")
+        t0 = time.monotonic()
+        n_indels = make_known_indels_vcf(sam, indels_vcf)
+        _log(f"known indels: {n_indels} (make_known_indels_vcf, "
+             f"{time.monotonic() - t0:.1f} s)")
+        known = check_known_sites(work, sam, snps_vcf, indels_vcf, "cuda")
+        known["known_indels"] = n_indels
+        os.unlink(sam)
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_known_sites"] = known["launches"][name]
+            by_name[name]["launches_known_table"] = {
+                leg: v["launches"][name] for leg, v in known["table_legs"].items()}
+        by_name["pack_rows_sanger"]["launches_known_sites"] = \
+            known["variant_launches"]["pack_rows:sanger"]
+        table_npz = known.pop("table_npz")
+
         # ---- 5. card vs CPU ------------------------------------------------
         sam = os.path.join(work, "parity.sam")
-        make_wgs(sam, PARITY_READS, 100, seed=SEED + 1)
+        p_snps = os.path.join(work, "parity.snps.vcf")
+        p_indels = os.path.join(work, "parity.indels.vcf")
+        make_wgs(sam, PARITY_READS, 100, seed=SEED + 1, known_sites_out=p_snps)
+        make_known_indels_vcf(sam, p_indels)
         parity = {}
-        for model in ("reads", "smithwaterman"):
+        for model in ("reads", "smithwaterman", "known_sites"):
             hashes = {}
             for device in ("cuda", "cpu"):
                 d = os.path.join(work, f"{model}.{device}.adam")
                 if model == "reads":
                     run_transform(sam, d, device)
-                else:
+                elif model == "smithwaterman":
                     run_smithwaterman(sam, d, device)
+                else:
+                    st = run_transform(sam, d, device, extra=(
+                        "-known_snps", p_snps, "-known_indels", p_indels,
+                        "-known_recalibration_table", table_npz))
+                    if not st["fused_bc"] or st["n_fused_windows"] != st["n_parts"]:
+                        raise AssertionError(f"known-sites parity run ({device}) did not "
+                                             f"fuse every part: {st}")
                 hashes[device] = _part_hashes(d)
             if not hashes["cuda"] or hashes["cuda"] != hashes["cpu"]:
                 raise AssertionError(f"{model}: card and CPU parts differ: {hashes}")
@@ -650,6 +826,7 @@ def main() -> int:
         "profile": prof, "no_realign_stats": plain_stats,
         "smithwaterman": {"reads": SW_READS, "stats": sw_stats,
                           "sw_fill_launch_shapes": shapes, "sw_fill_routes": sw_routes},
+        "known_sites": known,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

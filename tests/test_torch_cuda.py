@@ -192,6 +192,65 @@ def test_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
 
 
+def test_fused_window_equals_separate_passes_and_plain(cuda_device):
+    """One fused B->C window at the main path's shape (g = 262,144, gl =
+    128, a cohort table 32 cycles wider each side): the fused body on the
+    card equals the separate observe and apply + pack on the card, and the
+    plain versions (the same bodies on the CPU); it launches kernel 1 once
+    and kernel 2 once per encode."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines import bqsr
+
+    g, gl, n_rg = 262_144, 128, 3
+    w = _window(21, g, gl, n_rg)
+    w["table"] = torch.from_numpy(np.random.default_rng(22).integers(
+        2, 43, (n_rg, 94, 2 * (gl + 32) + 1, 17)).astype(np.uint8))
+    obs = [w[n] for n in (*_WINDOW, "res_bits", "mm_bits", "read_ok")]
+    app = [w[n] for n in ("has_qual", "valid", "table")]
+    dev = [a.to(cuda_device) for a in obs + app]
+    kernels.reset_launches()
+    got = bqsr.fused_bc_body(*dev, n_rg, gl, g * gl)
+    torch.cuda.synchronize()
+    assert kernels.launches()["observe_hist"] == 1
+    assert kernels.variant_launches() == {"pack_rows:sanger": 1, "pack_rows:base_decode": 1}
+    sep = (*bqsr.observe_packed_body(*dev[:8], n_rg, gl),
+           *bqsr.apply_pack2_body(*dev[:5], *dev[8:], gl, g * gl))
+    plain = bqsr.fused_bc_body(*obs, *app, n_rg, gl, g * gl)
+    for a, b, c in zip(got, sep, plain):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert int(plain[0].sum()) > 0
+
+
+def test_known_sites_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """Known SNPs + known indels + a known table, fused, on the card and on
+    the CPU: the same parts; every observed part fused."""
+    from make_known_indels_vcf import make_known_indels_vcf
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.api.datasets import GenotypeDataset
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    path, snps, indels = (str(tmp_path / f) for f in ("in.sam", "k.vcf", "i.vcf"))
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000, known_sites_out=snps)
+    make_known_indels_vcf(path, indels)
+    names = ["chr17", "chr18"]
+    kw = dict(realign=True, window_reads=2048,
+              known_snps=GenotypeDataset.load(snps, contig_names=names).snp_table(),
+              known_indels=GenotypeDataset.load(indels, contig_names=names).indel_table(),
+              known_table=(np.random.default_rng(4).integers(
+                  2, 43, (3, 94, 2 * 160 + 1, 17)).astype(np.uint8), 160))
+    stats = {dev: transform_streamed(path, str(tmp_path / dev), device=dev, **kw)
+             for dev in ("cuda", "cpu")}
+    st = stats["cuda"]
+    assert st["fused_bc"] and st["n_fused_windows"] == st["n_parts"] == st["n_windows"] + 1
+    launched = st["kernel_launches"]
+    assert (launched["observe_hist"], launched["pack_rows"]) == (st["n_parts"], 2 * st["n_parts"])
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == st["n_parts"]
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
 def _sw_pairs(seed, B, lx, ly, x_len=None):
     """Random pairs; ``x_len`` "one" or "full" pins every x length."""
     rng = np.random.default_rng(seed)

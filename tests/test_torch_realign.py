@@ -51,6 +51,7 @@ def inputs(tmp_path_factory):
         path = str(d / f"in{n}.sam")
         make_wgs(path, n, 100, n_contigs=2, contig_len=30_000)
         out[n] = (load_alignments(path), _port_ds(path))
+        out["sam", n] = path
     return out
 
 
@@ -304,11 +305,29 @@ def test_jax_smithwaterman_crashes_without_the_refresh(inputs):
         jra._realign_indels_py(ds_j, consensus_model="smithwaterman")
 
 
-def test_realign_refuses_what_it_does_not_run(inputs):
-    _, ds = inputs[READS_N]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tra.realign_indels(ds, consensus_model="knowns", known_indels=object(),
-                           device="cpu")
+def test_realign_refuses_what_it_does_not_run(inputs, tmp_path):
+    """The knowns model with a known-indel table (the helper's VCF of the
+    input's indels) runs and equals the JAX native path; an unknown
+    consensus model is refused."""
+    from adam_tpu.api.datasets import GenotypeDataset as JG
+    from make_known_indels_vcf import make_known_indels_vcf
+
+    from adam_tpu_torch.api.datasets import GenotypeDataset as TG
+
+    ds_j, ds = inputs[READS_N]
+    vcf = str(tmp_path / "indels.vcf")
+    make_known_indels_vcf(inputs["sam", READS_N], vcf)
+    names = ds.seq_dict.names
+    want = jra._realign_indels_native(
+        ds_j, "knowns", JG.load(vcf, contig_names=names).indel_table(),
+        jra.MAX_INDEL_SIZE, jra.MAX_CONSENSUS_NUMBER, jra.LOD_THRESHOLD,
+        jra.MAX_TARGET_SIZE, None, "overlap",
+    )
+    got = tra.realign_indels(ds, consensus_model="knowns",
+                             known_indels=TG.load(vcf, contig_names=names).indel_table(),
+                             device="cpu")
+    _assert_same_dataset(want, got)
+    assert sum("OC:Z:" in (a or "") for a in got.sidecar.attrs) > 0
     with pytest.raises(ValueError, match="consensus_model"):
         tra.realign_indels(ds, consensus_model="bayes", device="cpu")
 
