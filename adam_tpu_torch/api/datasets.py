@@ -1,6 +1,7 @@
 """The dataset handles: a read batch, its sidecar and its header
 (the counterpart of ``adam_tpu/api/datasets.AlignmentDataset``, with the
-pieces the streamed transform uses), and the VCF's variants and
+pieces the streamed transform uses, the load dispatcher and the k-mer
+and q-mer counts), and the VCF's variants and
 genotypes (``GenotypeDataset``, the source of the known-sites tables)."""
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ class AlignmentDataset:
 
     def __len__(self) -> int:
         return self.batch.n_valid()
+
+    @staticmethod
+    def load(path: str, **kw) -> "AlignmentDataset":
+        """Load reads by extension (:func:`adam_tpu_torch.io.context.load_alignments`)."""
+        from adam_tpu_torch.io import context
+
+        return context.load_alignments(path, **kw)
 
     @property
     def seq_dict(self):
@@ -67,6 +75,16 @@ class AlignmentDataset:
         from adam_tpu_torch.pipelines.realign import realign_indels
 
         return realign_indels(self, **kw)
+
+    def count_kmers(self, k: int, device: str = "cuda") -> dict:
+        from adam_tpu_torch.ops import kmer
+
+        return kmer.count_kmers(self.batch, k, device=device)
+
+    def count_qmers(self, k: int, device: str = "cuda") -> dict:
+        from adam_tpu_torch.ops import kmer
+
+        return kmer.count_qmers(self.batch, k, device=device)
 
 
 @dataclass

@@ -40,15 +40,19 @@ def batch_from_numpy(arrays: Mapping[str, np.ndarray]) -> ReadBatch:
     return ReadBatch(**out)
 
 
-def table_from_numpy(table: np.ndarray, gl: int) -> torch.Tensor:
-    """A solved u8 recalibration table ``[n_rg, 94, 2*gl+1, 17]`` (as
-    the JAX run journal's ``table.npz`` stores it) -> a CPU u8 tensor."""
+def table_from_numpy(table: np.ndarray) -> torch.Tensor:
+    """A solved recalibration table ``[n_rg, 94, n_cyc, 17]`` (as the JAX
+    run journal's ``table.npz`` stores it) -> a CPU u8 tensor.
+
+    As in the JAX package, the table is cast to u8 whatever its stored
+    dtype, and its cycle axis may have any width: the apply takes its
+    centre ``gl = (n_cyc - 1) // 2`` from the table's own shape, so a
+    ``gl`` stored beside the table is not read."""
     from adam_tpu_torch.pipelines.bqsr import N_DINUC, N_QUAL
 
-    t = np.asarray(table)
-    if t.dtype != np.uint8 or t.ndim != 4 or t.shape[1:] != (N_QUAL, 2 * gl + 1, N_DINUC):
+    t = np.ascontiguousarray(table, np.uint8)
+    if t.ndim != 4 or t.shape[1] != N_QUAL or t.shape[3] != N_DINUC:
         raise ValueError(
-            f"table must be u8[n_rg, {N_QUAL}, {2 * gl + 1}, {N_DINUC}], "
-            f"got {t.dtype}{list(t.shape)}"
+            f"table must be [n_rg, {N_QUAL}, n_cyc, {N_DINUC}], got {list(t.shape)}"
         )
-    return torch.from_numpy(np.ascontiguousarray(t))
+    return torch.from_numpy(t)

@@ -206,6 +206,30 @@ class StringColumn:
             ],
         )
 
+    @staticmethod
+    def from_arrow(arr) -> "StringColumn":
+        """pyarrow string/large_string array (or chunked array) ->
+        StringColumn."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        valid = np.asarray(pc.is_valid(arr))
+        arr = pc.cast(arr, pa.large_string())
+        if arr.offset != 0:
+            arr = pa.concat_arrays([arr])  # re-materialize at offset 0
+        buffers = arr.buffers()
+        offsets = np.frombuffer(buffers[1], dtype=np.int64,
+                                count=len(arr) + 1).copy()
+        data = (
+            np.frombuffer(buffers[2], dtype=np.uint8).copy()
+            if buffers[2] is not None
+            else np.zeros(0, np.uint8)
+        )
+        base = offsets[0]
+        return StringColumn(data[base:offsets[-1]], offsets - base, valid)
+
 
 def with_overrides(col: "StringColumn", overrides: dict) -> "StringColumn":
     """Replace a sparse set of rows ({row: str|None}) in one vectorized

@@ -1,5 +1,6 @@
-"""Parquet part writing — the part-writer subset of
-``adam_tpu/io/parquet.py``.
+"""Parquet parts: the part writer and the alignment read path of
+``adam_tpu/io/parquet.py`` (copied; the genotype, feature and fragment
+stores are not ported).
 
 The on-disk format is the JAX package's: the AlignmentRecord field
 layout, the header dictionaries as JSON under the schema metadata key
@@ -7,7 +8,11 @@ layout, the header dictionaries as JSON under the schema metadata key
 ``part-r-NNNNN.parquet`` naming where the number is the window index.
 Each part is written under ``<out>/_temporary/`` and published by an
 fsync'd atomic rename, so readers never see a torn part.  pyarrow is
-imported only inside the functions that write.
+imported only inside the functions that write or read.
+
+The reader (:func:`load_alignments`) is the inverse of the writer: a
+part file or a part directory -> (ReadBatch, ReadSidecar, SamHeader),
+with column projection and a pyarrow filter pushed into the read.
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ import numpy as np
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
 from adam_tpu_torch.io.sam import SamHeader
+from adam_tpu_torch.models.dictionaries import (
+    RecordGroup,
+    RecordGroupDictionary,
+    SequenceDictionary,
+    SequenceRecord,
+)
 
 TMP_DIR_NAME = "_temporary"
 PART_NAME_FORMAT = "part-r-{:05d}.parquet"
@@ -70,6 +81,34 @@ def _header_meta(header: SamHeader) -> dict[bytes, bytes]:
         "hd": header.hd_line,
     }
     return {b"adam_tpu.header": json.dumps(meta).encode()}
+
+
+def _header_from_meta(meta: dict | None) -> SamHeader:
+    """The header a part's schema metadata carries (an empty header when
+    it carries none)."""
+    if not meta or b"adam_tpu.header" not in meta:
+        return SamHeader()
+    d = json.loads(meta[b"adam_tpu.header"])
+    return SamHeader(
+        seq_dict=SequenceDictionary(
+            tuple(
+                SequenceRecord(s["name"], s["length"], md5=s.get("md5"),
+                               url=s.get("url"))
+                for s in d["sequences"]
+            )
+        ),
+        read_groups=RecordGroupDictionary(
+            tuple(
+                RecordGroup(g["name"], sample=g.get("sample"),
+                            library=g.get("library"), platform=g.get("platform"),
+                            platform_unit=g.get("platform_unit"))
+                for g in d["read_groups"]
+            )
+        ),
+        hd_line=d.get("hd"),
+        program_lines=d.get("programs", []),
+        comment_lines=d.get("comments", []),
+    )
 
 
 def to_arrow_alignments(batch: ReadBatch, side: ReadSidecar,
@@ -276,3 +315,186 @@ class PartWriterPool:
                     pass
         if first is not None and not abort:
             raise first
+
+
+# --------------------------------------------------------------------------
+# the read path
+# --------------------------------------------------------------------------
+#: columns every load reads, whatever the projection: a batch needs them
+ESSENTIAL_FIELDS = {"sequence", "qual", "flags", "cigar", "start", "contig"}
+
+
+def load_alignments(
+    path: str, projection=None, predicate=None,
+) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Load a part file or part directory, with an optional column
+    ``projection`` (the essential columns are always read) and a pyarrow
+    ``filters``-style ``predicate``."""
+    import pyarrow.parquet as pq
+
+    cols = None
+    if projection is not None:
+        cols = sorted(set(projection) | ESSENTIAL_FIELDS)
+    table = pq.read_table(path, columns=cols, filters=predicate)
+    return from_arrow_alignments(table)
+
+
+def _string_column_or(table, name: str, n: int, default=None):
+    """A string column of ``table``, or ``n`` rows of ``default`` when
+    the column was not read."""
+    from adam_tpu_torch.formats.strings import StringColumn
+
+    if name in table.column_names:
+        return StringColumn.from_arrow(table[name])
+    return StringColumn.full(n, default)
+
+
+def _int_col(table, name: str, n: int, default, dtype):
+    import pyarrow.compute as pc
+
+    if name not in table.column_names:
+        return np.full(n, default, dtype)
+    return np.asarray(
+        pc.fill_null(table[name], default).combine_chunks()
+    ).astype(dtype)
+
+
+def _name_index_col(col, lookup) -> np.ndarray:
+    """Dictionary-index a string column: unique names -> lookup() once."""
+    uniq, inv = np.unique(col.to_fixed_bytes(), return_inverse=True)
+    idx = np.array(
+        [lookup(u.decode("utf-8", "replace")) if u else -1 for u in uniq],
+        np.int32,
+    )
+    out = idx[inv]
+    return np.where(col.valid, out, -1).astype(np.int32)
+
+
+def _codes_matrix(col, lut: np.ndarray | None, pad: int):
+    """StringColumn -> (codes u8[N, W], lengths i32[N]) in one LUT pass,
+    with the two fixed-length fast paths of the JAX package (contiguous
+    uniform rows: one reshape; uniform rows with gaps: one gather)."""
+    from adam_tpu_torch.formats.strings import (
+        _span_gather_indices,
+        _span_local_positions,
+    )
+
+    lens = np.where(col.valid, col.lengths(), 0)
+    n = len(lens)
+    w = max(1, int(lens.max()) if n else 1)
+    if n and lens.sum():
+        nz = np.flatnonzero(lens > 0)
+        u0 = lens[nz[0]]
+        uniform = (lens[nz] == u0).all()
+        if uniform and len(nz) == n and int(col.offsets[-1]) == n * int(u0) \
+                and int(u0) == w:
+            vals = col.buf[: n * w].reshape(n, w)
+            mat = lut[vals] if lut is not None else vals.copy()
+            return mat, lens.astype(np.int32)
+        mat = np.full((n, w), pad, np.uint8)
+        if uniform:
+            w0 = int(u0)
+            src = (
+                col.offsets[nz][:, None] + np.arange(w0, dtype=np.int64)
+            ).ravel()
+            vals = col.buf[src].reshape(len(nz), w0)
+            mat[nz, :w0] = lut[vals] if lut is not None else vals
+        else:
+            src = _span_gather_indices(col.offsets[:-1], lens)
+            rows = np.repeat(np.arange(n), lens)
+            pos = _span_local_positions(lens)
+            mat[rows, pos] = (
+                lut[col.buf[src]] if lut is not None else col.buf[src]
+            )
+        return mat, lens.astype(np.int32)
+    return np.full((n, w), pad, np.uint8), lens.astype(np.int32)
+
+
+def from_arrow_alignments(table) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Arrow Table in the AlignmentRecord layout -> host batch, sidecar
+    and header (the header from the schema metadata): LUT passes for the
+    sequences and qualities, the native CIGAR parse, dictionary-indexed
+    name columns."""
+    from adam_tpu_torch import native
+
+    header = _header_from_meta(table.schema.metadata)
+    sd, rgd = header.seq_dict, header.read_groups
+    n = table.num_rows
+
+    seq_col = _string_column_or(table, "sequence", n)
+    qual_col = _string_column_or(table, "qual", n)
+    bases, lengths = _codes_matrix(seq_col, schema.BASE_ENCODE_LUT, schema.BASE_PAD)
+    lmax = bases.shape[1]
+    quals_mat, qlens = _codes_matrix(qual_col, None, 0)
+    has_qual = qual_col.valid & (qlens > 0) & ~(
+        (qlens == 1) & (quals_mat[:, 0] == ord("*"))
+    )
+    quals = np.full((n, lmax), schema.QUAL_PAD, np.uint8)
+    w = min(lmax, quals_mat.shape[1])
+    qmask = (np.arange(w)[None, :] < qlens[:, None]) & has_qual[:, None]
+    quals[:, :w][qmask] = quals_mat[:, :w][qmask] - schema.SANGER_OFFSET
+    # reads with a sequence but no qual get 0-quals over their length
+    noq = ~has_qual
+    inlen = np.arange(lmax)[None, :] < lengths[:, None]
+    quals[noq[:, None] & inlen] = 0
+
+    cig_col = _string_column_or(table, "cigar", n)
+    cig_lens_b = np.where(cig_col.valid, cig_col.lengths(), 0)
+    is_digit = (cig_col.buf >= ord("0")) & (cig_col.buf <= ord("9"))
+    n_ops_cap = (
+        np.add.reduceat(
+            (~is_digit).astype(np.int64),
+            np.minimum(cig_col.offsets[:-1], max(len(cig_col.buf) - 1, 0)),
+        )
+        if len(cig_col.buf) and n
+        else np.zeros(n, np.int64)
+    )
+    # rows with empty spans get garbage from reduceat; zero them
+    n_ops_cap = np.where(cig_lens_b > 0, n_ops_cap, 0)
+    cmax = max(1, int(n_ops_cap.max()) if n else 1)
+    cigar_ops, cigar_lens, cigar_n = native.cigar_cols(
+        cig_col.buf, cig_col.offsets, cmax)
+    cigar_n = np.where(cig_col.valid, cigar_n, 0).astype(np.int32)
+
+    start = _int_col(table, "start", n, -1, np.int64)
+    flags = _int_col(table, "flags", n, 4, np.int32)
+    # end: the stored column, else start + the reference span
+    if "end" in table.column_names:
+        end = _int_col(table, "end", n, -1, np.int64)
+    else:
+        r_consume = schema.CIGAR_CONSUMES_REF[np.minimum(cigar_ops, 15)].astype(np.int64)
+        rlen = (cigar_lens * r_consume).sum(axis=1)
+        end = np.where(start >= 0, start + rlen, -1)
+
+    batch = ReadBatch(
+        bases=bases,
+        quals=quals,
+        lengths=lengths,
+        flags=flags,
+        contig_idx=_name_index_col(_string_column_or(table, "contig", n), sd.index_or),
+        start=start,
+        end=end,
+        mapq=_int_col(table, "mapq", n, 255, np.int32),
+        cigar_ops=cigar_ops,
+        cigar_lens=cigar_lens,
+        cigar_n=cigar_n,
+        mate_contig_idx=_name_index_col(
+            _string_column_or(table, "mateContig", n), sd.index_or
+        ),
+        mate_start=_int_col(table, "mateAlignmentStart", n, -1, np.int64),
+        tlen=_int_col(table, "inferredInsertSize", n, 0, np.int32),
+        read_group_idx=_name_index_col(
+            _string_column_or(table, "recordGroupName", n), rgd.index_or
+        ),
+        has_qual=has_qual,
+        valid=np.ones(n, bool),
+    )
+    side = ReadSidecar(
+        names=_string_column_or(table, "readName", n, default=""),
+        attrs=_string_column_or(table, "attributes", n, default=""),
+        md=_string_column_or(table, "mismatchingPositions", n),
+        orig_quals=_string_column_or(table, "origQual", n),
+        trimmed_from_start=_int_col(table, "basesTrimmedFromStart", n, 0, np.int32),
+        trimmed_from_end=_int_col(table, "basesTrimmedFromEnd", n, 0, np.int32),
+    )
+    return batch, side, header

@@ -1,15 +1,21 @@
-"""SAM ingest — the read path of ``adam_tpu/io/sam.py``.
+"""SAM and BAM ingest, and the BAM writer — copied from
+``adam_tpu/io/sam.py`` on its native paths only.
 
 Text SAM is tokenized window by window through the native C++ tokenizer
-(:mod:`adam_tpu_torch.native`) into host :class:`ReadBatch` columns.
-Positions: SAM text is 1-based; everything in the port is 0-based
-end-exclusive, as in the JAX package.
+(:mod:`adam_tpu_torch.native`) into host :class:`ReadBatch` columns; a
+BAM's BGZF blocks are inflated and its records tokenized by the same
+library, window by window as well.  Where the JAX package falls back to
+pure-Python codecs, the port has none: the native library is built or
+the call raises.  Positions: SAM text is 1-based; everything in the port
+is 0-based end-exclusive, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import gzip
+import io as _io
 import os
+import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional
 
@@ -19,6 +25,7 @@ from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
 from adam_tpu_torch.models.dictionaries import (
     RecordGroupDictionary,
     SequenceDictionary,
+    SequenceRecord,
 )
 
 
@@ -52,6 +59,18 @@ class SamHeader:
             program_lines=pg,
             comment_lines=co,
         )
+
+    def to_lines(self, sort_order: Optional[str] = None) -> list[str]:
+        hd = self.hd_line or "@HD\tVN:1.5"
+        if sort_order is not None:
+            fields = [f for f in hd.split("\t") if not f.startswith("SO:")]
+            hd = "\t".join(fields + [f"SO:{sort_order}"])
+        out = [hd]
+        out += self.seq_dict.to_sam_header_lines()
+        out += [g.to_sam_header_line() for g in self.read_groups]
+        out += self.program_lines
+        out += self.comment_lines
+        return out
 
 
 def _columns_to_batch(out: dict) -> tuple[ReadBatch, ReadSidecar]:
@@ -154,3 +173,203 @@ def iter_sam_batches(path: str, batch_reads: int = 262_144):
             raise ValueError(f"{path}: malformed SAM records in window")
         batch, side = _columns_to_batch(out)
         yield batch, side, header
+
+
+def read_sam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Whole-file SAM (or ``.sam.gz``) read through the native tokenizer."""
+    from adam_tpu_torch import native
+
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as fh:
+        data = fh.read()
+    header_lines, body_off = _split_header_lines(data)
+    header = SamHeader.parse(header_lines)
+    out = native.tokenize_sam(
+        data, body_off, header.seq_dict.names, header.read_groups.names
+    )
+    if out is None:
+        raise ValueError(f"{path}: malformed SAM records")
+    batch, side = _columns_to_batch(out)
+    return batch, side, header
+
+
+# --------------------------------------------------------------------------
+# BAM (BGZF container + binary alignment records)
+# --------------------------------------------------------------------------
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000"
+)
+
+
+def bgzf_decompress(data: bytes) -> bytes:
+    """Decode a BGZF container (the native block-parallel decoder)."""
+    from adam_tpu_torch import native
+
+    out = native.bgzf_decompress(data)
+    if out is None:
+        raise ValueError("not a BGZF container, or it ends in a truncated block")
+    return out
+
+
+def bgzf_compress(data: bytes, block_size: int = 0xFF00) -> bytes:
+    """Encode bytes as BGZF blocks + EOF marker (the native block-parallel
+    encoder).  BSIZE is a u16 (total block size - 1), so blocks never
+    exceed 0xFF00 input bytes."""
+    from adam_tpu_torch import native
+
+    return native.bgzf_compress(data, block_size=min(max(1, block_size), 0xFF00))
+
+
+def _parse_bam_header_blob(raw: bytes) -> tuple[SamHeader, int]:
+    """Parse the BAM preamble (magic, header text, reference list) from a
+    decompressed prefix -> (header, records offset).  Raises ValueError
+    when ``raw`` is too short to contain the whole preamble."""
+    if raw[:4] != b"BAM\x01":
+        raise ValueError("not a BAM stream")
+    if len(raw) < 8:
+        raise ValueError("truncated BAM preamble")
+    (l_text,) = struct.unpack_from("<i", raw, 4)
+    if len(raw) < 8 + l_text + 4:
+        raise ValueError("truncated BAM preamble")
+    text = raw[8 : 8 + l_text].decode("utf-8", "replace").rstrip("\x00")
+    off = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", raw, off)
+    off += 4
+    recs = []
+    for _ in range(n_ref):
+        if len(raw) < off + 4:
+            raise ValueError("truncated BAM reference list")
+        (l_name,) = struct.unpack_from("<i", raw, off)
+        if len(raw) < off + 4 + l_name + 4:
+            raise ValueError("truncated BAM reference list")
+        name = raw[off + 4 : off + 4 + l_name - 1].decode("ascii")
+        (l_ref,) = struct.unpack_from("<i", raw, off + 4 + l_name)
+        recs.append(SequenceRecord(name, l_ref))
+        off += 4 + l_name + 4
+    header = SamHeader.parse(text.splitlines())
+    # the header text is authoritative; without @SQ lines the binary
+    # reference list supplies the dictionary
+    if len(header.seq_dict) == 0 and recs:
+        header.seq_dict = SequenceDictionary(tuple(recs))
+    return header, off
+
+
+def iter_bam_batches(
+    path: str,
+    batch_reads: int = 500_000,
+    window_bytes: int = 32 * 1024 * 1024,
+):
+    """Constant-memory streaming BAM reader: yields (ReadBatch,
+    ReadSidecar, SamHeader).
+
+    ``window_bytes`` of compressed input are read at a time; their
+    *complete* BGZF blocks are inflated and their complete BAM records
+    tokenized, and both the compressed and the decompressed tails carry
+    into the next window.  Tokenized windows are yielded whole, together,
+    once at least ``batch_reads`` reads are pending (and the rest at
+    EOF), so a yielded batch usually holds more than ``batch_reads``
+    reads: windows follow the bytes, as in the JAX package."""
+    from adam_tpu_torch import native
+
+    with open(path, "rb") as fh:
+        comp_tail = b""
+        raw_tail = b""
+        header = None
+        pending: list[dict] = []
+        pending_reads = 0
+        eof = False
+        while not eof:
+            chunk = fh.read(window_bytes)
+            if not chunk:
+                eof = True
+            comp = comp_tail + chunk
+            if comp:
+                got = native.bgzf_decompress_partial(comp)
+                if got is None:
+                    raise ValueError(f"{path}: not a BGZF/BAM file")
+                blob, consumed = got
+                if eof and consumed < len(comp):
+                    raise ValueError(f"{path}: truncated BGZF block at EOF")
+                comp_tail = comp[consumed:]
+                raw = raw_tail + blob
+            else:
+                raw = raw_tail
+            if header is None:
+                try:
+                    header, records_off = _parse_bam_header_blob(raw)
+                except ValueError:
+                    if eof:
+                        raise
+                    raw_tail = raw
+                    continue  # the preamble needs more data
+                raw = raw[records_off:]
+            out = native.tokenize_bam(raw, 0, header.read_groups.names, partial=True)
+            if out is None:
+                raise ValueError(f"{path}: malformed BAM records")
+            consumed = out.pop("consumed")
+            if eof and consumed < len(raw):
+                raise ValueError(f"{path}: truncated BAM record at EOF")
+            raw_tail = raw[consumed:]
+            n = len(out["flags"])
+            if n:
+                pending.append(out)
+                pending_reads += n
+            while pending_reads >= batch_reads or (eof and pending):
+                take, taken = [], 0
+                while pending and taken < batch_reads:
+                    take.append(pending.pop(0))
+                    taken += len(take[-1]["flags"])
+                batches = [_columns_to_batch(o) for o in take]
+                if len(batches) == 1:
+                    batch, side = batches[0]
+                else:
+                    batch = ReadBatch.concat([b for b, _ in batches])
+                    side = ReadSidecar.concat([s for _, s in batches])
+                pending_reads -= taken
+                yield batch, side, header
+                if not eof:
+                    break
+
+
+def read_bam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Whole-file BAM read: inflate, parse the preamble, tokenize."""
+    from adam_tpu_torch import native
+
+    with open(path, "rb") as fh:
+        raw = bgzf_decompress(fh.read())
+    header, off = _parse_bam_header_blob(raw)
+    out = native.tokenize_bam(raw, off, header.read_groups.names)
+    if out is None:
+        raise ValueError(f"{path}: malformed BAM records")
+    out.pop("consumed")
+    batch, side = _columns_to_batch(out)
+    return batch, side, header
+
+
+def write_bam(
+    path: str,
+    batch: ReadBatch,
+    side: ReadSidecar,
+    header: SamHeader,
+    sort_order: Optional[str] = None,
+) -> None:
+    """Write a BAM: the preamble (header text and reference list), the
+    native record encoder's stream, BGZF-compressed with the EOF block."""
+    from adam_tpu_torch import native
+
+    text = "\n".join(header.to_lines(sort_order=sort_order)) + "\n"
+    body = _io.BytesIO()
+    body.write(b"BAM\x01")
+    tb = text.encode("utf-8")
+    body.write(struct.pack("<i", len(tb)))
+    body.write(tb)
+    sd = header.seq_dict
+    body.write(struct.pack("<i", len(sd)))
+    for r in sd:
+        nb = r.name.encode("ascii") + b"\x00"
+        body.write(struct.pack("<i", len(nb)))
+        body.write(nb)
+        body.write(struct.pack("<i", r.length))
+    body.write(native.bam_encode(batch, side, header.read_groups.names, len(sd)))
+    with open(path, "wb") as fh:
+        fh.write(bgzf_compress(body.getvalue()))

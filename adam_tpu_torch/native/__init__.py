@@ -9,7 +9,10 @@ keyed by a hash of the sources, the flags and the compiler.
 Unlike ``adam_tpu/native``, nothing here degrades to a pure-Python codec:
 a failed build raises, and so does a binding that cannot do its work
 (where the JAX package's wrappers return None for the caller to fall
-back).  Only the functions this package calls are bound.
+back).  A decoder returns None only for input that is not what it parses
+(malformed SAM or BAM records, data that is not BGZF), and its caller
+raises with the JAX package's message.  Only the functions this package
+calls are bound.
 """
 
 from __future__ import annotations
@@ -84,6 +87,20 @@ def _build() -> str:
     raise RuntimeError("building the native codecs failed:\n" + "\n".join(errors))
 
 
+# the tokenizers' shared output columns (samtok_fill / bamtok_fill)
+_OUT_COLS = [
+    _i32p, _i32p, _i64p, _i64p, _i32p, _i32p, _i64p, _i32p,
+    _i32p, _i32p, _u8p,                     # ...has_qual
+    _u8p, _u8p, ct.c_int64,                 # bases, quals, lmax
+    _u8p, _i32p, _i32p, ct.c_int64,         # cigar_*, cmax
+    _u8p, _i64p,                            # name
+    _u8p, _i64p,                            # attrs
+    _u8p, _i64p, _u8p,                      # md
+    _u8p, _i64p, _u8p,                      # oq
+    _i64p, _i64p, _i64p,                    # byte counts out
+]
+
+
 def _bind(lib: ct.CDLL) -> None:
     lib.samtok_scan.restype = ct.c_void_p
     lib.samtok_scan.argtypes = [_u8p, ct.c_int64, ct.c_int64, ct.c_int]
@@ -92,18 +109,51 @@ def _bind(lib: ct.CDLL) -> None:
     lib.samtok_fill.restype = ct.c_int
     lib.samtok_fill.argtypes = [
         ct.c_void_p, _u8p, _i64p, ct.c_int32, _u8p, _i64p, ct.c_int32,
-        _i32p, _i32p, _i64p, _i64p, _i32p, _i32p, _i64p, _i32p,
-        _i32p, _i32p, _u8p,                     # ...has_qual
-        _u8p, _u8p, ct.c_int64,                 # bases, quals, lmax
-        _u8p, _i32p, _i32p, ct.c_int64,         # cigar_*, cmax
-        _u8p, _i64p,                            # name
-        _u8p, _i64p,                            # attrs
-        _u8p, _i64p, _u8p,                      # md
-        _u8p, _i64p, _u8p,                      # oq
-        _i64p, _i64p, _i64p,                    # byte counts out
-    ]
+    ] + _OUT_COLS
     lib.samtok_free.restype = None
     lib.samtok_free.argtypes = [ct.c_void_p]
+    lib.bgzf_scan2.restype = ct.c_void_p
+    lib.bgzf_scan2.argtypes = [_u8p, ct.c_int64, ct.c_int]
+    lib.bgzf_consumed.restype = ct.c_int64
+    lib.bgzf_consumed.argtypes = [ct.c_void_p]
+    lib.bgzf_dims.restype = None
+    lib.bgzf_dims.argtypes = [ct.c_void_p, _i64p, _i64p]
+    lib.bgzf_fill.restype = ct.c_int
+    lib.bgzf_fill.argtypes = [ct.c_void_p, _u8p, ct.c_int]
+    lib.bgzf_free.restype = None
+    lib.bgzf_free.argtypes = [ct.c_void_p]
+    lib.bgzf_compress.restype = ct.c_int
+    lib.bgzf_compress.argtypes = [
+        _u8p, ct.c_int64, ct.c_int64, _u8p, ct.c_int64, _i64p, ct.c_int, ct.c_int,
+    ]
+    lib.bamtok_scan2.restype = ct.c_void_p
+    lib.bamtok_scan2.argtypes = [_u8p, ct.c_int64, ct.c_int64, ct.c_int]
+    lib.bamtok_consumed.restype = ct.c_int64
+    lib.bamtok_consumed.argtypes = [ct.c_void_p]
+    lib.bamtok_dims.restype = None
+    lib.bamtok_dims.argtypes = [ct.c_void_p, _i64p, _i32p, _i32p, _i64p, _i64p]
+    lib.bamtok_fill.restype = ct.c_int
+    lib.bamtok_fill.argtypes = [ct.c_void_p, _u8p, _i64p, ct.c_int32] + _OUT_COLS + [
+        ct.c_int]
+    lib.bamtok_free.restype = None
+    lib.bamtok_free.argtypes = [ct.c_void_p]
+    lib.cigar_cols.restype = ct.c_int
+    lib.cigar_cols.argtypes = [
+        _u8p, _i64p, ct.c_int64, ct.c_int64, _u8p, _i32p, _i32p, ct.c_int,
+    ]
+    lib.bam_encode.restype = ct.c_int64
+    lib.bam_encode.argtypes = [
+        _i32p, _i32p, _i64p, _i32p, _i32p, _i64p, _i32p, _i32p,
+        _u8p, _u8p,
+        _u8p, _u8p, ct.c_int64,
+        _u8p, _i32p, _i32p, ct.c_int64,
+        _u8p, _i64p,
+        _u8p, _i64p,
+        _u8p, _i64p, _u8p,
+        _u8p, _i64p, _u8p,
+        _i32p, _u8p, _i64p, ct.c_int32, ct.c_int32,
+        ct.c_int64, _u8p, ct.c_int64, ct.c_int,
+    ]
     lib.ref_positions.restype = None
     lib.ref_positions.argtypes = [
         _u8p, _i32p, _i32p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
@@ -297,6 +347,247 @@ def _alloc_columns(n: int, L: int, C: int, nameb: int, tagb: int) -> dict:
         oq_off=np.empty(n + 1, np.int64),
         oq_present=np.empty(n, np.uint8),
     )
+
+
+def _bgzf_inflate(buf: np.ndarray, partial: bool):
+    """Scan + block-parallel inflate -> (bytes, input bytes consumed), or
+    None when ``buf`` is not BGZF (or, without ``partial``, ends in a
+    truncated block)."""
+    L_ = lib()
+    h = L_.bgzf_scan2(_u8_ptr(buf), len(buf), 1 if partial else 0)
+    if not h:
+        return None
+    try:
+        nb = ct.c_int64()
+        ob = ct.c_int64()
+        L_.bgzf_dims(h, ct.byref(nb), ct.byref(ob))
+        out = np.empty(max(1, ob.value), np.uint8)
+        if L_.bgzf_fill(h, _u8_ptr(out), _nthreads()) != 0:
+            return None
+        return out[: ob.value].tobytes(), int(L_.bgzf_consumed(h))
+    finally:
+        L_.bgzf_free(h)
+
+
+def bgzf_decompress(data) -> bytes | None:
+    """Block-parallel BGZF decode of a whole container; None if ``data``
+    is not BGZF."""
+    got = _bgzf_inflate(_as_u8(data), partial=False)
+    return None if got is None else got[0]
+
+
+def bgzf_decompress_partial(data) -> tuple[bytes, int] | None:
+    """Streaming-window BGZF decode: decompress the *complete* blocks in
+    ``data`` -> (decompressed bytes, input bytes consumed); a truncated
+    final block is left for the caller's next window.  None if ``data``
+    is not BGZF."""
+    return _bgzf_inflate(_as_u8(data), partial=True)
+
+
+def bgzf_compress(data, level: int = 6, block_size: int = 0xFF00) -> bytes:
+    """Block-parallel BGZF encode, EOF block appended."""
+    L_ = lib()
+    buf = _as_u8(data)
+    n = len(buf)
+    block = min(max(1, block_size), 0xFF00)  # BSIZE is a u16 total-size field
+    n_blocks = (n + block - 1) // block if n else 0
+    cap = n + n_blocks * 64 + n // 512 + 1024
+    out = np.empty(cap, np.uint8)
+    out_len = ct.c_int64()
+    rc = L_.bgzf_compress(
+        _u8_ptr(buf), ct.c_int64(n), ct.c_int64(block), _u8_ptr(out),
+        ct.c_int64(cap), ct.byref(out_len), ct.c_int(_nthreads()),
+        ct.c_int(level),
+    )
+    if rc != 0:
+        raise RuntimeError(f"bgzf_compress failed (code {rc})")
+    return out[: out_len.value].tobytes()
+
+
+def tokenize_bam(raw, records_off: int, rg_names: Sequence[str],
+                 partial: bool = False) -> dict | None:
+    """Parse decompressed BAM records into columnar arrays; None on
+    malformed records.
+
+    With ``partial=True`` (streaming windows) a record truncated at the
+    end of ``raw`` stops the scan instead of failing, and the result
+    carries ``out["consumed"]``, the byte offset after the last complete
+    record, so the caller can carry the tail into the next window."""
+    L_ = lib()
+    buf = _as_u8(raw)
+    h = L_.bamtok_scan2(_u8_ptr(buf), len(buf), records_off, 1 if partial else 0)
+    if not h:
+        return None
+    try:
+        n = ct.c_int64()
+        lmax = ct.c_int32()
+        cmax = ct.c_int32()
+        nameb = ct.c_int64()
+        tagb = ct.c_int64()
+        L_.bamtok_dims(h, ct.byref(n), ct.byref(lmax), ct.byref(cmax),
+                       ct.byref(nameb), ct.byref(tagb))
+        n, L, C = n.value, max(1, lmax.value), max(1, cmax.value)
+        out = _alloc_columns(n, L, C, nameb.value, tagb.value)
+        gbuf, goff = _str_dict(rg_names)
+        ab = ct.c_int64()
+        mb = ct.c_int64()
+        qb = ct.c_int64()
+        rc = L_.bamtok_fill(
+            h,
+            _u8_ptr(gbuf), goff.ctypes.data_as(_i64p), len(rg_names),
+            out["flags"].ctypes.data_as(_i32p),
+            out["contig_idx"].ctypes.data_as(_i32p),
+            out["start"].ctypes.data_as(_i64p),
+            out["end"].ctypes.data_as(_i64p),
+            out["mapq"].ctypes.data_as(_i32p),
+            out["mate_contig_idx"].ctypes.data_as(_i32p),
+            out["mate_start"].ctypes.data_as(_i64p),
+            out["tlen"].ctypes.data_as(_i32p),
+            out["rg_idx"].ctypes.data_as(_i32p),
+            out["lengths"].ctypes.data_as(_i32p),
+            _u8_ptr(out["has_qual"]),
+            _u8_ptr(out["bases"].reshape(-1)), _u8_ptr(out["quals"].reshape(-1)),
+            ct.c_int64(L),
+            _u8_ptr(out["cigar_ops"].reshape(-1)),
+            out["cigar_lens"].ctypes.data_as(_i32p),
+            out["cigar_n"].ctypes.data_as(_i32p),
+            ct.c_int64(C),
+            _u8_ptr(out["name_buf"]), out["name_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["attr_buf"]), out["attr_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["md_buf"]), out["md_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["md_present"]),
+            _u8_ptr(out["oq_buf"]), out["oq_off"].ctypes.data_as(_i64p),
+            _u8_ptr(out["oq_present"]),
+            ct.byref(ab), ct.byref(mb), ct.byref(qb),
+            ct.c_int(_nthreads()),
+        )
+        if rc != 0:
+            return None
+        out["attr_buf"] = out["attr_buf"][: ab.value]
+        out["md_buf"] = out["md_buf"][: mb.value]
+        out["oq_buf"] = out["oq_buf"][: qb.value]
+        out["consumed"] = int(L_.bamtok_consumed(h))
+        return out
+    finally:
+        L_.bamtok_free(h)
+
+
+def cigar_cols(buf: np.ndarray, offsets: np.ndarray, cmax: int):
+    """CIGAR strings (flat u8 buffer + offsets) -> (ops u8[N, C],
+    lens i32[N, C], n_ops i32[N]); raises if a row overflows ``cmax``
+    or does not parse."""
+    L_ = lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n = len(offsets) - 1
+    C = max(1, int(cmax))
+    ops = np.empty((n, C), np.uint8)
+    lens = np.empty((n, C), np.int32)
+    n_ops = np.empty(n, np.int32)
+    rc = L_.cigar_cols(
+        _u8_ptr(buf), offsets.ctypes.data_as(_i64p),
+        ct.c_int64(n), ct.c_int64(C),
+        _u8_ptr(ops.reshape(-1)), lens.ctypes.data_as(_i32p),
+        n_ops.ctypes.data_as(_i32p), ct.c_int(_nthreads()),
+    )
+    if rc != 0:
+        raise ValueError(f"cigar_cols: a CIGAR string does not parse into {C} ops")
+    return ops, lens, n_ops
+
+
+def _encode_prep(batch, side, rg_names: Sequence[str]):
+    """Marshalling for the BAM encoder: the numpy batch, the sidecar's
+    StringColumns, the RG dictionary and the leading ctypes arguments ->
+    (n, args, base capacity, the arrays the arguments point into)."""
+    from adam_tpu_torch.formats.strings import StringColumn
+
+    b = batch.to_numpy()
+    n = b.n_rows
+    names = StringColumn.of(side.names)
+    attrs = StringColumn.of(side.attrs)
+    md = StringColumn.of(side.md)
+    oq = StringColumn.of(side.orig_quals)
+    if len(names) < n or len(attrs) < n or len(md) < n or len(oq) < n:
+        raise ValueError(f"the sidecar has fewer rows than the batch's {n}")
+
+    c64 = lambda x: np.ascontiguousarray(x, np.int64)  # noqa: E731
+    c32 = lambda x: np.ascontiguousarray(x, np.int32)  # noqa: E731
+    cu8 = lambda x: np.ascontiguousarray(x, np.uint8)  # noqa: E731
+
+    gbuf, goff = _str_dict(rg_names)
+    # every marshalled array stays alive for the duration of the call
+    keep = dict(
+        flags=c32(b.flags), contig_idx=c32(b.contig_idx), start=c64(b.start),
+        mapq=c32(b.mapq), mate_contig_idx=c32(b.mate_contig_idx),
+        mate_start=c64(b.mate_start), tlen=c32(b.tlen),
+        lengths=c32(b.lengths), has_qual=cu8(b.has_qual), valid=cu8(b.valid),
+        bases=cu8(b.bases).reshape(-1), quals=cu8(b.quals).reshape(-1),
+        cigar_ops=cu8(b.cigar_ops).reshape(-1),
+        cigar_lens=c32(b.cigar_lens), cigar_n=c32(b.cigar_n),
+        md_valid=cu8(md.valid),
+        oq_valid=cu8(np.asarray(oq.valid) & (oq.lengths() > 0)),
+        rg_idx=c32(b.read_group_idx), gbuf=gbuf, goff=goff,
+        strings=(names, attrs, md, oq),
+    )
+    args = [
+        keep["flags"].ctypes.data_as(_i32p),
+        keep["contig_idx"].ctypes.data_as(_i32p),
+        keep["start"].ctypes.data_as(_i64p),
+        keep["mapq"].ctypes.data_as(_i32p),
+        keep["mate_contig_idx"].ctypes.data_as(_i32p),
+        keep["mate_start"].ctypes.data_as(_i64p),
+        keep["tlen"].ctypes.data_as(_i32p),
+        keep["lengths"].ctypes.data_as(_i32p),
+        _u8_ptr(keep["has_qual"]),
+        _u8_ptr(keep["valid"]),
+        _u8_ptr(keep["bases"]),
+        _u8_ptr(keep["quals"]),
+        ct.c_int64(b.lmax),
+        _u8_ptr(keep["cigar_ops"]),
+        keep["cigar_lens"].ctypes.data_as(_i32p),
+        keep["cigar_n"].ctypes.data_as(_i32p),
+        ct.c_int64(b.cmax),
+        _u8_ptr(names.buf), names.offsets.ctypes.data_as(_i64p),
+        _u8_ptr(attrs.buf), attrs.offsets.ctypes.data_as(_i64p),
+        _u8_ptr(md.buf), md.offsets.ctypes.data_as(_i64p),
+        _u8_ptr(keep["md_valid"]),
+        _u8_ptr(oq.buf), oq.offsets.ctypes.data_as(_i64p),
+        _u8_ptr(keep["oq_valid"]),
+        keep["rg_idx"].ctypes.data_as(_i32p),
+        _u8_ptr(gbuf), goff.ctypes.data_as(_i64p), ct.c_int32(len(rg_names)),
+    ]
+    # capacity: names + cigars + seq/qual + sidecar strings + RG tags
+    lens = np.where(b.valid, b.lengths, 0).astype(np.int64)
+    base_cap = (
+        int(names.offsets[-1])
+        + 12 * int(np.asarray(b.cigar_n, np.int64).sum())
+        + int(lens.sum()) * 2
+        + int(attrs.offsets[-1]) + int(md.offsets[-1]) + int(oq.offsets[-1])
+        + (max((len(s) for s in rg_names), default=0) + 8) * n
+    )
+    return n, args, base_cap, keep
+
+
+def bam_encode(batch, side, rg_names: Sequence[str], n_refs: int) -> bytes:
+    """Encode a (ReadBatch, ReadSidecar) into the BAM record stream
+    (everything after the reference list).  ``n_refs`` bounds the
+    contig/mate refIDs: an index outside the reference list raises
+    rather than writing a BAM that points outside it."""
+    L_ = lib()
+    n, args, base_cap, keep = _encode_prep(batch, side, rg_names)
+    cap = int(n * 80 + base_cap)
+    out = np.empty(cap, np.uint8)
+    got = L_.bam_encode(
+        *args, ct.c_int32(int(n_refs)), ct.c_int64(n), _u8_ptr(out),
+        ct.c_int64(cap), ct.c_int(_nthreads()),
+    )
+    if got == -2:
+        raise RuntimeError("bam_encode: output capacity exceeded")
+    if got < 0:
+        raise ValueError("bam_encode: a record's refID or read group lies "
+                         f"outside the header's {n_refs} references and "
+                         f"{len(rg_names)} read groups, or a tag does not encode")
+    return out[:got].tobytes()
 
 
 def line_index_strided(data, begin: int, stride: int) -> np.ndarray:

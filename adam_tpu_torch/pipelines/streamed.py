@@ -62,7 +62,9 @@ _SENTINEL = object()
 
 def _ingest_windows(path: str, window_reads: int, out_q: queue.Queue,
                     abort: threading.Event) -> None:
-    """Ingest thread body: tokenize windows, push (batch, side, header);
+    """Ingest thread body: tokenize windows (a ``.bam``, after one ``.gz``
+    is stripped, through the BAM reader, anything else as SAM text), push
+    (batch, side, header);
     an exception is pushed for the consumer to raise.  ``abort`` unblocks
     the bounded put when the consumer dies mid-stream."""
 
@@ -78,7 +80,13 @@ def _ingest_windows(path: str, window_reads: int, out_q: queue.Queue,
     try:
         from adam_tpu_torch.io import sam as sam_io
 
-        for item in sam_io.iter_sam_batches(path, batch_reads=window_reads):
+        p = str(path)
+        base = p[:-3] if p.endswith(".gz") else p
+        if base.endswith(".bam"):
+            it = sam_io.iter_bam_batches(p, batch_reads=window_reads)
+        else:
+            it = sam_io.iter_sam_batches(p, batch_reads=window_reads)
+        for item in it:
             if not put(item):
                 return
         put(_SENTINEL)
@@ -92,7 +100,7 @@ def transform_streamed(
     *,
     mark_duplicates: bool = True,
     recalibrate: bool = True,
-    realign: bool = False,
+    realign: bool = True,
     known_snps=None,
     known_indels=None,
     consensus_model: str = "reads",
@@ -122,9 +130,11 @@ def transform_streamed(
     ``models.snp_table.SnpTable``) is masked out of every observe;
     ``known_indels`` (a ``models.snp_table.IndelTable``) supplies the
     consensuses, and turns the ``reads`` model into ``knowns``;
-    ``known_table`` is a pre-solved recalibration table ``(u8[n_rg, 94,
-    2*gl+1, 17], gl)``, applied in place of the barrier-2 solve (the
-    histograms are still merged, and dumped under ``dump_observations``).
+    ``known_table`` is a pre-solved recalibration table ``(table[n_rg, 94,
+    n_cyc, 17], gl)``, cast to u8 and applied in place of the barrier-2
+    solve with its cycle axis centred on ``(n_cyc - 1) // 2``, as JAX's
+    gather centres it (the histograms are still merged, and dumped under
+    ``dump_observations``).
     With a known table the fused B->C tier is armed (``ADAM_TPU_FUSED_BC``,
     on unless set to 0): each eligible window's observe and apply + pack
     run back to back from one dispatch in pass B, and pass C only fetches
@@ -152,8 +162,7 @@ def transform_streamed(
     if recalibrate and known_table is not None:
         from adam_tpu_torch.convert import table_from_numpy
 
-        known_dev = table_from_numpy(np.asarray(known_table[0]),
-                                     int(known_table[1])).to(dev)
+        known_dev = table_from_numpy(known_table[0]).to(dev)
     # the fused B->C tier: with the applied table known before pass B,
     # each eligible window's observe and apply + pack run back to back
     fused = known_dev is not None and bqsr.fused_bc_enabled()

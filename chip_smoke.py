@@ -42,10 +42,28 @@ Phases, each of which fails the script on any error:
    the two legs and of 4c byte-identical, every observed part fused in
    the fused leg and none in the other, kernels 1 and 2 launched once
    per part (kernel 2 once per encode);
+4e. BAM ingest: the main path's SAM written as a BAM by the port's
+   ``write_bam`` (timed), its byte windows listed (``iter_bam_batches``),
+   then ``transform in.bam -streaming -mark_duplicate_reads
+   -realign_indels -recalibrate_base_qualities`` on the card: rows ==
+   reads, parts == BAM windows + 1, kernel 1 launched at least once and
+   kernel 2 exactly twice per part, and the rows, as a multiset, those of
+   the main path's SAM run (markdup, realign and BQSR are global, so the
+   windows do not change them); then the ``-mark_duplicate_reads``-only
+   form (``BASELINE.json`` config 2);
+4f. k-mers (``BASELINE.json`` config 1 on the port's own output):
+   ``count_kmers <the main path's part directory> out.txt 21`` on the
+   card (Parquet load, projected, and count, each timed); then
+   ``device_kmer_histogram`` and ``device_qmer_weights`` alone at k = 21
+   on the 1,048,576-read batch, one warm call and 5 timed ones
+   (CUDA-synchronised), as k-mers/s over ``valid x (L - 21 + 1)`` (the
+   count ``bench.py`` divides by), median and spread;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
-   models and on the known-sites path (known SNPs + known indels + the
-   4d table, fused); the parts must be byte-identical.
+   models, on the known-sites path (known SNPs + known indels + the
+   4d table, fused) and as a BAM; the parts must be byte-identical; then
+   ``count_kmers`` at k = 21 and ``count_kmers -countQmers`` at k = 21 on
+   the BAM run's parts, whose output files must be byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -402,7 +420,7 @@ def check_sw_fill(dev, shape, launched: int, rate: dict | None = None,
 
 
 def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
-                  extra: tuple = ()) -> dict:
+                  extra: tuple = (), recalibrate: bool = True) -> dict:
     """The user's entry point, in this process: the CLI's main (``extra``:
     more of its flags)."""
     from adam_tpu_torch.cli.main import main
@@ -412,8 +430,8 @@ def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
         rc = main([
             "transform", sam, out_dir, "-streaming", "-mark_duplicate_reads",
             *(["-realign_indels"] if realign else []),
-            "-recalibrate_base_qualities", "-window_reads", str(WINDOW_READS),
-            *extra, "--device", device,
+            *(["-recalibrate_base_qualities"] if recalibrate else []),
+            "-window_reads", str(WINDOW_READS), *extra, "--device", device,
         ])
     if rc != 0:
         raise RuntimeError(f"transform exited {rc}")
@@ -620,6 +638,169 @@ def check_known_sites(work: str, sam: str, snps_vcf: str, indels_vcf: str,
             "table_legs": legs, "table_npz": table_npz}
 
 
+def _sorted_rows(d: str):
+    """Every row of a part directory, sorted on all columns (a multiset
+    of rows that does not depend on how the parts cut it)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    tbl = pa.concat_tables([
+        pq.read_table(os.path.join(d, f)).replace_schema_metadata(None)
+        for f in sorted(os.listdir(d)) if f.startswith("part-")])
+    return tbl.sort_by([(c, "ascending") for c in tbl.column_names])
+
+
+def check_bam(work: str, sam: str, main_adam: str, device: str = "cuda") -> dict:
+    """Phase 4e on ``sam`` (the main path's input) -> its record.  The
+    launch counts are checked on the card only (the CPU launches none)."""
+    from adam_tpu_torch.io import sam as sam_io
+    from adam_tpu_torch.ops import kernels
+
+    bam = os.path.join(work, "wgs.bam")
+    t0 = time.monotonic()
+    batch, side, header = sam_io.read_sam(sam)
+    read_sam_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    sam_io.write_bam(bam, batch, side, header)
+    write_bam_s = time.monotonic() - t0
+    del batch, side
+    t0 = time.monotonic()
+    windows = [b.n_rows for b, _, _ in sam_io.iter_bam_batches(bam, batch_reads=WINDOW_READS)]
+    iter_s = time.monotonic() - t0
+    rec = {"bam_bytes": os.path.getsize(bam), "read_sam_s": read_sam_s,
+           "write_bam_s": write_bam_s, "iter_bam_batches_s": iter_s,
+           "window_reads": windows}
+    _log(f"BAM: {rec['bam_bytes']} bytes; read_sam {read_sam_s:.3f} s, write_bam "
+         f"{write_bam_s:.3f} s, iter_bam_batches {iter_s:.3f} s; windows {windows}")
+    if sum(windows) != MAIN_READS:
+        raise AssertionError(f"BAM windows {windows} hold {sum(windows)} reads")
+
+    out_dir = os.path.join(work, "bam.adam")
+    kernels.reset_launches()
+    st = run_transform(bam, out_dir, device)
+    lv, vv = kernels.launches(), kernels.variant_launches()
+    got = read_parts(out_dir)
+    n_parts = len(windows) + 1
+    if (got["rows"] != MAIN_READS or st["n_reads"] != MAIN_READS
+            or got["parts"] != n_parts or st["n_parts"] != n_parts
+            or st["n_windows"] != len(windows) or got["realigned_rows"] == 0):
+        raise AssertionError(f"BAM path: {got}, stats {st}, windows {windows}")
+    if device == "cuda" and (
+            lv["observe_hist"] < n_parts or lv["pack_rows"] != 2 * n_parts
+            or vv.get("pack_rows:sanger") != n_parts
+            or vv.get("pack_rows:base_decode") != n_parts or lv["sw_fill"] != 0):
+        raise AssertionError(f"BAM path: launches {lv} {vv} for {n_parts} parts")
+    t0 = time.monotonic()
+    if not _sorted_rows(out_dir).equals(_sorted_rows(main_adam)):
+        raise AssertionError("BAM path: rows differ from the SAM run's")
+    rows_s = time.monotonic() - t0
+    _log("BAM path stats: " + json.dumps(st, sort_keys=True))
+    _log(f"BAM path: {got}, {st['reads_per_s']:.0f} reads/s, launches {lv} {vv} "
+         f"({n_parts} parts); rows equal the SAM run's as a multiset (checked in "
+         f"{rows_s:.1f} s); stage walls: {_stage_walls(st)}")
+    shutil.rmtree(out_dir)
+
+    kernels.reset_launches()
+    md = run_transform(bam, out_dir, device, realign=False, recalibrate=False)
+    md_lv = kernels.launches()
+    got_md = read_parts(out_dir)
+    if (got_md["rows"] != MAIN_READS or got_md["parts"] != len(windows)
+            or got_md["duplicates"] == 0 or any(md_lv.values())):
+        raise AssertionError(f"BAM markdup-only path: {got_md}, launches {md_lv}")
+    _log(f"BAM markdup-only path: {got_md}, {md['reads_per_s']:.0f} reads/s, launches "
+         f"{md_lv}; stage walls: {_stage_walls(md)}")
+    shutil.rmtree(out_dir)
+    os.unlink(bam)
+    return {**rec, "stats": st, "launches": lv, "variant_launches": vv,
+            "rows_check_s": rows_s, "markdup_only_stats": md,
+            "markdup_only_launches": md_lv}
+
+
+def _timed_reps(fn, sync, reps: int = 5) -> list:
+    """Seconds of ``reps`` calls of ``fn`` after one warm call, each
+    ended by ``sync`` (the CUDA synchronise)."""
+    fn()
+    sync()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def check_kmers(work: str, main_adam: str, device: str = "cuda") -> dict:
+    """Phase 4f on the main path's part directory -> its record."""
+    import statistics
+
+    import torch
+
+    from adam_tpu_torch.cli.main import main as cli
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops import kmer
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    k = 21
+    out_txt = os.path.join(work, "kmers.txt")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli(["count_kmers", main_adam, out_txt, str(k), "--device", device])
+    if rc != 0:
+        raise RuntimeError(f"count_kmers exited {rc}")
+    cli_stats = json.loads(err.getvalue().strip().splitlines()[-1])
+    with open(out_txt, "rb") as fh:
+        n_lines = sum(1 for _ in fh)
+    os.unlink(out_txt)
+    if cli_stats["n_reads"] != MAIN_READS or n_lines != cli_stats["n_kmers"] or n_lines == 0:
+        raise AssertionError(f"count_kmers: {cli_stats}, {n_lines} lines")
+    _log(f"count_kmers {k} on the main path's parts: " + json.dumps(cli_stats, sort_keys=True))
+
+    ds = context.load_alignments(main_adam, projection=["sequence", "qual"])
+    b = ds.batch
+    bases, quals, lengths, valid = (torch.from_numpy(getattr(b, f)).to(dev) for f in
+                                    ("bases", "quals", "lengths", "valid"))
+    L = int(bases.shape[1])
+    nominal = int(valid.sum()) * (L - k + 1)
+    windows = int((lengths.long() - (k - 1)).clamp(min=0)[valid].sum())
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    s, counts, head = kmer.device_kmer_histogram(bases, lengths, valid, k)
+    sync()
+    counted = int(counts[head].long().sum())
+    peak_hist = torch.cuda.max_memory_allocated() if on_card else None
+    if counted != windows or int(head.sum()) != n_lines:
+        raise AssertionError(f"histogram counted {counted} of {windows} windows, "
+                             f"{int(head.sum())} k-mers vs the CLI's {n_lines}")
+    del s, counts, head
+    keys, w = kmer.device_qmer_weights(bases, quals, lengths, valid, k)
+    sync()
+    vw = w[keys >= 0]
+    # a phred-0 base has success probability 0, so 0 is a weight
+    if int((keys >= 0).sum()) != windows or not bool(((vw >= 0) & (vw <= 1)).all()):
+        raise AssertionError("q-mer weights: wrong count or outside [0, 1]")
+    del keys, w, vw
+    rec = {"k": k, "reads": MAIN_READS, "L": L, "kmers_nominal": nominal,
+           "kmer_windows_valid": windows, "distinct_kmers": n_lines,
+           "cli": cli_stats, "histogram_peak_bytes": peak_hist}
+    for name, fn in (("device_kmer_histogram",
+                      lambda: kmer.device_kmer_histogram(bases, lengths, valid, k)),
+                     ("device_qmer_weights",
+                      lambda: kmer.device_qmer_weights(bases, quals, lengths, valid, k))):
+        secs = _timed_reps(fn, sync)
+        rates = [nominal / t for t in secs]
+        rec[name] = {"s": secs, "median_s": statistics.median(secs),
+                     "kmers_per_s_median": statistics.median(rates),
+                     "kmers_per_s_min": min(rates), "kmers_per_s_max": max(rates)}
+        _log(f"{name} k={k} on {MAIN_READS} reads: median {statistics.median(secs):.5f} s, "
+             f"{statistics.median(rates):.6g} k-mers/s (spread {min(rates):.6g}-"
+             f"{max(rates):.6g}; {nominal} k-mers, bench.py's count)")
+    return rec
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -716,7 +897,9 @@ def main() -> int:
         for name in ("observe_hist", "pack_rows"):  # pack_rows: both encodes
             by_name[name]["launches"] = launched[name]
         by_name["pack_rows_sanger"]["launches"] = variants["pack_rows:sanger"]
-        shutil.rmtree(out_dir)
+        # the main path's parts stay for 4e's row check and 4f's k-mers
+        main_adam = os.path.join(work, "main.adam")
+        os.rename(out_dir, main_adam)
         prof = profile_transform(sam, out_dir)
         _log("main path under the profiler: " + json.dumps(prof, sort_keys=True))
         shutil.rmtree(out_dir)
@@ -778,7 +961,6 @@ def main() -> int:
              f"{time.monotonic() - t0:.1f} s)")
         known = check_known_sites(work, sam, snps_vcf, indels_vcf, "cuda")
         known["known_indels"] = n_indels
-        os.unlink(sam)
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_known_sites"] = known["launches"][name]
             by_name[name]["launches_known_table"] = {
@@ -787,19 +969,36 @@ def main() -> int:
             known["variant_launches"]["pack_rows:sanger"]
         table_npz = known.pop("table_npz")
 
+        # ---- 4e. BAM ingest ------------------------------------------------
+        bam = check_bam(work, sam, main_adam, "cuda")
+        os.unlink(sam)
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_bam"] = bam["launches"][name]
+        by_name["pack_rows_sanger"]["launches_bam"] = bam["variant_launches"]["pack_rows:sanger"]
+
+        # ---- 4f. k-mers on the main path's parts ---------------------------
+        kmers = check_kmers(work, main_adam, "cuda")
+        shutil.rmtree(main_adam)
+
         # ---- 5. card vs CPU ------------------------------------------------
         sam = os.path.join(work, "parity.sam")
         p_snps = os.path.join(work, "parity.snps.vcf")
         p_indels = os.path.join(work, "parity.indels.vcf")
         make_wgs(sam, PARITY_READS, 100, seed=SEED + 1, known_sites_out=p_snps)
         make_known_indels_vcf(sam, p_indels)
+        from adam_tpu_torch.io import sam as sam_io
+
+        p_bam = os.path.join(work, "parity.bam")
+        sam_io.write_bam(p_bam, *sam_io.read_sam(sam))
         parity = {}
-        for model in ("reads", "smithwaterman", "known_sites"):
+        for model in ("reads", "smithwaterman", "known_sites", "bam"):
             hashes = {}
             for device in ("cuda", "cpu"):
                 d = os.path.join(work, f"{model}.{device}.adam")
                 if model == "reads":
                     run_transform(sam, d, device)
+                elif model == "bam":
+                    run_transform(p_bam, d, device)
                 elif model == "smithwaterman":
                     run_smithwaterman(sam, d, device)
                 else:
@@ -815,6 +1014,25 @@ def main() -> int:
             parity[model] = len(hashes["cuda"])
             _log(f"card vs CPU ({model}): {parity[model]} parts byte-identical "
                  f"({PARITY_READS} reads)")
+        from adam_tpu_torch.cli.main import main as cli
+
+        for what, flags in (("count_kmers", ()), ("count_qmers", ("-countQmers",))):
+            hashes = {}
+            for device in ("cuda", "cpu"):
+                out_txt = os.path.join(work, f"{what}.{device}.txt")
+                with contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli(["count_kmers", os.path.join(work, "bam.cuda.adam"), out_txt,
+                              "21", *flags, "--device", device])
+                if rc != 0:
+                    raise RuntimeError(f"count_kmers {flags} exited {rc}")
+                with open(out_txt, "rb") as fh:
+                    data = fh.read()
+                hashes[device] = (hashlib.sha256(data).hexdigest(), data.count(b"\n"))
+            if hashes["cuda"] != hashes["cpu"] or hashes["cuda"][1] == 0:
+                raise AssertionError(f"{what}: card and CPU output files differ: {hashes}")
+            parity[what] = hashes["cuda"][1]
+            _log(f"card vs CPU ({what} k=21): output files byte-identical, "
+                 f"{parity[what]} lines ({PARITY_READS} reads)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -827,6 +1045,8 @@ def main() -> int:
         "smithwaterman": {"reads": SW_READS, "stats": sw_stats,
                           "sw_fill_launch_shapes": shapes, "sw_fill_routes": sw_routes},
         "known_sites": known,
+        "bam": bam,
+        "kmers": kmers,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

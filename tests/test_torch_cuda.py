@@ -181,8 +181,8 @@ def test_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
     stats = {}
     for dev in ("cuda", "cpu"):
-        stats[dev] = transform_streamed(path, str(tmp_path / dev), window_reads=2048,
-                                        device=dev)
+        stats[dev] = transform_streamed(path, str(tmp_path / dev), realign=False,
+                                        window_reads=2048, device=dev)
     launched = stats["cuda"]["kernel_launches"]
     assert (launched["observe_hist"], launched["pack_rows"]) == (3, 6)
     assert launched["sw_fill"] == launched["sw_score"] == 0
@@ -351,5 +351,49 @@ def test_realigning_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path, 
     assert (launched["sw_fill"] > 0) == (model == "smithwaterman")
     parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
     assert len(parts) == stats["cpu"]["n_windows"] + 1
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
+@pytest.mark.parametrize("k", [1, 21])
+def test_kmer_bodies_on_the_card_equal_the_cpu(cuda_device, k):
+    """The k-mer histogram and the q-mer weights at a window's size
+    (262,144 reads x 100 bases, N bases and short reads among them),
+    card vs CPU, bit for bit."""
+    from adam_tpu_torch.ops import kmer
+
+    rng = np.random.default_rng(k)
+    g, L = 262_144, 100
+    lengths = np.where(rng.random(g) < 0.9, L, rng.integers(10, L, g)).astype(np.int32)
+    past = np.arange(L)[None, :] >= lengths[:, None]
+    bases = np.where(past, 5, rng.choice(5, (g, L), p=[0.249, 0.25, 0.25, 0.25, 0.001]))
+    quals = np.where(past, 255, rng.integers(2, 41, (g, L)))
+    cpu = [torch.from_numpy(a) for a in (bases.astype(np.uint8), quals.astype(np.uint8),
+                                         lengths, rng.random(g) < 0.98)]
+    card = [a.to(cuda_device) for a in cpu]
+    for got, want in ((kmer.device_kmer_histogram(card[0], *card[2:], k),
+                       kmer.device_kmer_histogram(cpu[0], *cpu[2:], k)),
+                      (kmer.device_qmer_weights(*card, k), kmer.device_qmer_weights(*cpu, k))):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_bam_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.io import sam
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    make_wgs(str(tmp_path / "in.sam"), 4500, 100, n_contigs=2, contig_len=30_000)
+    sam.write_bam(str(tmp_path / "in.bam"), *sam.read_sam(str(tmp_path / "in.sam")))
+    stats = {dev: transform_streamed(str(tmp_path / "in.bam"), str(tmp_path / dev),
+                                     window_reads=2048, device=dev)
+             for dev in ("cuda", "cpu")}
+    launched = stats["cuda"]["kernel_launches"]
+    n_parts = stats["cpu"]["n_parts"]
+    assert n_parts == stats["cpu"]["n_windows"] + 1
+    assert launched["observe_hist"] >= n_parts and launched["pack_rows"] == 2 * n_parts
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == n_parts
     for f in parts:
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()

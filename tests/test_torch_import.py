@@ -113,7 +113,13 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.models.positions",
                                     "adam_tpu_torch.formats.variants",
                                     "adam_tpu_torch.utils.retry",
-                                    "adam_tpu_torch.api.datasets"])
+                                    "adam_tpu_torch.api.datasets",
+                                    "adam_tpu_torch.io.context",
+                                    "adam_tpu_torch.io.sam",
+                                    "adam_tpu_torch.io.parquet",
+                                    "adam_tpu_torch.ops.kmer",
+                                    "adam_tpu_torch.native",
+                                    "adam_tpu_torch.cli.main"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys

@@ -195,7 +195,7 @@ def test_apply_pack2_equals_jit_variant(g, gl):
             k["has_qual"], k["valid"], k["table"], gl, g * gl,
         )
     got = apply_pack2_body(*_t(k, *_WINDOW, "has_qual", "valid"),
-                           table_from_numpy(k["table"], gl), gl, g * gl)
+                           table_from_numpy(k["table"]), gl, g * gl)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
@@ -217,7 +217,7 @@ def test_apply_gathers_from_the_middle_of_a_wider_table():
             k["has_qual"], k["valid"], k["table"], 32, 48 * 32,
         )
     got = apply_pack2_body(*_t(k, *_WINDOW, "has_qual", "valid"),
-                           table_from_numpy(k["table"], 48), 32, 48 * 32)
+                           table_from_numpy(k["table"]), 32, 48 * 32)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 

@@ -389,12 +389,18 @@ def test_known_sites_observations_equal_jax(known_runs):
 
 
 def _known_table(d, kind):
-    """The JAX run's solved table (``rd/table.npz``) as it is, widened by
-    40 cycles each side (a cohort table), or, both ineligible for the
-    fused tier, narrowed by 30 cycles each side or with one read-group
-    bin more than the input has (the gather clamps to the table)."""
+    """The JAX run's solved table (``rd/table.npz``) as it is, stored as
+    i32, with a stored ``gl`` that disagrees with its cycle axis (the
+    apply centres on the axis, as JAX's gather does), widened by 40
+    cycles each side (a cohort table), or, both ineligible for the fused
+    tier, narrowed by 30 cycles each side or with one read-group bin more
+    than the input has (the gather clamps to the table)."""
     with np.load(str(d / "rd" / "table.npz")) as z:
         table, gl = np.asarray(z["table"], np.uint8), int(z["gl"])
+    if kind == "i32":
+        return table.astype(np.int32), gl
+    if kind == "gl_off":
+        return table, gl + 7
     if kind == "wide":
         w = 40
         wide = np.full(table.shape[:2] + (2 * (gl + w) + 1, table.shape[3]), 33, np.uint8)
@@ -409,7 +415,8 @@ def _known_table(d, kind):
     return table, gl
 
 
-@pytest.fixture(scope="module", params=["own", "wide", "narrow", "extra_rg"])
+@pytest.fixture(scope="module", params=["own", "i32", "gl_off", "wide", "narrow",
+                                        "extra_rg"])
 def table_runs(request, known_runs):
     """Known-table runs: the port fused and unfused, JAX unfused."""
     from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
@@ -457,7 +464,8 @@ def test_known_table_fused_tier_counts(table_runs):
     f, u = stats["fused"], stats["unfused"]
     assert f["fused_bc"] is True and u["fused_bc"] is False
     assert u["n_fused_windows"] == 0
-    assert f["n_fused_windows"] == (f["n_parts"] if kind in ("own", "wide") else 0)
+    eligible = kind in ("own", "i32", "gl_off", "wide")
+    assert f["n_fused_windows"] == (f["n_parts"] if eligible else 0)
     assert all(n == 0 for n in f["kernel_launches"].values())
 
 

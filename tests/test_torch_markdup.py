@@ -124,9 +124,15 @@ def test_convert_refuses_what_it_cannot_carry(windows):
         batch_from_numpy({k: v for k, v in fields.items() if k != "flags"})
     with pytest.raises(ValueError, match="start"):
         batch_from_numpy({**fields, "start": fields["start"].astype(np.int32)})
-    table = np.zeros((3, 94, 2 * 8 + 1, 17), np.uint8)
-    assert tuple(table_from_numpy(table, 8).shape) == table.shape
+    table = np.arange(3 * 94 * 17 * 17).reshape(3, 94, 17, 17) % 60
+    # any stored dtype is cast to u8 and any cycle width is carried, as
+    # the JAX package applies them; the quality and dinucleotide axes
+    # are checked
+    for t in (table.astype(np.uint8), table.astype(np.int32), table[:, :, 3:-2]):
+        got = table_from_numpy(t)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), t.astype(np.uint8))
     with pytest.raises(ValueError):
-        table_from_numpy(table, 9)
+        table_from_numpy(table[:, :93])
     with pytest.raises(ValueError):
-        table_from_numpy(table.astype(np.int32), 8)
+        table_from_numpy(table[..., :16])

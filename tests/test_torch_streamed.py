@@ -210,6 +210,13 @@ def default_realign_parts(runs, tmp_path_factory):
     return _parts(out)
 
 
+# each library knob and the CLI flag that sets it (the JAX CLI's spelling)
+_KNOB_FLAGS = {"max_indel_size": "-max_indel_size",
+               "max_consensus_number": "-max_consensus_number",
+               "lod_threshold": "-log_odds_threshold",
+               "max_target_size": "-max_target_size"}
+
+
 @pytest.mark.parametrize("knob", [
     {"max_indel_size": 3},
     {"max_consensus_number": 0},
@@ -217,10 +224,12 @@ def default_realign_parts(runs, tmp_path_factory):
     {"max_target_size": 40},
 ])
 def test_realign_tuning_knob_matches_jax(knob, runs, default_realign_parts, tmp_path):
-    """A non-default value of each realignment knob changes the parts, and
-    the port writes the same parts as the JAX package with that value."""
+    """A non-default value of each realignment knob changes the parts, the
+    port writes the same parts as the JAX package with that value, and the
+    CLI's flag for the knob writes them too."""
     from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
 
+    from adam_tpu_torch.cli.main import main
     from adam_tpu_torch.pipelines.streamed import transform_streamed
 
     _, path, _ = runs
@@ -234,6 +243,32 @@ def test_realign_tuning_knob_matches_jax(knob, runs, default_realign_parts, tmp_
     for name in want:
         assert got[name] == want[name], (knob, name)
     assert got != default_realign_parts, knob
+    ((name, value),) = knob.items()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = main(["transform", path, str(tmp_path / "cli"), "-streaming",
+                   "-mark_duplicate_reads", "-realign_indels", "-recalibrate_base_qualities",
+                   "-window_reads", str(WINDOW), _KNOB_FLAGS[name], str(value),
+                   "--device", "cpu"])
+    assert rc == 0
+    assert _parts(tmp_path / "cli") == got, knob
+
+
+def test_default_flags_write_the_jax_parts(runs, tmp_path):
+    """With every stage flag at its default, the two packages' library
+    calls write the same parts: both realign by default."""
+    from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    _, path, _ = runs
+    stats = transform_streamed(path, str(tmp_path / "torch"), device="cpu")
+    with _JaxDeviceBackend():
+        jax_transform(path, str(tmp_path / "jax"))
+    got, want = _parts(tmp_path / "torch"), _parts(tmp_path / "jax")
+    assert stats["n_realigned"] > 0 and stats["n_parts"] == stats["n_windows"] + 1
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], name
 
 
 def test_cli_refuses_what_the_slice_does_not_run(tmp_path, capsys):
@@ -245,6 +280,10 @@ def test_cli_refuses_what_the_slice_does_not_run(tmp_path, capsys):
     assert "-streaming" in capsys.readouterr().err
     assert main(["transform", sam, str(tmp_path / "o"), "-streaming",
                  "-window_reads", "0", "--device", "cpu"]) == 2
+    # the streamed transform reads windowed SAM/BAM only, as the JAX CLI's
+    assert main(["transform", str(tmp_path / "x.adam"), str(tmp_path / "o"),
+                 "-streaming", "--device", "cpu"]) == 2
+    assert "SAM/BAM" in capsys.readouterr().err
 
 
 def test_peek_header_equals_the_windows_header(runs):
