@@ -1,8 +1,12 @@
 """The dataset handles: a read batch, its sidecar and its header
-(the counterpart of ``adam_tpu/api/datasets.AlignmentDataset``, with the
-pieces the streamed transform uses, the load dispatcher and the k-mer
-and q-mer counts), and the VCF's variants and
-genotypes (``GenotypeDataset``, the source of the known-sites tables)."""
+(the counterpart of ``adam_tpu/api/datasets.AlignmentDataset``: load and
+save by extension, the Arrow seam, the dataset-level transforms behind
+the non-streaming ``transform``, flagstat and the k-mer and q-mer
+counts), and the VCF's variants and genotypes (``GenotypeDataset``, the
+source of the known-sites tables).
+
+Transforms return new datasets.  Each method that does tensor work takes
+``device`` (default ``"cuda"``; ``"cpu"`` runs the plain versions)."""
 
 from __future__ import annotations
 
@@ -33,6 +37,49 @@ class AlignmentDataset:
 
         return context.load_alignments(path, **kw)
 
+    def save(self, path: str, sort_order: Optional[str] = None,
+             compression: str = "zstd") -> None:
+        """Write by extension: ``.sam``, ``.bam``, else one Parquet file.
+        FASTQ output is not ported yet and raises."""
+        p = str(path)
+        if p.endswith(".sam"):
+            from adam_tpu_torch.io import sam
+
+            sam.write_sam(p, self.batch, self.sidecar, self.header, sort_order)
+        elif p.endswith(".bam"):
+            from adam_tpu_torch.io import sam
+
+            sam.write_bam(p, self.batch, self.sidecar, self.header, sort_order)
+        elif p.endswith((".fq", ".fastq")):
+            from adam_tpu_torch.io.context import _not_ported
+
+            raise _not_ported(p, "FASTQ output")
+        else:
+            from adam_tpu_torch.io import parquet
+
+            parquet.save_alignments(p, self.batch, self.sidecar, self.header,
+                                    compression=compression)
+
+    def to_arrow(self):
+        """-> pyarrow Table (AlignmentRecord layout, header in metadata)."""
+        from adam_tpu_torch.io import parquet
+
+        return parquet.to_arrow_alignments(self.batch, self.sidecar, self.header)
+
+    @staticmethod
+    def from_arrow(table_or_batches) -> "AlignmentDataset":
+        """pyarrow Table / RecordBatch(es) -> AlignmentDataset."""
+        import pyarrow as pa
+
+        from adam_tpu_torch.io import parquet
+
+        t = table_or_batches
+        if isinstance(t, pa.RecordBatch):
+            t = pa.Table.from_batches([t])
+        elif isinstance(t, (list, tuple)):
+            t = pa.Table.from_batches(list(t))
+        return AlignmentDataset(*parquet.from_arrow_alignments(t))
+
     @property
     def seq_dict(self):
         return self.header.seq_dict
@@ -56,6 +103,10 @@ class AlignmentDataset:
             sidecar=self.sidecar.take(idx),
         )
 
+    def compact(self) -> "AlignmentDataset":
+        """Drop invalid (padding or filtered) rows."""
+        return self.take_rows(np.flatnonzero(np.asarray(self.batch.valid)))
+
     @staticmethod
     def concat(parts: list["AlignmentDataset"]) -> "AlignmentDataset":
         """Splice datasets sharing a header (window reassembly)."""
@@ -71,10 +122,48 @@ class AlignmentDataset:
             parts[0].header,
         )
 
+    def sort_by_reference_position(self) -> "AlignmentDataset":
+        """Coordinate sort (host numpy, as in the JAX package)."""
+        from adam_tpu_torch.pipelines import sort
+
+        return sort.sort_by_reference_position(self)
+
+    def mark_duplicates(self, device: str = "cuda") -> "AlignmentDataset":
+        from adam_tpu_torch.pipelines import markdup
+
+        return markdup.mark_duplicates(self, device=device)
+
     def realign_indels(self, **kw) -> "AlignmentDataset":
         from adam_tpu_torch.pipelines.realign import realign_indels
 
         return realign_indels(self, **kw)
+
+    def recalibrate_base_qualities(self, known_snps=None, device: str = "cuda",
+                                   **kw) -> "AlignmentDataset":
+        """BQSR over the dataset (``dump_observation_table=``, ``stats=``:
+        :func:`adam_tpu_torch.pipelines.bqsr.recalibrate_base_qualities`)."""
+        from adam_tpu_torch.pipelines.bqsr import recalibrate_base_qualities
+
+        return recalibrate_base_qualities(self, known_snps=known_snps,
+                                          device=device, **kw)
+
+    def trim_reads(self, trim_start: int = -1, trim_end: int = -1) -> "AlignmentDataset":
+        """Fixed trim of every read (host numpy)."""
+        from adam_tpu_torch.pipelines import trim
+
+        return trim.trim_reads(self, trim_start, trim_end)
+
+    def trim_low_quality_read_groups(self, phred_threshold: int = 20,
+                                     device: str = "cuda") -> "AlignmentDataset":
+        from adam_tpu_torch.pipelines import trim
+
+        return trim.trim_low_quality_read_groups(self, phred_threshold, device=device)
+
+    def flagstat(self, device: str = "cuda"):
+        """-> (failed_vendor_quality, passed_vendor_quality) metrics."""
+        from adam_tpu_torch.ops import flagstat
+
+        return flagstat.flagstat(self.batch, device=device)
 
     def count_kmers(self, k: int, device: str = "cuda") -> dict:
         from adam_tpu_torch.ops import kmer

@@ -1,8 +1,31 @@
-"""Command line of the port: ``python -m adam_tpu_torch transform ...``
-and ``python -m adam_tpu_torch count_kmers ...``.
+"""Command line of the port: ``python -m adam_tpu_torch transform ...``,
+``python -m adam_tpu_torch flagstat ...`` and
+``python -m adam_tpu_torch count_kmers ...``.
 
-Flag spellings follow the JAX package's CLI.  ``transform`` runs the
-streamed markdup + realign + BQSR transform over a SAM or BAM file::
+Flag spellings, stage order, checkpoint fingerprints and refusal messages
+follow the JAX package's CLI.  ``transform`` runs in one of two modes.
+
+Without ``-streaming`` it is the dataset-level transform (ADAM's classic
+``transform``): load the whole input by extension (``.sam[.gz]``,
+``.bam``, Parquet), run the stages over the whole dataset, then save by
+the output's extension (``.sam``, ``.bam``, else one Parquet file)::
+
+    python -m adam_tpu_torch transform IN OUT [-trimReads -trimFromStart N
+        -trimFromEnd N [-trimReadGroup RG]] [-qualityBasedTrim
+        [-qualityThreshold Q] [-trimBeforeBQSR]] [-mark_duplicate_reads]
+        [-realign_indels [-known_indels I.vcf]] [-recalibrate_base_qualities
+        [-known_snps K.vcf] [-dump_observations CSV]] [-sort_reads]
+        [-checkpoint_dir DIR] [-force_load_bam | -force_load_parquet]
+        [--device cuda|cpu]
+
+The stages run in the JAX order: trim, quality trim (here when
+``-trimBeforeBQSR``), markdup, realign, BQSR, quality trim, sort.  With
+``-checkpoint_dir`` each completed stage is saved there and a rerun of
+the same command over the same input resumes after the deepest completed
+stage (``pipelines/checkpoint.py``).
+
+With ``-streaming`` it is the streamed markdup + realign + BQSR pipeline
+over a SAM or BAM file, written as Parquet parts::
 
     python -m adam_tpu_torch transform IN.{sam,sam.gz,bam} OUT.adam -streaming \\
         -mark_duplicate_reads -realign_indels -recalibrate_base_qualities \\
@@ -13,16 +36,22 @@ streamed markdup + realign + BQSR transform over a SAM or BAM file::
 
 ``-realign_indels`` realigns with the ``reads`` consensus model, as the
 JAX CLI does, or with ``knowns`` when ``-known_indels`` is given (the
-``smithwaterman`` model is a library option of ``transform_streamed``).
-The known-sites VCFs (``.vcf`` or ``.vcf.gz``) load in the input
-header's contig index space.  ``-known_recalibration_table`` is an
-``.npz`` with ``table`` (``[n_rg, 94, n_cyc, 17]``, cast to u8) and
+``smithwaterman`` model is a library option).  The known-sites VCFs
+(``.vcf`` or ``.vcf.gz``) load in the input header's contig index space.
+``-known_recalibration_table`` (``-streaming`` only, as in the JAX CLI)
+is an ``.npz`` with ``table`` (``[n_rg, 94, n_cyc, 17]``, cast to u8) and
 ``gl``, applied instead of the solved table; it arms the fused B->C tier
 (``ADAM_TPU_FUSED_BC=0`` is the unfused leg).  A BAM's windows follow
-its compressed bytes (32 MiB at a time), as in the JAX package, so a
-window usually holds more than ``-window_reads`` reads.  On success the
-run's stats (stage walls, read counts, kernel launches) are printed to
-standard output as one JSON line.
+its compressed bytes (32 MiB at a time), as in the JAX package.  In both
+modes the run's stats (stage walls, read counts, kernel launches) are
+printed to standard output as one JSON line.
+
+``flagstat`` is the JAX CLI's samtools-style report::
+
+    python -m adam_tpu_torch flagstat INPUT [--device cuda|cpu]
+
+(a ``.adam`` or ``.parquet`` input is read with the flag columns
+projected); the stage walls go to standard error as one JSON line.
 
 ``count_kmers`` is the JAX CLI's ``CountReadKmers``::
 
@@ -47,35 +76,73 @@ import sys
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="adam_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
+    # reference flags are single-dash long options: prefix matching would
+    # make a typo silently match another flag
     p = sub.add_parser(
-        "transform",
-        help="markdup + realign + BQSR over a SAM or BAM file -> Parquet parts",
+        "transform", allow_abbrev=False,
+        help="load, run read pre-processing stages, save (or -streaming: the "
+        "streamed markdup + realign + BQSR over a SAM or BAM file)",
     )
-    p.add_argument("input", help="input SAM (.sam or .sam.gz) or BAM (.bam)")
-    p.add_argument("output", help="output directory of Parquet parts")
+    p.add_argument("input", help="the SAM (.sam, .sam.gz), BAM or Parquet input")
+    p.add_argument("output", help="where to write the result: .sam, .bam, else "
+                   "Parquet (a part directory with -streaming)")
     p.add_argument("-streaming", action="store_true",
-                   help="the streamed windowed pipeline (the only mode ported)")
+                   help="the streamed windowed pipeline over SAM/BAM input, "
+                   "written as a Parquet part directory")
+    p.add_argument("-sort_reads", action="store_true")
     p.add_argument("-mark_duplicate_reads", action="store_true")
     p.add_argument("-recalibrate_base_qualities", action="store_true")
-    p.add_argument("-realign_indels", action="store_true")
+    p.add_argument("-dump_observations", default=None,
+                   help="local path to dump BQSR observations to (CSV)")
     p.add_argument("-known_snps", default=None,
                    help="VCF of known SNPs, masked out of the BQSR observations")
+    p.add_argument("-known_recalibration_table", default=None,
+                   help="npz with 'table' ([n_rg, 94, n_cyc, 17], cast to u8) and "
+                   "'gl': applied instead of the table solved at barrier 2 "
+                   "(-streaming only)")
+    p.add_argument("-realign_indels", action="store_true")
     p.add_argument("-known_indels", default=None,
                    help="VCF of known INDELs; without it the consensus-from-reads "
                    "model is used")
-    p.add_argument("-known_recalibration_table", default=None,
-                   help="npz with 'table' ([n_rg, 94, n_cyc, 17], cast to u8) and "
-                   "'gl': applied instead of the table solved at barrier 2")
     p.add_argument("-max_indel_size", type=int, default=500)
     p.add_argument("-max_consensus_number", type=int, default=30)
     p.add_argument("-log_odds_threshold", type=float, default=5.0)
     p.add_argument("-max_target_size", type=int, default=3000)
-    p.add_argument("-dump_observations", default=None,
-                   help="local path to dump BQSR observations to (CSV)")
+    p.add_argument("-trimReads", action="store_true")
+    p.add_argument("-trimFromStart", type=int, default=0)
+    p.add_argument("-trimFromEnd", type=int, default=0)
+    p.add_argument("-trimReadGroup", default=None)
+    p.add_argument("-qualityBasedTrim", action="store_true")
+    p.add_argument("-qualityThreshold", type=int, default=20)
+    p.add_argument("-trimBeforeBQSR", action="store_true")
+    p.add_argument("-repartition", type=int, default=-1,
+                   help="no-op: columnar batches have no partition count "
+                   "(logged when set)")
+    p.add_argument("-coalesce", type=int, default=-1,
+                   help="no-op: columnar batches have no partition count "
+                   "(logged when set)")
+    p.add_argument("-checkpoint_dir", default=None,
+                   help="save each completed stage here and resume after the "
+                   "deepest completed stage on a rerun")
     p.add_argument("-window_reads", type=int, default=262_144,
-                   help="ingest window size in reads")
+                   help="ingest window size in reads for -streaming")
+    p.add_argument("-force_load_bam", action="store_true")
+    p.add_argument("-force_load_fastq", action="store_true")
+    p.add_argument("-force_load_ifastq", action="store_true")
+    p.add_argument("-force_load_parquet", action="store_true")
+    p.add_argument("-stringency", default="lenient",
+                   choices=["strict", "lenient", "silent"],
+                   help="validation stringency (accepted for parity: it governs "
+                   "the FASTQ paths, which are not ported)")
     p.add_argument("-parquet_compression_codec", default="zstd",
                    choices=["uncompressed", "snappy", "gzip", "zstd"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the tensor work runs (default: cuda)")
+    p = sub.add_parser(
+        "flagstat", allow_abbrev=False,
+        help="Print statistics on reads in an ADAM file (similar to samtools flagstat)",
+    )
+    p.add_argument("input", metavar="INPUT")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the tensor work runs (default: cuda)")
     p = sub.add_parser("count_kmers", help="Counts the k-mers/q-mers from a read dataset.")
@@ -97,6 +164,8 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.command == "count_kmers":
         return _count_kmers(args)
+    if args.command == "flagstat":
+        return _flagstat(args)
     return _transform(args)
 
 
@@ -138,20 +207,181 @@ def _count_kmers(args) -> int:
     return 0
 
 
+def _flagstat(args) -> int:
+    import time
+
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops.flagstat import flagstat, format_flagstat
+
+    t0 = time.monotonic()
+    kw = {}
+    if str(args.input).endswith((".adam", ".parquet")):
+        kw["projection"] = [
+            "flags", "mapq", "readName", "sequence", "contig", "start",
+            "mateContig", "mateAlignmentStart",
+        ]
+    ds = context.load_alignments(args.input, **kw)
+    t1 = time.monotonic()
+    failed, passed = flagstat(ds.batch, device=args.device)
+    t2 = time.monotonic()
+    print(format_flagstat(failed, passed))
+    print(json.dumps({"load_s": t1 - t0, "flagstat_s": t2 - t1,
+                      "n_reads": ds.batch.n_valid()}, sort_keys=True), file=sys.stderr)
+    return 0
+
+
 def _transform(args) -> int:
-    if not args.streaming:
-        print("adam_tpu_torch transform runs only the -streaming pipeline; "
-              "pass -streaming", file=sys.stderr)
-        return 2
-    if args.window_reads <= 0:
-        print(f"-window_reads must be positive (got {args.window_reads})",
+    if args.window_reads < 1:
+        print(f"transform -window_reads must be positive (got {args.window_reads})",
               file=sys.stderr)
         return 2
-    base = args.input[:-3] if args.input.endswith(".gz") else args.input
-    if not base.endswith((".sam", ".bam")):
-        print("adam_tpu_torch transform -streaming reads windowed SAM/BAM input "
-              f"(.sam, .sam.gz, .bam), not {args.input}", file=sys.stderr)
-        return 2
+    if args.streaming:
+        base = args.input[:-3] if args.input.endswith(".gz") else args.input
+        if (args.trimReads or args.qualityBasedTrim or args.sort_reads
+                or not base.endswith((".sam", ".bam"))
+                or args.force_load_fastq or args.force_load_ifastq
+                or args.force_load_parquet):
+            print("transform -streaming supports the markdup/BQSR/realign stage set "
+                  "on windowed SAM/BAM input; drop it for trim/sort pipelines or "
+                  "other formats", file=sys.stderr)
+            return 2
+        return _transform_streamed(args)
+    return _transform_dataset(args)
+
+
+def _transform_dataset(args) -> int:
+    """The non-streaming transform (the JAX CLI's stage composition):
+    load, the stages over the whole dataset, save."""
+    import logging
+    import time
+
+    from adam_tpu_torch.api.datasets import GenotypeDataset
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.checkpoint import (
+        compose_fingerprint,
+        input_fingerprint,
+        run_stages,
+    )
+
+    unported = {"-force_load_fastq": args.force_load_fastq,
+                "-force_load_ifastq": args.force_load_ifastq,
+                "output": str(args.output).endswith((".fq", ".fastq"))}
+    for what, asked in unported.items():
+        if asked:
+            print(f"transform: {what}: FASTQ is not ported to adam_tpu_torch yet "
+                  "(ROADMAP queue 1 item 7, other formats)", file=sys.stderr)
+            return 2
+    dev = resolve_device(args.device)
+    launches0 = kernels.launches()
+    stats: dict = {"device": str(dev), "stages_run": []}
+    t_start = time.monotonic()
+    if args.force_load_bam:
+        ds = context.load_bam(args.input)
+    elif args.force_load_parquet:
+        ds = context.load_parquet_alignments(args.input)
+    else:
+        ds = context.load_alignments(args.input)
+    stats["load_s"] = time.monotonic() - t_start
+    stats["n_reads"] = ds.batch.n_valid()
+    if args.repartition != -1 or args.coalesce != -1:
+        logging.getLogger(__name__).warning(
+            "-repartition/-coalesce are no-ops here: columnar batches "
+            "have no RDD partition count"
+        )
+
+    def stage(name, fn):
+        def run(ds):
+            t0 = time.monotonic()
+            out = fn(ds)
+            stats[f"{name}_s"] = time.monotonic() - t0
+            stats["stages_run"].append(name)
+            return out
+        return name, run
+
+    def trim(ds):
+        from adam_tpu_torch.pipelines import trim as trim_mod
+
+        rg_idx = None
+        if args.trimReadGroup is not None:
+            rg_idx = ds.header.read_groups.names.index(args.trimReadGroup)
+        return trim_mod.trim_reads(ds, args.trimFromStart, args.trimFromEnd,
+                                   rg_idx=rg_idx)
+
+    def quality_trim(ds):
+        return ds.trim_low_quality_read_groups(args.qualityThreshold, device=dev)
+
+    def realign(ds):
+        kw = dict(max_indel_size=args.max_indel_size,
+                  max_consensus_number=args.max_consensus_number,
+                  lod_threshold=args.log_odds_threshold,
+                  max_target_size=args.max_target_size, device=dev)
+        if args.known_indels:
+            gt = GenotypeDataset.load(args.known_indels, contig_names=ds.seq_dict.names)
+            return ds.realign_indels(consensus_model="knowns",
+                                     known_indels=gt.indel_table(), **kw)
+        return ds.realign_indels(consensus_model="reads", **kw)
+
+    def bqsr(ds):
+        known = None
+        if args.known_snps:
+            known = GenotypeDataset.load(
+                args.known_snps, contig_names=ds.seq_dict.names).snp_table()
+        return ds.recalibrate_base_qualities(
+            known_snps=known, dump_observation_table=args.dump_observations,
+            device=dev, stats=stats)
+
+    stages = []
+    if args.trimReads:
+        stages.append(stage("trim", trim))
+    if args.qualityBasedTrim and args.trimBeforeBQSR:
+        stages.append(stage("quality_trim", quality_trim))
+    if args.mark_duplicate_reads:
+        stages.append(stage("mark_duplicates", lambda ds: ds.mark_duplicates(device=dev)))
+    if args.realign_indels:
+        stages.append(stage("realign_indels", realign))
+    if args.recalibrate_base_qualities:
+        stages.append(stage("bqsr", bqsr))
+    if args.qualityBasedTrim and not args.trimBeforeBQSR:
+        stages.append(stage("quality_trim", quality_trim))
+    if args.sort_reads:
+        stages.append(stage("sort", lambda ds: ds.sort_by_reference_position()))
+
+    fp = None
+    if args.checkpoint_dir:
+        # input content identity + every stage-affecting flag value: a
+        # rerun over other bytes or retuned knobs invalidates the stores
+        fp = compose_fingerprint({
+            "input": input_fingerprint(args.input),
+            "trimFromStart": args.trimFromStart,
+            "trimFromEnd": args.trimFromEnd,
+            "trimReadGroup": args.trimReadGroup,
+            "qualityThreshold": args.qualityThreshold,
+            # known-sites files fingerprint by content, not path
+            "known_snps": (input_fingerprint(args.known_snps)
+                           if args.known_snps else None),
+            "known_indels": (input_fingerprint(args.known_indels)
+                             if args.known_indels else None),
+            "max_indel_size": args.max_indel_size,
+            "max_consensus_number": args.max_consensus_number,
+            "log_odds_threshold": args.log_odds_threshold,
+            "max_target_size": args.max_target_size,
+        })
+    ds = run_stages(ds, stages, checkpoint_dir=args.checkpoint_dir, fingerprint=fp)
+    t0 = time.monotonic()
+    ds.save(args.output, compression=args.parquet_compression_codec)
+    stats["save_s"] = time.monotonic() - t0
+    stats["n_rows_out"] = ds.batch.n_valid()
+    stats["total_s"] = time.monotonic() - t_start
+    stats["reads_per_s"] = stats["n_reads"] / stats["total_s"] if stats["total_s"] else 0.0
+    now = kernels.launches()
+    stats["kernel_launches"] = {k: now[k] - launches0[k] for k in now}
+    print(json.dumps(stats, sort_keys=True))
+    return 0
+
+
+def _transform_streamed(args) -> int:
     from adam_tpu_torch.api.datasets import GenotypeDataset
     from adam_tpu_torch.pipelines.streamed import transform_streamed
 

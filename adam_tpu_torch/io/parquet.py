@@ -1,6 +1,6 @@
-"""Parquet parts: the part writer and the alignment read path of
-``adam_tpu/io/parquet.py`` (copied; the genotype, feature and fragment
-stores are not ported).
+"""Parquet parts: the part writer, the single-file dataset save and the
+alignment read path of ``adam_tpu/io/parquet.py`` (copied; the genotype,
+feature and fragment stores are not ported).
 
 The on-disk format is the JAX package's: the AlignmentRecord field
 layout, the header dictionaries as JSON under the schema metadata key
@@ -53,7 +53,11 @@ def purge_stale_staging(out_dir: str) -> None:
 
 def _staging_path(path: str) -> str:
     tmp_dir = os.path.join(os.path.dirname(os.path.abspath(path)), TMP_DIR_NAME)
-    os.makedirs(tmp_dir, exist_ok=True)
+    # single-level mkdir: a missing parent directory stays an error
+    try:
+        os.mkdir(tmp_dir)
+    except FileExistsError:
+        pass
     return os.path.join(tmp_dir, os.path.basename(path) + ".tmp")
 
 
@@ -189,18 +193,12 @@ def to_arrow_alignments(batch: ReadBatch, side: ReadSidecar,
     return table.replace_schema_metadata(_header_meta(header))
 
 
-def _fsync_path(path: str) -> None:
-    fd = os.open(path, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 def write_part(table, path: str, compression: str) -> None:
-    """Write one encoded part: staging file, fsync, atomic rename, fsync
-    of the directory."""
+    """Write one encoded part: staging file, then the durable publish
+    (fsync, atomic rename, fsync of the directory)."""
     import pyarrow.parquet as pq
+
+    from adam_tpu_torch.utils.durability import publish_file
 
     tmp = _staging_path(path)
     try:
@@ -210,15 +208,28 @@ def write_part(table, path: str, compression: str) -> None:
             use_dictionary=["contig", "mateContig", "recordGroupName"],
             **parquet_codec_kw(compression),
         )
-        _fsync_path(tmp)
-        os.replace(tmp, path)
-        _fsync_path(os.path.dirname(os.path.abspath(path)))
+        publish_file(tmp, path)
     except BaseException:
         try:
             os.unlink(tmp)
         except OSError:
             pass
         raise
+
+
+def save_alignments(path: str, batch: ReadBatch, side: ReadSidecar,
+                    header: SamHeader, compression: str = "zstd") -> None:
+    """The whole dataset as one Parquet file at ``path``, published as a
+    part is (staging file under ``_temporary/`` beside it, fsync, atomic
+    rename); the staging directory goes once it is empty."""
+    import pyarrow as pa
+
+    pa.set_memory_pool(pa.system_memory_pool())  # see PartWriterPool
+    write_part(to_arrow_alignments(batch, side, header), path, compression)
+    try:
+        os.rmdir(os.path.join(os.path.dirname(os.path.abspath(path)), TMP_DIR_NAME))
+    except OSError:  # another writer's file is still staged there
+        pass
 
 
 class PartWriterPool:

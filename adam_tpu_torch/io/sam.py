@@ -1,4 +1,4 @@
-"""SAM and BAM ingest, and the BAM writer — copied from
+"""SAM and BAM ingest, and the SAM and BAM writers — copied from
 ``adam_tpu/io/sam.py`` on its native paths only.
 
 Text SAM is tokenized window by window through the native C++ tokenizer
@@ -17,10 +17,11 @@ import io as _io
 import os
 import struct
 from dataclasses import dataclass, field
-from typing import Iterable, Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
+from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
 from adam_tpu_torch.models.dictionaries import (
     RecordGroupDictionary,
@@ -344,6 +345,75 @@ def read_bam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     out.pop("consumed")
     batch, side = _columns_to_batch(out)
     return batch, side, header
+
+
+def format_sam_records(batch: ReadBatch, side: ReadSidecar,
+                       header: SamHeader) -> Iterator[str]:
+    """SAM text lines of the valid rows, one at a time, in plain Python
+    (copied from the JAX package's ``format_sam_records``): the format
+    :func:`write_sam`'s native encoder writes, kept as its oracle."""
+    b = batch.to_numpy()
+    names = header.seq_dict.names
+    rg_names = header.read_groups.names
+    for i in range(b.n_rows):
+        if not b.valid[i]:
+            continue
+        L = int(b.lengths[i])
+        contig = int(b.contig_idx[i])
+        mate_contig = int(b.mate_contig_idx[i])
+        rname = names[contig] if contig >= 0 else "*"
+        if mate_contig < 0:
+            rnext = "*"
+        elif mate_contig == contig and rname != "*":
+            rnext = "="
+        else:
+            rnext = names[mate_contig]
+        seq = schema.decode_bases(b.bases[i], L) if L else "*"
+        qual = schema.decode_quals(b.quals[i][:L]) if L and b.has_qual[i] else "*"
+        cigar = schema.decode_cigar(b.cigar_ops[i], b.cigar_lens[i], int(b.cigar_n[i]))
+        tags = []
+        if side.attrs[i]:
+            tags.append(side.attrs[i])
+        if side.md[i] is not None:
+            tags.append(f"MD:Z:{side.md[i]}")
+        if side.orig_quals[i]:
+            tags.append(f"OQ:Z:{side.orig_quals[i]}")
+        rg = int(b.read_group_idx[i])
+        if rg >= 0:
+            tags.append(f"RG:Z:{rg_names[rg]}")
+        fields = [
+            side.names[i],
+            str(int(b.flags[i])),
+            rname,
+            str(int(b.start[i]) + 1 if int(b.start[i]) >= 0 else 0),
+            str(int(b.mapq[i]) if int(b.mapq[i]) >= 0 else 0),
+            cigar,
+            rnext,
+            str(int(b.mate_start[i]) + 1 if int(b.mate_start[i]) >= 0 else 0),
+            str(int(b.tlen[i])),
+            seq,
+            qual,
+        ]
+        yield "\t".join(fields + tags)
+
+
+def write_sam(
+    path: str,
+    batch: ReadBatch,
+    side: ReadSidecar,
+    header: SamHeader,
+    sort_order: Optional[str] = None,
+) -> None:
+    """Write a SAM file: the header lines, then the native encoder's
+    records (``native.sam_encode``)."""
+    from adam_tpu_torch import native
+
+    body = native.sam_encode(batch, side, header.read_groups.names,
+                             header.seq_dict.names)
+    with open(path, "wb") as fh:
+        for line in header.to_lines(sort_order=sort_order):
+            fh.write(line.encode("utf-8") + b"\n")
+        fh.write(body)
 
 
 def write_bam(

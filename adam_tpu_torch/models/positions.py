@@ -5,13 +5,39 @@ Host-side value types with the semantics of the reference's
 ``models/ReferencePosition.scala`` and ``models/ReferenceRegion.scala``
 (overlaps / merge / hull / intersection).  All coordinates are 0-based,
 end-exclusive.  The known-indel table and the realignment lookups use
-them.
+them, and :func:`pack_position_key` gives the coordinate sort one i64 key
+per read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import total_ordering
+
+import numpy as np
+
+# 2^40 bp per contig is far above any real contig length; it leaves 23
+# bits for the contig index inside a signed i64 key.
+POS_BITS = 40
+POS_MASK = (1 << POS_BITS) - 1
+
+
+def pack_position_key(contig_idx, pos):
+    """(contig_idx, pos) -> sortable i64 key ``(contig_idx + 1) << 40 |
+    pos``, on numpy arrays or Python ints.  Unmapped rows (contig_idx < 0)
+    pack below every mapped key; the sort pipeline sends them to the end
+    itself (unmapped reads sort last, by name)."""
+    if hasattr(contig_idx, "astype"):
+        c = contig_idx.astype(np.int64) + 1
+        p = np.asarray(pos).astype(np.int64)
+    else:
+        c = np.int64(contig_idx) + 1
+        p = np.int64(pos)
+    return (c << POS_BITS) | (p & POS_MASK)
+
+
+def unpack_position_key(key):
+    return (key >> POS_BITS) - 1, key & POS_MASK
 
 
 @total_ordering

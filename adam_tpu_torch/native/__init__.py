@@ -154,6 +154,20 @@ def _bind(lib: ct.CDLL) -> None:
         _i32p, _u8p, _i64p, ct.c_int32, ct.c_int32,
         ct.c_int64, _u8p, ct.c_int64, ct.c_int,
     ]
+    lib.sam_encode.restype = ct.c_int64
+    lib.sam_encode.argtypes = [
+        _i32p, _i32p, _i64p, _i32p, _i32p, _i64p, _i32p, _i32p,
+        _u8p, _u8p,
+        _u8p, _u8p, ct.c_int64,
+        _u8p, _i32p, _i32p, ct.c_int64,
+        _u8p, _i64p,
+        _u8p, _i64p,
+        _u8p, _i64p, _u8p,
+        _u8p, _i64p, _u8p,
+        _i32p, _u8p, _i64p, ct.c_int32,
+        _u8p, _i64p, ct.c_int32,
+        ct.c_int64, _u8p, ct.c_int64, ct.c_int,
+    ]
     lib.ref_positions.restype = None
     lib.ref_positions.argtypes = [
         _u8p, _i32p, _i32p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
@@ -587,6 +601,33 @@ def bam_encode(batch, side, rg_names: Sequence[str], n_refs: int) -> bytes:
         raise ValueError("bam_encode: a record's refID or read group lies "
                          f"outside the header's {n_refs} references and "
                          f"{len(rg_names)} read groups, or a tag does not encode")
+    return out[:got].tobytes()
+
+
+def sam_encode(batch, side, rg_names: Sequence[str],
+               contig_names: Sequence[str]) -> bytes:
+    """Format a (ReadBatch, ReadSidecar) as SAM text lines, without the
+    header: 1-based positions (0 where unplaced), ``=`` for a mate on the
+    read's own contig, and the MD, OQ and RG tags after the raw
+    attributes.  A contig or read-group index outside the dictionaries
+    raises."""
+    L_ = lib()
+    n, args, base_cap, keep = _encode_prep(batch, side, rg_names)
+    cbuf, coff = _str_dict(contig_names)
+    max_name = (max((len(s) for s in contig_names), default=1) + 2) * 2
+    cap = int(n * (140 + max_name) + base_cap)
+    out = np.empty(cap, np.uint8)
+    got = L_.sam_encode(
+        *args, _u8_ptr(cbuf), coff.ctypes.data_as(_i64p),
+        ct.c_int32(len(contig_names)), ct.c_int64(n), _u8_ptr(out),
+        ct.c_int64(cap), ct.c_int(_nthreads()),
+    )
+    if got == -2:
+        raise RuntimeError("sam_encode: output capacity exceeded")
+    if got < 0:
+        raise ValueError("sam_encode: a record's contig or read group lies "
+                         f"outside the header's {len(contig_names)} references "
+                         f"and {len(rg_names)} read groups")
     return out[:got].tobytes()
 
 

@@ -1,5 +1,6 @@
-"""Base Quality Score Recalibration — the streamed path's subset of
-``adam_tpu/pipelines/bqsr.py``.
+"""Base Quality Score Recalibration — the port's counterpart of
+``adam_tpu/pipelines/bqsr.py``: the streamed path's passes and the
+dataset-level :func:`recalibrate_base_qualities`.
 
 * **Observe** (pass B): canonical reads (primary, mapped, not duplicate,
   qual present, 0 < mapq < 255, passed vendor QC, MD present) contribute
@@ -19,6 +20,13 @@
   (:func:`fused_bc_dispatch`), and pass C only fetches.
 * **Known SNPs** are masked out of the observe's residue filter
   (:func:`observe_residue_mask`), on the host.
+* **Dataset level** (:func:`recalibrate_base_qualities`, the
+  non-streaming ``transform``): the whole dataset is observed at its own
+  ``[grid_rows(N), grid_cols(L)]`` grid in one kernel launch (in row
+  chunks of :data:`CHUNK_ROWS` above that, every chunk at the dataset's
+  lane grid, merged in i64), solved, and the table gathered back into
+  the quals matrix, with no column pack (the JAX package's
+  ``pack=False``).
 
 Integer widths follow the JAX package, which runs with x64 on: keys and
 counts accumulate in i32 per window and widen to i64; merges sum in i64.
@@ -497,3 +505,69 @@ def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None):
         table_dev, n_rg, rw.gl, rw.g * rw.gl,
     )
     return _apply_handle(ds, b, pq, pb), (total, mism, rw.gl)
+
+
+# --------------------------------------------------------------------------
+# Dataset level: observe, solve and apply over one whole dataset
+# --------------------------------------------------------------------------
+#: rows one observe or apply dispatch places on the device: a larger
+#: dataset runs in chunks of these rows, each at the whole dataset's lane
+#: grid, so that the i64 merge of their integer histograms equals one
+#: launch over all rows
+CHUNK_ROWS = 1 << 20
+
+
+def _row_chunks(ds: AlignmentDataset) -> list:
+    n = ds.batch.n_rows
+    if n <= CHUNK_ROWS:
+        return [ds]
+    return [ds.take_rows(np.arange(s, min(s + CHUNK_ROWS, n)))
+            for s in range(0, n, CHUNK_ROWS)]
+
+
+def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset:
+    """Gather a solved table into one placed dataset's quals (reported
+    quality >= Q5 only) and stash the pre-recalibration quals as OQ ->
+    the recalibrated dataset."""
+    b = ds.batch.to_numpy()
+    new_q = apply_table_body(*rw.args(), *_apply_masks(b, rw), table_dev, rw.gl)
+    new_q = np.ascontiguousarray(new_q[: b.n_rows, : b.lmax].cpu().numpy())
+    out = stash_orig_quals(ds, b)
+    return out.with_batch(b.replace(quals=new_q))
+
+
+def recalibrate_base_qualities(
+    ds: AlignmentDataset,
+    known_snps=None,
+    dump_observation_table: str | None = None,
+    device: str = "cuda",
+    stats: dict | None = None,
+) -> AlignmentDataset:
+    """BQSR over one whole dataset: observe (covariate keys and kernel 1
+    on ``device``, known SNPs masked on the host), solve (host f64), apply
+    (the table gather on ``device``, OQ stashed on the host).
+    ``dump_observation_table`` writes the observations as the reference's
+    CSV.  ``stats``, when given, receives the walls in seconds
+    (``bqsr_observe_s``, ``bqsr_solve_s``, ``bqsr_apply_s``)."""
+    import time
+
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.parallel.device_pool import ResidentWindow
+
+    dev = resolve_device(device)
+    stats = {} if stats is None else stats
+    t0 = time.monotonic()
+    placed = [(c, ResidentWindow.place(c.batch.to_numpy(), dev)) for c in _row_chunks(ds)]
+    total, mism, gl = merge_observations(
+        [observe_window(c, rw, known_snps) for c, rw in placed])
+    t1 = time.monotonic()
+    if dump_observation_table:
+        dump_observation_csv(total, mism, ds.read_groups.names + ["null"], gl,
+                             dump_observation_table)
+    table_dev = torch.from_numpy(solve_recalibration_table(total, mism)).to(dev)
+    t2 = time.monotonic()
+    out = AlignmentDataset.concat(
+        [apply_recalibration(c, rw, table_dev) for c, rw in placed])
+    stats.update(bqsr_observe_s=t1 - t0, bqsr_solve_s=t2 - t1,
+                 bqsr_apply_s=time.monotonic() - t2)
+    return out

@@ -342,3 +342,21 @@ def apply_duplicate_flags(flags: np.ndarray, dup: np.ndarray) -> np.ndarray:
     return np.where(
         dup, flags | schema.FLAG_DUPLICATE, flags & ~schema.FLAG_DUPLICATE
     ).astype(np.int32)
+
+
+def mark_duplicates(ds: AlignmentDataset, device: str = "cuda") -> AlignmentDataset:
+    """Duplicate marking over one whole dataset (the JAX package's
+    ``mark_duplicates``): the [N, L] reductions (5' keys, scores) run on
+    ``device`` over the dataset placed there once, then the row summary,
+    the global resolve (its lexsort on ``device``) and the flags."""
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.parallel.device_pool import ResidentWindow
+
+    b = ds.batch.to_numpy()
+    if b.n_rows == 0:
+        return ds
+    dev = resolve_device(device)
+    five, score = markdup_columns(b, ResidentWindow.place(b, dev))
+    s = row_summary(ds, five.cpu().numpy(), score.cpu().numpy())
+    dup = resolve_duplicates(s, device=dev)
+    return ds.with_batch(b.replace(flags=apply_duplicate_flags(np.asarray(b.flags), dup)))

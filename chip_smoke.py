@@ -10,7 +10,8 @@ Phases, each of which fails the script on any error:
 3. kernels: each kernel against its plain PyTorch version on the card,
    inputs from a numpy seed, bit equality required, times by CUDA events:
    observe_hist and pack_rows at the main path's shapes (g = 262,144
-   rows, gl = 128 lanes, n_rg = 3), pack_rows once more with the SANGER
+   rows, gl = 128 lanes, n_rg = 3), observe_hist once more at the
+   dataset-level transform's shape (g = 1,048,576), pack_rows once more with the SANGER
    encode fused in, timed beside the unfused ``sanger_body`` + pack pair;
    sw_score at ``benchmark_gcups``' shape (B = 8,192, lx = ly = 127) in
    f32 (weights 1, -0.333, -0.5, -0.5), i16 and bf16 (2, -1, -1, -1),
@@ -58,12 +59,25 @@ Phases, each of which fails the script on any error:
    on the 1,048,576-read batch, one warm call and 5 timed ones
    (CUDA-synchronised), as k-mers/s over ``valid x (L - 21 + 1)`` (the
    count ``bench.py`` divides by), median and spread;
+4g. the dataset-level transform on the main path's SAM: ``transform in.sam
+   out.adam -mark_duplicate_reads -realign_indels -recalibrate_base_qualities
+   -sort_reads`` without ``-streaming`` on the card (stage walls, kernel 1
+   launched once), its output checked (N rows, coordinate-sorted, rows
+   with OQ); ``flagstat out.adam`` on the card (timed; total N, duplicates
+   those of the streamed main path's parts); the same command with
+   ``-checkpoint_dir``, then rerun after the bqsr store is deleted and
+   dropped from the manifest: only BQSR and sort run, kernel 1 once more,
+   the output byte-identical; the known-SNP residue mask over the whole
+   dataset timed on the host;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
    4d table, fused) and as a BAM; the parts must be byte-identical; then
    ``count_kmers`` at k = 21 and ``count_kmers -countQmers`` at k = 21 on
-   the BAM run's parts, whose output files must be byte-identical.
+   the BAM run's parts, whose output files must be byte-identical; then
+   the dataset-level transform with the trim flags, markdup, realign, BQSR
+   and sort to ``.adam`` and to ``.sam``, and markdup alone to ``.bam``,
+   with ``flagstat`` on each output: files and reports byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -140,15 +154,16 @@ def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _kernel_inputs(dev):
-    """Main-path-shaped inputs: WGS-like quals (declining profile with
-    jitter), 88% full-length reads, both orientations, 3 read-group bins."""
+def _kernel_inputs(dev, g: int = WINDOW_READS):
+    """Main-path-shaped inputs of ``g`` rows: WGS-like quals (declining
+    profile with jitter), 88% full-length reads, both orientations, 3
+    read-group bins."""
     import numpy as np
     import torch
 
     from adam_tpu_torch.ops.colpack import pack_mask_bits
 
-    g, gl, L = WINDOW_READS, 128, 100
+    gl, L = 128, 100
     rng = np.random.default_rng(SEED)
     pos = np.arange(gl)
     prof = 38.0 - 12.0 * (np.minimum(pos, L - 1) / (L - 1)) ** 2
@@ -174,21 +189,18 @@ def _kernel_inputs(dev):
     return t, g, gl
 
 
-def check_kernels(dev) -> list:
+def check_observe(t, g: int, gl: int, n_rg: int = 3) -> dict:
+    """Kernel 1 against its plain version and ``torch.bincount`` on the
+    inputs ``t`` of :func:`_kernel_inputs` -> its record."""
     import torch
 
-    from adam_tpu_torch.ops import colpack, observe
+    from adam_tpu_torch.ops import observe
     from adam_tpu_torch.pipelines import bqsr
 
-    t, g, gl = _kernel_inputs(dev)
-    n_rg = 3
     slab_w = (2 * gl + 1) * bqsr.N_DINUC
     size_h = n_rg * bqsr.N_QUAL * slab_w
     keys = bqsr.covariate_keys(t["bases"], t["quals"], t["lengths"], t["flags"],
                                t["rg"], n_rg, gl)
-    out = []
-
-    # ---- kernel 1: observe_hist -----------------------------------------
     args = (keys, t["res_bits"], t["mm_bits"], t["read_ok"], size_h, slab_w)
     got = observe.observe_hist(*args)
     want = observe.observe_hist_plain(*args)
@@ -210,7 +222,7 @@ def check_kernels(dev) -> list:
     # write of the two i32 histograms
     counted = int(want[0].sum())
     n_bytes = counted * 4 + 2 * t["res_bits"].numel() + g + 2 * 4 * size_h
-    out.append(dict(
+    return dict(
         name="observe_hist", route="cuda",
         source="adam_tpu_torch/csrc/observe_hist.cu",
         replaces="adam_tpu/ops/pallas_observe.py:85",
@@ -219,8 +231,18 @@ def check_kernels(dev) -> list:
         plain_ms=_time_ms(lambda: observe.observe_hist_plain(*args)),
         library_ms=_time_ms(library),
         bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        residues_counted=counted,
-    ))
+        residues_counted=counted, shape=[g, gl, n_rg],
+    )
+
+
+def check_kernels(dev) -> list:
+    import torch
+
+    from adam_tpu_torch.ops import colpack
+
+    t, g, gl = _kernel_inputs(dev)
+    # ---- kernel 1: observe_hist -----------------------------------------
+    out = [check_observe(t, g, gl)]
 
     # ---- kernel 2: pack_rows, plain and with the SANGER encode fused ----
     quals = t["quals"]
@@ -801,6 +823,177 @@ def check_kmers(work: str, main_adam: str, device: str = "cuda") -> dict:
     return rec
 
 
+DATASET_FLAGS = ("-mark_duplicate_reads", "-realign_indels",
+                 "-recalibrate_base_qualities", "-sort_reads")
+DATASET_STAGES = ["mark_duplicates", "realign_indels", "bqsr", "sort"]
+# phase 5's dataset-level legs: (output name, flags)
+TRIM_FLAGS = ("-trimReads", "-trimFromStart", "2", "-trimFromEnd", "1", "-qualityBasedTrim",
+              *DATASET_FLAGS)
+DATASET_PARITY_LEGS = (("trim.adam", TRIM_FLAGS), ("trim.sam", TRIM_FLAGS),
+                       ("markdup.bam", ("-mark_duplicate_reads",)))
+
+
+def _cli(argv) -> tuple:
+    """The port's CLI in this process -> (stdout, stderr); raises on a
+    non-zero exit."""
+    from adam_tpu_torch.cli.main import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} exited {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def run_dataset_transform(src: str, out: str, device: str, flags=DATASET_FLAGS) -> dict:
+    """``transform SRC OUT FLAGS`` without ``-streaming`` -> its stats line."""
+    stdout, _ = _cli(["transform", src, out, *flags, "--device", device])
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def run_flagstat(path: str, device: str) -> tuple:
+    """``flagstat PATH`` -> (its report, its stats line, the call's seconds)."""
+    t0 = time.monotonic()
+    stdout, stderr = _cli(["flagstat", path, "--device", device])
+    return stdout, json.loads(stderr.strip().splitlines()[-1]), time.monotonic() - t0
+
+
+def _file_hash(path: str) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def check_sorted_output(path: str) -> dict:
+    """A dataset-level ``.adam``: its rows, mapped rows in (contig name,
+    start) order before every unmapped row, and its rows with OQ."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    tbl = pq.read_table(path, columns=["contig", "start", "flags", "origQual"])
+    mapped = (tbl.column("flags").to_numpy() & 0x4) == 0
+    k = int(mapped.sum())
+    if not mapped[:k].all():
+        raise AssertionError(f"{path}: an unmapped row sorts before a mapped one")
+    contig = tbl.column("contig").slice(0, k).combine_chunks().dictionary_encode()
+    names = contig.dictionary.to_pylist()
+    rank = np.argsort(np.argsort(np.array(names, dtype=object), kind="stable"))
+    keys = (rank[contig.indices.to_numpy()].astype(np.int64) << 40) | \
+        tbl.column("start").slice(0, k).to_numpy()
+    if not bool((np.diff(keys) >= 0).all()):
+        raise AssertionError(f"{path}: mapped rows out of coordinate order")
+    return {"rows": tbl.num_rows, "mapped_rows": k,
+            "rows_with_oq": tbl.num_rows - tbl.column("origQual").null_count}
+
+
+def _flagstat_counts(text: str) -> dict:
+    """total and the duplicates (primary + secondary, QC passed + failed)
+    of a flagstat report."""
+    lines = [ln.split() for ln in text.splitlines()]
+
+    def both(i):
+        return int(lines[i][0]) + int(lines[i][2])
+
+    return {"total": both(0), "duplicates": both(1) + both(5)}
+
+
+def check_dataset_transform(work: str, sam: str, snps_vcf: str, main_dups: int) -> dict:
+    """Phase 4g on the main path's SAM -> its record.  The run, its output
+    checked, ``flagstat`` on it, then the checkpointed run, the restart
+    after the bqsr store is dropped, and the known-SNP mask over the whole
+    dataset timed on the host."""
+    from adam_tpu_torch.api.datasets import GenotypeDataset
+    from adam_tpu_torch.io.context import load_alignments
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.bqsr import observe_residue_mask
+
+    def launched(label, want_observe):
+        lv = kernels.launches()
+        if (lv["observe_hist"] != want_observe or lv["pack_rows"] != 0
+                or lv["sw_fill"] != 0 or lv["sw_score"] != 0):
+            raise AssertionError(f"{label}: launches {lv}")
+        return lv
+
+    out = os.path.join(work, "dataset.adam")
+    kernels.reset_launches()
+    st = run_dataset_transform(sam, out, "cuda")
+    lv = launched("dataset transform", 1)
+    if st["n_reads"] != MAIN_READS or st["stages_run"] != DATASET_STAGES:
+        raise AssertionError(f"dataset transform: {st}")
+    t0 = time.monotonic()
+    rows = check_sorted_output(out)
+    rows["check_s"] = time.monotonic() - t0
+    if rows["rows"] != MAIN_READS or rows["rows_with_oq"] == 0:
+        raise AssertionError(f"dataset transform output: {rows}")
+    _log("dataset transform stats: " + json.dumps(st, sort_keys=True))
+    _log(f"dataset transform: {MAIN_READS} reads in {st['total_s']:.3f} s, "
+         f"{st['reads_per_s']:.0f} reads/s; load {st['load_s']:.3f}, markdup "
+         f"{st['mark_duplicates_s']:.3f}, realign {st['realign_indels_s']:.3f}, BQSR "
+         f"{st['bqsr_s']:.3f} (observe {st['bqsr_observe_s']:.3f}, solve "
+         f"{st['bqsr_solve_s']:.3f}, apply {st['bqsr_apply_s']:.3f}), sort "
+         f"{st['sort_s']:.3f}, save {st['save_s']:.3f} s; kernel 1 launches "
+         f"{lv['observe_hist']}; output {rows}")
+
+    kernels.reset_launches()
+    text, fst, fs_s = run_flagstat(out, "cuda")
+    launched("flagstat", 0)
+    counts = _flagstat_counts(text)
+    if counts != {"total": MAIN_READS, "duplicates": main_dups}:
+        raise AssertionError(f"flagstat {counts}; the streamed main path marked "
+                             f"{main_dups} duplicates of {MAIN_READS}")
+    _log(f"flagstat on the dataset transform's output: {fs_s:.3f} s (load "
+         f"{fst['load_s']:.3f}, count {fst['flagstat_s']:.4f}); {counts}, as the "
+         "streamed main path")
+
+    ck = os.path.join(work, "dataset.ck")
+    flags = (*DATASET_FLAGS, "-checkpoint_dir", ck)
+    want = _file_hash(out)
+    kernels.reset_launches()
+    ck_out = os.path.join(work, "dataset.ck1.adam")
+    st_ck = run_dataset_transform(sam, ck_out, "cuda", flags)
+    launched("checkpointed run", 1)
+    if st_ck["stages_run"] != DATASET_STAGES or _file_hash(ck_out) != want:
+        raise AssertionError(f"checkpointed run: {st_ck['stages_run']}, output "
+                             "differs from the run without checkpoints")
+    os.unlink(os.path.join(ck, "bqsr.adam"))
+    manifest = os.path.join(ck, "MANIFEST.json")
+    with open(manifest) as fh:
+        doc = json.load(fh)
+    doc["completed"].remove("bqsr")
+    with open(manifest, "w") as fh:
+        json.dump(doc, fh)
+    kernels.reset_launches()
+    re_out = os.path.join(work, "dataset.ck2.adam")
+    st_re = run_dataset_transform(sam, re_out, "cuda", flags)
+    lv_re = launched("restart", 1)
+    if st_re["stages_run"] != ["bqsr", "sort"] or _file_hash(re_out) != want:
+        raise AssertionError(f"restart: ran {st_re['stages_run']}, output "
+                             f"{'differs' if _file_hash(re_out) != want else 'equal'}")
+    _log(f"checkpointed run: {st_ck['total_s']:.3f} s; restart after dropping the "
+         f"bqsr store: ran {st_re['stages_run']} in {st_re['total_s']:.3f} s (load "
+         f"{st_re['load_s']:.3f}, BQSR {st_re['bqsr_s']:.3f}, sort {st_re['sort_s']:.3f},"
+         f" save {st_re['save_s']:.3f}), kernel 1 once more, output byte-identical")
+    for f in (out, ck_out, re_out):
+        os.unlink(f)
+    shutil.rmtree(ck)
+
+    ds = load_alignments(sam)
+    known = GenotypeDataset.load(snps_vcf, contig_names=ds.seq_dict.names).snp_table()
+    b = ds.batch.to_numpy()
+    mask_s = {}
+    for label, table in (("no_snps", None), ("snps", known)):
+        t0 = time.monotonic()
+        observe_residue_mask(ds, b, table)
+        mask_s[label] = time.monotonic() - t0
+    _log(f"observe residue mask over the whole dataset ({MAIN_READS} x {b.lmax}): "
+         f"{mask_s['snps']:.3f} s with the {len(known)} known SNPs, "
+         f"{mask_s['no_snps']:.3f} s without")
+    return {"stats": st, "output": rows, "launches": lv, "flagstat": counts,
+            "flagstat_s": fs_s, "flagstat_stats": fst, "checkpointed_stats": st_ck,
+            "restart_stats": st_re, "restart_launches": lv_re,
+            "residue_mask_s": mask_s}
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -848,6 +1041,23 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions -----------------------------------
     kern = check_kernels(dev) + check_sw_score(dev, rate=rate)
+    # kernel 1 once more at the dataset-level transform's shape: the whole
+    # 1,048,576-read dataset in one launch (g = grid_rows(N))
+    t, g, gl = _kernel_inputs(dev, MAIN_READS)
+    in_memory = check_observe(t, g, gl)
+    del t
+    torch.cuda.empty_cache()
+    in_memory["x_bound"] = in_memory["ms"] / in_memory["bound_ms"]
+    _log(f"kernel observe_hist at the in-memory shape {in_memory['shape']}: equal="
+         f"{in_memory['equal']} {in_memory['ms']:.4f} ms (plain {in_memory['plain_ms']:.4f}"
+         f" ms, library {in_memory['library_ms']:.4f} ms, bound {in_memory['bound_ms']:.4f}"
+         f" ms by bytes, {in_memory['residues_counted']} residues)")
+    if not in_memory["equal"]:
+        raise AssertionError(f"observe_hist disagrees with its plain version at "
+                             f"{in_memory['shape']}: {in_memory}")
+    kern[0]["in_memory"] = {k: in_memory[k] for k in (
+        "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "x_bound", "residues_counted")}
     for k in kern:
         _log(f"kernel {k['name']}: equal={k['equal']} {k['ms']:.4f} ms "
              f"(plain {k['plain_ms']:.4f} ms, library {k['library_ms']}, "
@@ -893,6 +1103,7 @@ def main() -> int:
         if launched["sw_fill"] != 0:
             raise AssertionError("sw_fill ran on the reads-model path")
         _log(f"main path: {got}, {stats['reads_per_s']:.0f} reads/s, launches {launched}")
+        main_dups = got["duplicates"]
         by_name = {k["name"]: k for k in kern}
         for name in ("observe_hist", "pack_rows"):  # pack_rows: both encodes
             by_name[name]["launches"] = launched[name]
@@ -971,6 +1182,11 @@ def main() -> int:
 
         # ---- 4e. BAM ingest ------------------------------------------------
         bam = check_bam(work, sam, main_adam, "cuda")
+
+        # ---- 4g. the dataset-level transform, flagstat, the restart --------
+        dataset = check_dataset_transform(work, sam, snps_vcf, main_dups)
+        kern[0]["in_memory"]["launches"] = dataset["launches"]["observe_hist"]
+        kern[0]["launches_dataset_restart"] = dataset["restart_launches"]["observe_hist"]
         os.unlink(sam)
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_bam"] = bam["launches"][name]
@@ -1014,6 +1230,19 @@ def main() -> int:
             parity[model] = len(hashes["cuda"])
             _log(f"card vs CPU ({model}): {parity[model]} parts byte-identical "
                  f"({PARITY_READS} reads)")
+        for name, flags in DATASET_PARITY_LEGS:
+            got = {}
+            for device in ("cuda", "cpu"):
+                path = os.path.join(work, f"dataset.{device}.{name}")
+                st = run_dataset_transform(sam, path, device, flags)
+                text = run_flagstat(path, device)[0]
+                got[device] = (_file_hash(path), text, st["n_rows_out"])
+            if got["cuda"] != got["cpu"]:
+                raise AssertionError(f"dataset transform to {name}: card and CPU "
+                                     f"outputs or flagstat reports differ: {got}")
+            parity[f"dataset_{name}"] = got["cuda"][2]
+            _log(f"card vs CPU (dataset transform {' '.join(flags)} -> {name}): output "
+                 f"and flagstat byte-identical ({got['cuda'][2]} rows)")
         from adam_tpu_torch.cli.main import main as cli
 
         for what, flags in (("count_kmers", ()), ("count_qmers", ("-countQmers",))):
@@ -1047,6 +1276,7 @@ def main() -> int:
         "known_sites": known,
         "bam": bam,
         "kmers": kmers,
+        "dataset_transform": dataset,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

@@ -397,3 +397,63 @@ def test_bam_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     assert len(parts) == n_parts
     for f in parts:
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
+@pytest.mark.parametrize("out,flags", [
+    ("full.adam", ["-mark_duplicate_reads", "-realign_indels",
+                   "-recalibrate_base_qualities", "-sort_reads"]),
+    ("trim.sam", ["-trimReads", "-trimFromStart", "2", "-trimFromEnd", "1",
+                  "-qualityBasedTrim", "-mark_duplicate_reads", "-realign_indels",
+                  "-recalibrate_base_qualities", "-sort_reads"]),
+    ("markdup.bam", ["-mark_duplicate_reads"]),
+])
+def test_dataset_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path, out, flags):
+    """The non-streaming transform through the CLI, card vs CPU: the same
+    output bytes and flagstat text; kernel 1 launched once per BQSR run
+    on the card."""
+    import contextlib
+    import io
+    import json
+
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.cli.main import main
+
+    make_wgs(str(tmp_path / "in.sam"), 4500, 100, n_contigs=2, contig_len=30_000)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / f"{dev}.{out}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["transform", str(tmp_path / "in.sam"), path, *flags,
+                         "--device", dev]) == 0
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        assert stats["device"].startswith(dev)
+        if dev == "cuda":
+            bqsr = "-recalibrate_base_qualities" in flags
+            assert stats["kernel_launches"]["observe_hist"] == int(bqsr)
+            assert stats["kernel_launches"]["pack_rows"] == 0
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(io.StringIO()):
+            assert main(["flagstat", path, "--device", dev]) == 0
+        with open(path, "rb") as fh:
+            got[dev] = (fh.read(), text.getvalue())
+    assert got["cuda"] == got["cpu"]
+    assert "4500 + 0 in total" in got["cuda"][1]
+
+
+def test_quality_profile_on_the_card_equals_the_cpu(cuda_device):
+    from adam_tpu_torch.formats.batch import ReadBatch
+    from adam_tpu_torch.pipelines.trim import quality_profile
+
+    rng = np.random.default_rng(5)
+    n, L = 20_000, 120
+    b = ReadBatch.empty(n, L, 1).replace(
+        quals=rng.integers(0, 42, (n, L)).astype(np.uint8),
+        lengths=rng.integers(1, L + 1, n).astype(np.int32),
+        read_group_idx=rng.integers(-1, 3, n).astype(np.int32),
+        has_qual=rng.random(n) < 0.95, valid=rng.random(n) < 0.98)
+    sums, counts = quality_profile(b, 3, device="cuda")
+    want_sums, want_counts = quality_profile(b, 3, device="cpu")
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(sums, want_sums)

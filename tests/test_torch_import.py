@@ -119,7 +119,12 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.io.parquet",
                                     "adam_tpu_torch.ops.kmer",
                                     "adam_tpu_torch.native",
-                                    "adam_tpu_torch.cli.main"])
+                                    "adam_tpu_torch.cli.main",
+                                    "adam_tpu_torch.ops.flagstat",
+                                    "adam_tpu_torch.pipelines.checkpoint",
+                                    "adam_tpu_torch.pipelines.sort",
+                                    "adam_tpu_torch.pipelines.trim",
+                                    "adam_tpu_torch.utils.durability"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys

@@ -275,9 +275,11 @@ def test_cli_refuses_what_the_slice_does_not_run(tmp_path, capsys):
     from adam_tpu_torch.cli.main import main
 
     sam = str(tmp_path / "x.sam")
-    assert main(["transform", sam, str(tmp_path / "o"), "-mark_duplicate_reads",
-                 "--device", "cpu"]) == 2
-    assert "-streaming" in capsys.readouterr().err
+    # the streamed pipeline runs the markdup/BQSR/realign stage set only;
+    # a sort (or trim) pipeline is the dataset-level transform's
+    assert main(["transform", sam, str(tmp_path / "o"), "-streaming",
+                 "-mark_duplicate_reads", "-sort_reads", "--device", "cpu"]) == 2
+    assert "trim/sort pipelines" in capsys.readouterr().err
     assert main(["transform", sam, str(tmp_path / "o"), "-streaming",
                  "-window_reads", "0", "--device", "cpu"]) == 2
     # the streamed transform reads windowed SAM/BAM only, as the JAX CLI's
