@@ -32,7 +32,8 @@ over a SAM or BAM file, written as Parquet parts::
         [-known_snps K.vcf] [-known_indels I.vcf] \\
         [-known_recalibration_table T.npz] [-window_reads N] \\
         [-max_indel_size N] [-max_consensus_number N] \\
-        [-log_odds_threshold X] [-max_target_size N] [--device cuda|cpu]
+        [-log_odds_threshold X] [-max_target_size N] [--run-dir DIR [--resume]]
+        [--fault-spec SPEC] [--device cuda|cpu]
 
 ``-realign_indels`` realigns with the ``reads`` consensus model, as the
 JAX CLI does, or with ``knowns`` when ``-known_indels`` is given (the
@@ -42,7 +43,12 @@ JAX CLI does, or with ``knowns`` when ``-known_indels`` is given (the
 is an ``.npz`` with ``table`` (``[n_rg, 94, n_cyc, 17]``, cast to u8) and
 ``gl``, applied instead of the solved table; it arms the fused B->C tier
 (``ADAM_TPU_FUSED_BC=0`` is the unfused leg).  A BAM's windows follow
-its compressed bytes (32 MiB at a time), as in the JAX package.  In both
+its compressed bytes (32 MiB at a time), as in the JAX package.
+``--run-dir DIR`` journals the run (``pipelines/checkpoint.RunJournal``)
+and ``--resume`` resumes a killed one from it, byte-identical to an
+uninterrupted run; ``--fault-spec`` (or ``ADAM_TPU_FAULTS``) arms the
+fault points of ``utils/faults.py``, e.g. a SIGKILL at a chosen phase.
+The refusals and their messages are the JAX CLI's.  In both
 modes the run's stats (stage walls, read counts, kernel launches) are
 printed to standard output as one JSON line.
 
@@ -126,6 +132,18 @@ def _parser() -> argparse.ArgumentParser:
                    "deepest completed stage on a rerun")
     p.add_argument("-window_reads", type=int, default=262_144,
                    help="ingest window size in reads for -streaming")
+    p.add_argument("--run-dir", dest="run_dir", default=None, metavar="DIR",
+                   help="durable window-granular resume journal for -streaming: "
+                   "each part is recorded after its durable publish, and the "
+                   "observe histograms and the table persist as sidecars")
+    p.add_argument("--resume", dest="resume", action="store_true",
+                   help="resume a killed -streaming run from --run-dir's journal "
+                   "(a journal of other input bytes, flags or window plan is "
+                   "refused with a clean restart)")
+    p.add_argument("--fault-spec", dest="fault_spec", default=None, metavar="SPEC",
+                   help="arm fault injection at named points (testing only; e.g. "
+                   "'proc.kill=kill,device=pass_c,after=2,times=1'; also "
+                   "ADAM_TPU_FAULTS)")
     p.add_argument("-force_load_bam", action="store_true")
     p.add_argument("-force_load_fastq", action="store_true")
     p.add_argument("-force_load_ifastq", action="store_true")
@@ -166,6 +184,14 @@ def main(argv=None) -> int:
         return _count_kmers(args)
     if args.command == "flagstat":
         return _flagstat(args)
+    if args.fault_spec:
+        from adam_tpu_torch.utils import faults
+
+        try:
+            faults.install(args.fault_spec)
+        except ValueError as e:
+            print(f"--fault-spec: {e}", file=sys.stderr)
+            return 2
     return _transform(args)
 
 
@@ -231,6 +257,16 @@ def _flagstat(args) -> int:
 
 
 def _transform(args) -> int:
+    if args.resume and not args.run_dir:
+        print("transform: --resume needs the journal directory; pass "
+              "--run-dir DIR (the same DIR the killed run journaled into)",
+              file=sys.stderr)
+        return 2
+    if args.run_dir and not args.streaming:
+        print("transform: --run-dir/--resume journal the -streaming "
+              "pipeline only; use -checkpoint_dir for the composed "
+              "stage pipeline", file=sys.stderr)
+        return 2
     if args.window_reads < 1:
         print(f"transform -window_reads must be positive (got {args.window_reads})",
               file=sys.stderr)
@@ -416,6 +452,8 @@ def _transform_streamed(args) -> int:
         lod_threshold=args.log_odds_threshold,
         max_target_size=args.max_target_size,
         dump_observations=args.dump_observations,
+        run_dir=args.run_dir,
+        resume=args.resume,
         device=args.device,
     )
     print(json.dumps(stats, sort_keys=True))

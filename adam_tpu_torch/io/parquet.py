@@ -17,11 +17,16 @@ with column projection and a pyarrow filter pushed into the read.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import re
 import shutil
 import threading
+import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -36,11 +41,22 @@ from adam_tpu_torch.models.dictionaries import (
 )
 
 TMP_DIR_NAME = "_temporary"
+#: the part index is the window index (the realigned part is
+#: ``n_windows``), recoverable from the name alone, which is how the run
+#: journal maps published parts back onto the window plan
 PART_NAME_FORMAT = "part-r-{:05d}.parquet"
+_PART_NAME_RE = re.compile(r"^part-r-(\d{5,})\.parquet$")
 
 
 def part_path(out_dir: str, idx: int) -> str:
     return os.path.join(out_dir, PART_NAME_FORMAT.format(idx))
+
+
+def part_index(path: str) -> Optional[int]:
+    """The window/part index of a part path, or None when the name is
+    not a canonical part file name (staging or sidecar files)."""
+    m = _PART_NAME_RE.match(os.path.basename(path))
+    return int(m.group(1)) if m else None
 
 
 def purge_stale_staging(out_dir: str) -> None:
@@ -195,12 +211,18 @@ def to_arrow_alignments(batch: ReadBatch, side: ReadSidecar,
 
 def write_part(table, path: str, compression: str) -> None:
     """Write one encoded part: staging file, then the durable publish
-    (fsync, atomic rename, fsync of the directory)."""
+    (fsync, atomic rename, fsync of the directory).  Fault points:
+    ``parquet.write`` before the staging write, ``proc.kill`` (phase
+    ``write``) once the part is published and before the caller's
+    bookkeeping (the journal record), so a resume must tolerate a
+    published part the journal does not know of."""
     import pyarrow.parquet as pq
 
+    from adam_tpu_torch.utils import faults
     from adam_tpu_torch.utils.durability import publish_file
 
     tmp = _staging_path(path)
+    faults.point("parquet.write")
     try:
         # dictionary-encode only the low-cardinality name columns
         pq.write_table(
@@ -215,6 +237,7 @@ def write_part(table, path: str, compression: str) -> None:
         except OSError:
             pass
         raise
+    faults.point("proc.kill", device="write")
 
 
 def save_alignments(path: str, batch: ReadBatch, side: ReadSidecar,
@@ -232,27 +255,105 @@ def save_alignments(path: str, batch: ReadBatch, side: ReadSidecar,
         pass
 
 
+def _affinity_cap(floor: int = 1, ceil: int = 8) -> int:
+    """Cores this process may run on, clamped to [floor, ceil]: the
+    bound on every adaptive writer-pool growth decision."""
+    try:
+        n = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):  # not Linux
+        n = os.cpu_count() or 1
+    return max(floor, min(ceil, n))
+
+
+def resolve_writer_shards(requested: Optional[int] = None) -> int:
+    """Number of independent write threads: ``requested``, else
+    ``ADAM_TPU_WRITER_SHARDS`` (clamped to [1, 8]; a non-integer warns
+    and keeps the default), else 2 where the affinity allows it and 1 on
+    a single core."""
+    if requested is not None:
+        return max(1, min(8, int(requested)))
+    raw = os.environ.get("ADAM_TPU_WRITER_SHARDS", "").strip()
+    if raw:
+        try:
+            return max(1, min(8, int(raw)))
+        except ValueError:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "ADAM_TPU_WRITER_SHARDS=%r is not an int; using the "
+                "affinity-derived default", raw,
+            )
+    return min(2, _affinity_cap())
+
+
+def writer_adaptive_enabled(default: bool = True) -> bool:
+    """``ADAM_TPU_WRITER_ADAPTIVE``: ``0/off/false`` pins the pool at its
+    construction bounds (parsed by ``utils/retry.env_toggle``)."""
+    from adam_tpu_torch.utils.retry import env_toggle
+
+    return env_toggle("ADAM_TPU_WRITER_ADAPTIVE", default)
+
+
+#: A submit that waited longer than this on the gate counts as gated
+_GATED_WAIT_S = 0.02
+#: grow when at least ``_GATE_TRIP`` of the last ``_GATE_WINDOW`` submits
+#: gated: one slow flush is noise, repeated gating is a sizing signal
+_GATE_WINDOW = 4
+_GATE_TRIP = 2
+
+
 class PartWriterPool:
-    """The streamed pipeline's pass-C sink: encoder threads turn a window
-    into an arrow table, one write thread compresses and publishes it.
-    At most ``INFLIGHT_PARTS`` parts are alive in the pool (the producer
-    blocks in :meth:`submit`), which bounds memory in decoded windows.
-    The first worker failure fails later submits and re-raises from
-    :meth:`close`."""
+    """The streamed pipeline's pass-C sink, sharded and adaptive (JAX's
+    ``PartWriterPool``).
 
-    N_ENCODERS = 2
-    INFLIGHT_PARTS = 3
+    Encoder threads turn a window into an arrow table and hand it to one
+    of ``n_io`` independent write threads (compression and disk), part
+    ``i`` on shard ``i % n_io``, so one part's flush never stalls
+    another's and each shard writes in submission order.  At most
+    ``inflight_parts`` parts are alive in the pool (the producer blocks
+    in :meth:`submit`), which bounds memory in decoded windows.  With
+    ``adaptive`` (default ``ADAM_TPU_WRITER_ADAPTIVE``, on) the bound
+    widens by one part whenever submits repeatedly gate for more than
+    ``_GATED_WAIT_S``, up to ``min(_affinity_cap() + n_io, 2 *
+    inflight_parts)``.  ``on_published(path)`` runs on the write thread
+    after a part's durable publish (the run journal's "window complete"
+    record); a hook failure is a worker failure.  The first worker
+    failure fails later submits and re-raises from :meth:`close`.
+    Which thread writes a part never changes its bytes."""
 
-    def __init__(self, compression: str = "zstd"):
+    def __init__(self, n_encoders: int = 2, inflight_parts: int = 3,
+                 compression: str = "zstd", on_published=None,
+                 n_io: Optional[int] = None,
+                 adaptive: Optional[bool] = None):
         import pyarrow as pa
 
         # the system allocator, not pyarrow's mimalloc: see
         # adam_tpu_torch/__init__.py (pyarrow may have been imported first)
         pa.set_memory_pool(pa.system_memory_pool())
-        self._enc = ThreadPoolExecutor(self.N_ENCODERS)
-        self._io = ThreadPoolExecutor(1)
-        self._gate = threading.Semaphore(self.INFLIGHT_PARTS)
+        self._adaptive = (
+            writer_adaptive_enabled() if adaptive is None else adaptive
+        )
+        n_io = resolve_writer_shards(n_io)
+        self._bound = max(1, inflight_parts)
+        # every admitted part pins one decoded window: growth may
+        # stretch the caller's memory budget (2x), never ignore it
+        self._bound_cap = (
+            max(self._bound, min(_affinity_cap() + n_io, 2 * self._bound))
+            if self._adaptive else self._bound
+        )
+        enc_cap = max(1, n_encoders)
+        if self._adaptive:
+            enc_cap = max(enc_cap, _affinity_cap())
+        # workers spawn lazily: capacity above the bound costs nothing
+        # until growth admits work
+        self._enc = ThreadPoolExecutor(enc_cap)
+        self._io = [ThreadPoolExecutor(1) for _ in range(n_io)]
+        self._io_rr = itertools.count()  # non-part names round-robin
+        self._gate = threading.Semaphore(self._bound)
+        self._gate_lock = threading.Lock()
+        self._gated_recent: deque = deque(maxlen=_GATE_WINDOW)
         self._compression = compression
+        self._on_published = on_published
         self._futures: list = []
         self._failed: BaseException | None = None
         self._fail_lock = threading.Lock()
@@ -263,12 +364,51 @@ class PartWriterPool:
             if self._failed is None:
                 self._failed = e
 
+    @property
+    def failed(self) -> BaseException | None:
+        """The first worker failure so far, or None."""
+        with self._fail_lock:
+            return self._failed
+
+    @property
+    def n_io(self) -> int:
+        return len(self._io)
+
+    @property
+    def inflight_bound(self) -> int:
+        """The live admission bound (grows under adaptive sizing)."""
+        with self._gate_lock:
+            return self._bound
+
+    def _io_shard(self, path: str) -> ThreadPoolExecutor:
+        idx = part_index(path)
+        if idx is None:
+            idx = next(self._io_rr)
+        return self._io[idx % len(self._io)]
+
+    def _maybe_grow(self, gated: bool) -> None:
+        """Widen the gate one part when submits repeatedly gate, up to
+        the cap; one more slot admits one more concurrent encoder."""
+        if not self._adaptive:
+            return
+        with self._gate_lock:
+            self._gated_recent.append(gated)
+            if (sum(self._gated_recent) < _GATE_TRIP
+                    or self._bound >= self._bound_cap):
+                return
+            self._bound += 1
+            self._gated_recent.clear()
+        self._gate.release()
+
     def submit(self, path: str, batch: ReadBatch, side: ReadSidecar,
                header: SamHeader, packed=None) -> None:
-        if self._failed is not None:
+        from adam_tpu_torch.utils import faults
+
+        first = self.failed
+        if first is not None:
             raise RuntimeError(
                 f"PartWriterPool worker already failed; aborting submit of {path}"
-            ) from self._failed
+            ) from first
         self._staging_dirs.add(
             os.path.join(os.path.dirname(os.path.abspath(path)), TMP_DIR_NAME)
         )
@@ -276,6 +416,8 @@ class PartWriterPool:
         def write(table):
             try:
                 write_part(table, path, self._compression)
+                if self._on_published is not None:
+                    self._on_published(path)
             except BaseException as e:
                 self._record_failure(e)
                 raise
@@ -284,14 +426,19 @@ class PartWriterPool:
 
         def encode():
             try:
+                faults.point("parquet.encode")
                 table = to_arrow_alignments(batch, side, header, packed=packed)
-                return self._io.submit(write, table)
+                return self._io_shard(path).submit(write, table)
             except BaseException as e:
+                # release on the error path: the producer may be blocked
+                # in submit() on a full gate
                 self._record_failure(e)
                 self._gate.release()
                 raise
 
+        t_gate = time.monotonic()
         self._gate.acquire()
+        self._maybe_grow(time.monotonic() - t_gate > _GATED_WAIT_S)
         try:
             self._futures.append(self._enc.submit(encode))
         except BaseException:
@@ -313,8 +460,9 @@ class PartWriterPool:
             except BaseException as e:
                 errs.append(e)
         self._enc.shutdown()
-        self._io.shutdown()
-        first = self._failed or (errs[0] if errs else None)
+        for ex in self._io:
+            ex.shutdown()
+        first = self.failed or (errs[0] if errs else None)
         if abort or first is not None:
             self._discard_staging()
         else:

@@ -226,21 +226,35 @@ def dump_observation_csv(total, mism, rg_names, lmax, path) -> None:
         fh.write(obs.to_csv())
 
 
-def merge_observations(parts: list[tuple]) -> tuple:
+def merge_observations(parts: list[tuple], window_ids=None,
+                       on_part=None) -> tuple:
     """Sum per-window (total, mism, gl) histograms, in window order, into
     one host i64 (total, mism, gl).  Cycle slots are centred (index =
     cycle + gl), so a narrower window pads into the middle of the widest
-    window's table.  Device parts are fetched here, at the barrier."""
+    window's table.  A part is device tensors (fetched here, at the
+    barrier) or host arrays (a sidecar loaded on resume).
+
+    ``window_ids`` is the parallel list of each part's window index (the
+    part position when None); ``on_part(window, total, mism, g)`` is
+    called with each part's host histogram as it merges, which is where
+    the run journal persists its observe sidecars."""
     gl = max(p[2] for p in parts)
     s0 = tuple(parts[0][0].shape)
     shape = (s0[0], s0[1], 2 * gl + 1, s0[3])
     total = np.zeros(shape, np.int64)
     mism = np.zeros(shape, np.int64)
-    for t, m, g in parts:
+    for k, (t, m, g) in enumerate(parts):
+        tt, mm = _host(t), _host(m)
+        if on_part is not None:
+            on_part(window_ids[k] if window_ids is not None else k, tt, mm, g)
         off = gl - g
-        total[:, :, off : off + 2 * g + 1, :] += t.cpu().numpy()
-        mism[:, :, off : off + 2 * g + 1, :] += m.cpu().numpy()
+        total[:, :, off : off + 2 * g + 1, :] += tt
+        mism[:, :, off : off + 2 * g + 1, :] += mm
     return total, mism, gl
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 # --------------------------------------------------------------------------

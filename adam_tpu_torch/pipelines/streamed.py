@@ -37,12 +37,22 @@ thread runs three passes with two global barriers:
              first, as part ``n_windows``; a window whose rows were all
              realigned away writes no part.
 
+With ``run_dir`` the run is journaled (``pipelines/checkpoint.RunJournal``,
+the JAX package's files): the writer pool records each part after its
+durable publish, barrier 2 persists every window's histogram and the
+applied table, and ``resume=True`` skips the recorded parts (and, with a
+journaled table, pass B's observe, the merge and the solve).  The
+``proc.kill`` fault points (``utils/faults.py``) sit at the JAX package's
+phase boundaries, so a test can SIGKILL the run anywhere and resume it.
+
 Every Parquet part is byte-identical to the JAX package's streamed run on
 the same input and flags (``tests/test_torch_streamed.py``).
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 import os
 import queue
 import threading
@@ -56,6 +66,9 @@ import torch
 from adam_tpu_torch.api.datasets import AlignmentDataset
 from adam_tpu_torch.device import resolve_device
 from adam_tpu_torch.ops import kernels
+from adam_tpu_torch.utils import faults
+
+log = logging.getLogger(__name__)
 
 _SENTINEL = object()
 
@@ -89,9 +102,50 @@ def _ingest_windows(path: str, window_reads: int, out_q: queue.Queue,
         for item in it:
             if not put(item):
                 return
+            # one arrival per tokenized window
+            faults.point("proc.kill", device="ingest")
         put(_SENTINEL)
     except BaseException as e:  # surface in the consumer
         put(e)
+
+
+def run_fingerprint(path: str, *, mark_duplicates: bool, recalibrate: bool,
+                    realign: bool, consensus_model: str, window_reads: int,
+                    compression: str, max_indel_size: int,
+                    max_consensus_number: int, lod_threshold: float,
+                    max_target_size: int, known_snps=None, known_indels=None,
+                    known_table=None) -> str:
+    """The run journal's fingerprint of a streamed run: the JAX
+    package's dict, key for key (input content, the stage flags, the
+    resolved tuning, the known sites, and a known table as the sha256 of
+    its u8 cast plus ``gl``), so the two packages compute equal strings
+    and resume each other's run directories.  The device stays out: the
+    card and the CPU write the same bytes."""
+    from adam_tpu_torch.pipelines import checkpoint as ck
+
+    return ck.compose_fingerprint({
+        "schema": "adam_tpu.streamed/1",
+        "input": ck.input_fingerprint(path),
+        "mark_duplicates": mark_duplicates,
+        "recalibrate": recalibrate,
+        "realign": realign,
+        "consensus_model": consensus_model,
+        "window_reads": window_reads,
+        "compression": compression,
+        "max_indel_size": max_indel_size,
+        "max_consensus_number": max_consensus_number,
+        "lod_threshold": lod_threshold,
+        "max_target_size": max_target_size,
+        "known_snps": known_snps,
+        "known_indels": known_indels,
+        # absent (not None) without a known table, as in JAX
+        **({"known_table": (
+            hashlib.sha256(
+                np.ascontiguousarray(known_table[0], np.uint8).tobytes()
+            ).hexdigest(),
+            int(known_table[1]),
+        )} if known_table is not None else {}),
+    })
 
 
 def transform_streamed(
@@ -106,25 +160,30 @@ def transform_streamed(
     consensus_model: str = "reads",
     window_reads: int = 262_144,
     compression: str = "zstd",
+    n_writers: int = 3,
     max_indel_size: int | None = None,
     max_consensus_number: int | None = None,
     lod_threshold: float | None = None,
     max_target_size: int | None = None,
     dump_observations: Optional[str] = None,
     known_table: Optional[tuple] = None,
+    run_dir: Optional[str] = None,
+    resume: bool = False,
     device: str = "cuda",
 ) -> dict:
     """Run the streamed markdup + realign + BQSR transform -> stats (stage
-    walls in seconds, read, window and candidate counts, kernel launches
-    in this run).
+    walls in seconds, read, window and candidate counts, resume counts,
+    kernel launches in this run).
 
     Output is a Parquet part-file directory, ``out_path/part-r-NNNNN.parquet``
     with one part per input window that keeps rows, plus the realigned
     part ``n_windows``.  ``realign`` turns on indel realignment with the
     ``consensus_model`` ("reads", "smithwaterman" or "knowns") and the
-    JAX package's tuning knobs (None = its defaults).  ``device`` is
-    ``"cuda"`` (default) or ``"cpu"``; the CPU runs each kernel's plain
-    PyTorch version.
+    JAX package's tuning knobs (None = its defaults).  ``n_writers``
+    sizes the writer pool (``n_writers - 1`` encoders; the write shards
+    follow ``ADAM_TPU_WRITER_SHARDS``).  ``device`` is ``"cuda"``
+    (default) or ``"cpu"``; the CPU runs each kernel's plain PyTorch
+    version.
 
     The known-sites inputs, as in the JAX package: ``known_snps`` (a
     ``models.snp_table.SnpTable``) is masked out of every observe;
@@ -138,14 +197,27 @@ def transform_streamed(
     With a known table the fused B->C tier is armed (``ADAM_TPU_FUSED_BC``,
     on unless set to 0): each eligible window's observe and apply + pack
     run back to back from one dispatch in pass B, and pass C only fetches
-    them.  Output bytes are the same fused or not."""
+    them.  Output bytes are the same fused or not.
+
+    ``run_dir`` turns on the run journal (``pipelines/checkpoint.RunJournal``,
+    the JAX package's files): each part is recorded complete after its
+    durable publish, and the observe histograms and the applied table
+    persist as sidecars at barrier 2.  With ``resume=True`` a rerun after
+    a kill skips the recorded parts, and a journaled table skips pass B's
+    observe, the merge and the solve; the output is byte-identical to an
+    uninterrupted run, on either device.  A journal whose fingerprint
+    (:func:`run_fingerprint`) differs is refused with a clean restart.
+    A ``dump_observations`` resume observes again (the CSV needs the
+    merged histograms) and arms the fused tier with the journaled table."""
+    from adam_tpu_torch.convert import table_from_numpy
     from adam_tpu_torch.io.parquet import (
-        PartWriterPool, part_path, purge_stale_staging,
+        PartWriterPool, part_index, part_path, purge_stale_staging,
     )
     from adam_tpu_torch.parallel.device_pool import ResidentWindow
     from adam_tpu_torch.pipelines import bqsr
     from adam_tpu_torch.pipelines import markdup as md
     from adam_tpu_torch.pipelines import realign as ra
+    from adam_tpu_torch.pipelines.checkpoint import RunJournal
 
     dev = resolve_device(device)
     if known_indels is not None and consensus_model == "reads":
@@ -157,19 +229,38 @@ def transform_streamed(
     )
     launches0 = kernels.launches()
     t_start = time.monotonic()
-    stats: dict = {"device": str(dev)}
+    stats: dict = {"device": str(dev), "resume.refused": 0,
+                   "resume.windows_skipped": 0, "resume.histograms_loaded": 0}
+    os.makedirs(out_path, exist_ok=True)
+    # a killed run leaves its torn files only in the staging directory
+    purge_stale_staging(out_path)
+    journal = None
+    if run_dir:
+        journal = RunJournal(run_dir, run_fingerprint(
+            path, mark_duplicates=mark_duplicates, recalibrate=recalibrate,
+            realign=realign, consensus_model=consensus_model,
+            window_reads=window_reads, compression=compression,
+            max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
+            max_target_size=mts, known_snps=known_snps,
+            known_indels=known_indels, known_table=known_table,
+        ), out_path, resume=resume, stats=stats)
     known_dev = None
     if recalibrate and known_table is not None:
-        from adam_tpu_torch.convert import table_from_numpy
-
         known_dev = table_from_numpy(known_table[0]).to(dev)
-    # the fused B->C tier: with the applied table known before pass B,
-    # each eligible window's observe and apply + pack run back to back
-    fused = known_dev is not None and bqsr.fused_bc_enabled()
+    # the fused B->C tier: with the applied table known before pass B (a
+    # known table, or the journaled table of a -dump_observations resume,
+    # which observes again only for the CSV), each eligible window's
+    # observe and apply + pack run back to back
+    fused_dev = None
+    if recalibrate and bqsr.fused_bc_enabled():
+        if known_dev is not None:
+            fused_dev = known_dev
+        elif journal is not None and journal.resumed and dump_observations:
+            lt = journal.load_table()
+            if lt is not None:
+                fused_dev = table_from_numpy(lt[0]).to(dev)
     fused_handles: dict = {}
-    stats["fused_bc"] = fused
-    os.makedirs(out_path, exist_ok=True)
-    purge_stale_staging(out_path)
+    stats["fused_bc"] = fused_dev is not None
 
     # ---- pass A: ingest || resident placement + markdup columns --------
     in_q: queue.Queue = queue.Queue(maxsize=3)
@@ -195,27 +286,31 @@ def transform_streamed(
 
     t0 = time.monotonic()
     try:
-        while True:
-            item = in_q.get()
-            if item is _SENTINEL:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            batch, side, header = item
-            windows.append(AlignmentDataset(batch, side, header))
-            win = len(windows) - 1
-            n_reads += batch.n_valid()
-            resident.append(ResidentWindow.place(batch, dev))
-            if mark_duplicates:
-                # double buffer: window i's reductions run on the device
-                # while window i-1's columns are fetched and summarized
-                pend_cols.append((win, md.markdup_columns(batch, resident[win])))
-                if len(pend_cols) >= 2:
-                    summarize(*pend_cols.popleft())
-            if realign:
-                events.append(ra.extract_indel_event_arrays(batch, max_indel_size=mis))
-        while pend_cols:
-            summarize(*pend_cols.popleft())
+        with faults.pass_scope("a"):
+            while True:
+                item = in_q.get()
+                if item is _SENTINEL:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                batch, side, header = item
+                windows.append(AlignmentDataset(batch, side, header))
+                win = len(windows) - 1
+                n_reads += batch.n_valid()
+                # one arrival per pass-A window, before its device work
+                # (where the JAX package arrives)
+                faults.point("proc.kill", device="pass_a")
+                resident.append(ResidentWindow.place(batch, dev))
+                if mark_duplicates:
+                    # double buffer: window i's reductions run on the device
+                    # while window i-1's columns are fetched and summarized
+                    pend_cols.append((win, md.markdup_columns(batch, resident[win])))
+                    if len(pend_cols) >= 2:
+                        summarize(*pend_cols.popleft())
+                if realign:
+                    events.append(ra.extract_indel_event_arrays(batch, max_indel_size=mis))
+            while pend_cols:
+                summarize(*pend_cols.popleft())
     except BaseException:
         abort.set()
         raise
@@ -224,26 +319,38 @@ def transform_streamed(
     stats["ingest_pass_s"] = time.monotonic() - t0
     stats["n_reads"] = n_reads
     stats["n_windows"] = len(windows)
+    # pin (or check) the window plan and fix the resumable set: a window,
+    # or the realigned part (index n_windows), whose part the journal
+    # records as published is not written again
+    if journal is not None:
+        journal.confirm_plan(len(windows))
+    done_parts = journal.completed_windows() if journal is not None else frozenset()
+    stats["windows_resumed"] = len(done_parts)
+    stats["resume.windows_skipped"] = len(done_parts)
+    if done_parts:
+        log.info("resume: %d output window(s) already durably published; "
+                 "re-executing only the remainder", len(done_parts))
 
     # ---- barrier 1: resolve duplicates, merge realignment targets -----
     t0 = time.monotonic()
-    if mark_duplicates and summaries:
-        dup = md.resolve_duplicates(md.concat_summaries(summaries), device=dev)
-        off = 0
-        for i, w in enumerate(windows):
-            b = w.batch.to_numpy()
-            n = b.n_rows
-            new_flags = md.apply_duplicate_flags(np.asarray(b.flags), dup[off : off + n])
-            windows[i] = w.with_batch(b.replace(flags=new_flags))
-            off += n
-        stats["n_duplicates"] = int(dup.sum())
-    del summaries
-    names = header.seq_dict.names if header is not None else []
-    targets = ra.merge_events(
-        np.concatenate(events, axis=0) if events else np.zeros((0, 5), np.int64),
-        names, mts,
-    ) if realign else []
-    del events
+    with faults.pass_scope("resolve"):
+        if mark_duplicates and summaries:
+            dup = md.resolve_duplicates(md.concat_summaries(summaries), device=dev)
+            off = 0
+            for i, w in enumerate(windows):
+                b = w.batch.to_numpy()
+                n = b.n_rows
+                new_flags = md.apply_duplicate_flags(np.asarray(b.flags), dup[off : off + n])
+                windows[i] = w.with_batch(b.replace(flags=new_flags))
+                off += n
+            stats["n_duplicates"] = int(dup.sum())
+        del summaries
+        names = header.seq_dict.names if header is not None else []
+        targets = ra.merge_events(
+            np.concatenate(events, axis=0) if events else np.zeros((0, 5), np.int64),
+            names, mts,
+        ) if realign else []
+        del events
     stats["resolve_s"] = time.monotonic() - t0
 
     # ---- split: candidate rows leave their windows (pre-BQSR) ----------
@@ -261,58 +368,118 @@ def transform_streamed(
     stats["split_s"] = time.monotonic() - t0
     stats["n_candidates"] = sum(c.batch.n_rows for c in candidates)
 
+    # post-barrier-2 resume: the journaled table is the barrier's output,
+    # so no observation can change it (a -dump_observations run merges
+    # again for the CSV; its windows' sidecars still spare the card)
+    resume_table = None
+    if journal is not None and recalibrate and not dump_observations:
+        resume_table = journal.load_table()
+
     # ---- pass B: observe every window (histograms stay on the device) --
     def observe(i, w):
-        """Observe window ``i`` (fused with its apply + pack when the tier
-        is armed and the window eligible) -> its lazy histograms."""
-        if fused:
-            got = bqsr.fused_bc_dispatch(w, known_dev, resident[i], known_snps)
+        """Observe window ``i`` -> its histograms: a journaled sidecar's
+        host arrays, else lazy device tensors (fused with the window's
+        apply + pack when the tier is armed, the window eligible and its
+        part still to write)."""
+        if journal is not None and journal.resumed:
+            got = journal.load_observation(i)
+            if got is not None:
+                stats["resume.histograms_loaded"] += 1
+                return got
+        if fused_dev is not None and i not in done_parts:
+            faults.point("proc.kill", device="fused_bc")
+            got = bqsr.fused_bc_dispatch(w, fused_dev, resident[i], known_snps)
             if got is not None:
                 fused_handles[i] = got[0]
                 return got[1]
         return bqsr.observe_window(w, resident[i], known_snps)
 
     t0 = time.monotonic()
-    obs_parts = []
-    if recalibrate:
-        for i, w in enumerate(windows):
-            if window_valid[i]:
-                obs_parts.append(observe(i, w))
+    obs_parts: list = []
+    obs_windows: list = []
+    if recalibrate and resume_table is None:
+        with faults.pass_scope("observe"):
+            for i, w in enumerate(windows):
+                if window_valid[i]:
+                    faults.point("proc.kill", device="pass_b")
+                    obs_parts.append(observe(i, w))
+                    obs_windows.append(i)
     stats["observe_s"] = time.monotonic() - t0
 
     # ---- tail: realign the candidates, observe the realigned part ------
+    # resume fast path: a journaled realigned part whose contribution to
+    # the table is recoverable (the table itself, or its sidecar) skips
+    # the candidate realign; the sidecar is loaded, not only probed, so
+    # an unreadable one forces the realign
     t0 = time.monotonic()
+    n_win = len(windows)
     realigned = None
-    if candidates:
+    r_obs = None
+    skip_realign = False
+    if candidates and journal is not None and journal.resumed and n_win in done_parts:
+        if not recalibrate or resume_table is not None:
+            skip_realign = True
+        else:
+            r_obs = journal.load_observation(n_win)
+            skip_realign = r_obs is not None
+    stats["n_realigned"] = 0
+    if candidates and not skip_realign:
         cand = AlignmentDataset.concat(candidates)
         del candidates
-        realigned = ra.realign_indels(
-            cand, consensus_model=consensus_model, known_indels=known_indels,
-            max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
-            max_target_size=mts, device=dev,
-        )
+        with faults.pass_scope("sweep"):
+            realigned = ra.realign_indels(
+                cand, consensus_model=consensus_model, known_indels=known_indels,
+                max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
+                max_target_size=mts, device=dev,
+            )
         stats["n_realigned"] = _n_moved(cand.batch, realigned.batch)
         del cand
     else:
-        stats["n_realigned"] = 0
+        del candidates  # none, or their journaled part needs no realign
     stats["realign_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
     if realigned is not None:
-        t0 = time.monotonic()
         # the realigned part is a window too: placed once, it serves both
         # its observe and its pass-C apply
         resident.append(ResidentWindow.place(realigned.batch, dev))
-        if recalibrate:
-            obs_parts.append(observe(len(windows), realigned))
-        stats["observe_s"] += time.monotonic() - t0
+        if recalibrate and resume_table is None:
+            with faults.pass_scope("observe"):
+                obs_parts.append(observe(n_win, realigned))
+            obs_windows.append(n_win)
+    elif r_obs is not None:
+        # spliced in at its window-plan position: the same merge order as
+        # the uninterrupted run
+        stats["resume.histograms_loaded"] += 1
+        obs_parts.append(r_obs)
+        obs_windows.append(n_win)
+    stats["observe_s"] += time.monotonic() - t0
     stats["n_fused_windows"] = len(fused_handles)
 
     # ---- barrier 2: merge histograms, solve the table ------------------
     # (a known table is applied as it is, with its own gl: the merge still
-    # runs for the observation dump, the solve does not)
+    # runs for the sidecars and the observation dump, the solve does not)
     t0 = time.monotonic()
     table_dev = known_dev
-    if obs_parts:
-        total, mism, gl = bqsr.merge_observations(obs_parts)
+    stats["obs_merge_s"] = 0.0
+    if resume_table is not None:
+        table_dev = table_from_numpy(resume_table[0]).to(dev)
+    elif obs_parts:
+        faults.point("proc.kill", device="barrier2")
+
+        def persist(win, tt, mm, g):
+            # best-effort: the sidecars only speed a resume up, and a
+            # full disk on the run dir must not fail a healthy run
+            try:
+                journal.save_observation(win, tt, mm, g)
+            except OSError as e:
+                log.warning("observe sidecar persist failed for window %d: %s",
+                            win, e)
+
+        with faults.pass_scope("observe"):
+            total, mism, gl = bqsr.merge_observations(
+                obs_parts, window_ids=obs_windows,
+                on_part=persist if journal is not None else None,
+            )
         obs_parts.clear()
         stats["obs_merge_s"] = time.monotonic() - t0
         t0 = time.monotonic()
@@ -322,44 +489,79 @@ def transform_streamed(
                 dump_observations,
             )
         if known_dev is None:
-            table_dev = torch.from_numpy(
-                bqsr.solve_recalibration_table(total, mism)).to(dev)
+            table = bqsr.solve_recalibration_table(total, mism)
+            table_dev = torch.from_numpy(table).to(dev)
+        else:
+            table, gl = known_dev.cpu().numpy(), int(known_table[1])
+        if journal is not None:
+            try:
+                journal.save_table(table, gl)
+            except OSError as e:
+                log.warning("recalibration-table persist failed: %s", e)
+        # the table is journaled: a resume from here goes into pass C
+        faults.point("proc.kill", device="barrier2")
     stats["solve_s"] = time.monotonic() - t0
 
     # ---- pass C: apply + pack || encode || part writes -----------------
     # the realigned part applies and submits first (it is the largest
     # part, so its encode and write overlap the window applies); windows
-    # with no valid row left write no part
+    # with no valid row left, or whose part is journaled, write no part
     t0 = time.monotonic()
-    pool = PartWriterPool(compression=compression)
-    n_win = len(windows)
     if realigned is not None:
         windows.append(realigned)
         window_valid.append(realigned.batch.n_rows)
-    parts = ([n_win] if realigned is not None else []) + [
-        i for i in range(n_win) if window_valid[i]
+    parts = ([n_win] if realigned is not None and n_win not in done_parts else []) + [
+        i for i in range(n_win) if window_valid[i] and i not in done_parts
     ]
+    # what writes no part is freed now, its placement on the card too, so
+    # the card holds only the parts still in flight
+    keep = set(parts)
+    for i in range(len(windows)):
+        if i not in keep:
+            windows[i] = None
+            if i < len(resident):
+                resident[i] = None
+            fused_handles.pop(i, None)
+    stats["windows_fresh"] = len(parts)
+
+    def on_published(p):
+        # write thread: the part's bytes are durably on disk
+        idx = part_index(p)
+        if idx is not None:
+            journal.record_window(idx, os.path.basename(p))
+
+    pool = PartWriterPool(
+        n_encoders=max(1, n_writers - 1), inflight_parts=3,
+        compression=compression,
+        on_published=on_published if journal is not None else None,
+    )
+
+    def submit(i, *args):
+        faults.point("proc.kill", device="pass_c")
+        pool.submit(part_path(out_path, i), *args)
+
     try:
-        if table_dev is not None:
-            pend: deque = deque()
-            for i in parts:
-                # a fused window's columns are already computed: fetch only
-                h = fused_handles.pop(i, None)
-                if h is None:
-                    h = bqsr.apply_dispatch(windows[i], resident[i], table_dev)
-                pend.append((i, h))
-                windows[i] = resident[i] = None  # free as we go
-                if len(pend) >= 2:
+        with faults.pass_scope("apply"):
+            if table_dev is not None:
+                pend: deque = deque()
+                for i in parts:
+                    # a fused window's columns are already computed: fetch only
+                    h = fused_handles.pop(i, None)
+                    if h is None:
+                        h = bqsr.apply_dispatch(windows[i], resident[i], table_dev)
+                    pend.append((i, h))
+                    windows[i] = resident[i] = None  # free as we go
+                    if len(pend) >= 2:
+                        j, h = pend.popleft()
+                        submit(j, *_submit_args(bqsr.apply_finish(h)))
+                while pend:
                     j, h = pend.popleft()
-                    pool.submit(part_path(out_path, j), *_submit_args(bqsr.apply_finish(h)))
-            while pend:
-                j, h = pend.popleft()
-                pool.submit(part_path(out_path, j), *_submit_args(bqsr.apply_finish(h)))
-        else:
-            for i in parts:
-                w = windows[i]
-                windows[i] = resident[i] = None
-                pool.submit(part_path(out_path, i), w.batch, w.sidecar, w.header)
+                    submit(j, *_submit_args(bqsr.apply_finish(h)))
+            else:
+                for i in parts:
+                    w = windows[i]
+                    windows[i] = resident[i] = None
+                    submit(i, w.batch, w.sidecar, w.header)
         stats["apply_s"] = time.monotonic() - t0
         t1 = time.monotonic()
         pool.close()
@@ -367,6 +569,8 @@ def transform_streamed(
     except BaseException:
         pool.close(abort=True)
         raise
+    stats["writer_shards"] = pool.n_io
+    stats["writer_inflight_bound"] = pool.inflight_bound
     stats["n_parts"] = len(parts)
     stats["total_s"] = time.monotonic() - t_start
     stats["reads_per_s"] = n_reads / stats["total_s"] if stats["total_s"] else 0.0

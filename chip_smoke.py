@@ -69,12 +69,29 @@ Phases, each of which fails the script on any error:
    dropped from the manifest: only BQSR and sort run, kernel 1 once more,
    the output byte-identical; the known-SNP residue mask over the whole
    dataset timed on the host;
+4h. the durable run on the main path's SAM: the main path's command with
+   ``--run-dir`` (parts byte-identical to phase 4's, every part in
+   ``JOURNAL.json``, one observe sidecar per observed part, ``table.npz``),
+   then the command in a child process under
+   ``ADAM_TPU_FAULTS=proc.kill=kill,device=pass_c,after=4,times=1`` (it
+   must die of SIGKILL at its fifth and last part submit: the fourth
+   waited at the writer's starting gate of 3 parts for a publish, so at
+   least one part is journaled) and ``--resume`` here: phase 4's parts,
+   at least one part resumed, kernel 1 launched never (the table was
+   journaled) and
+   kernel 2 twice per fresh part; then the same with ``device=barrier2,
+   after=0`` (killed at barrier 2's entry, before any sidecar): phase 4's
+   parts, kernel 1 again for every window; each resume's wall printed
+   beside the uninterrupted run's, with its position in the process;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
    4d table, fused) and as a BAM; the parts must be byte-identical; then
    ``count_kmers`` at k = 21 and ``count_kmers -countQmers`` at k = 21 on
-   the BAM run's parts, whose output files must be byte-identical; then
+   the BAM run's parts, whose output files must be byte-identical; the
+   journaled run in windows of 8,192 reads killed on the card (pass C) and
+   resumed on the CPU, and killed on the CPU (after a publish) and resumed
+   on the card, each resuming and ending with the card run's parts; then
    the dataset-level transform with the trim flags, markdup, realign, BQSR
    and sort to ``.adam`` and to ``.sam``, and markdup alone to ``.bam``,
    with ``flagstat`` on each output: files and reports byte-identical.
@@ -103,6 +120,7 @@ MAIN_READS = 1_048_576
 WINDOW_READS = 262_144
 SW_READS = 1_048_576
 PARITY_READS = 65_536
+PARITY_RESUME_WINDOW = 8_192  # phase 5's resume legs: 8 windows + the realigned part
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES_PER_SM = 128         # Hopper: an add, max, compare or select per lane per clock
@@ -441,6 +459,18 @@ def check_sw_fill(dev, shape, launched: int, rate: dict | None = None,
     )
 
 
+def _transform_argv(sam: str, out_dir: str, device: str, realign: bool = True,
+                    extra: tuple = (), recalibrate: bool = True) -> list:
+    """The streamed transform's command line (``extra``: more of its
+    flags; a later ``-window_reads`` overrides the main path's)."""
+    return [
+        "transform", sam, out_dir, "-streaming", "-mark_duplicate_reads",
+        *(["-realign_indels"] if realign else []),
+        *(["-recalibrate_base_qualities"] if recalibrate else []),
+        "-window_reads", str(WINDOW_READS), *extra, "--device", device,
+    ]
+
+
 def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
                   extra: tuple = (), recalibrate: bool = True) -> dict:
     """The user's entry point, in this process: the CLI's main (``extra``:
@@ -449,15 +479,142 @@ def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = main([
-            "transform", sam, out_dir, "-streaming", "-mark_duplicate_reads",
-            *(["-realign_indels"] if realign else []),
-            *(["-recalibrate_base_qualities"] if recalibrate else []),
-            "-window_reads", str(WINDOW_READS), *extra, "--device", device,
-        ])
+        rc = main(_transform_argv(sam, out_dir, device, realign, extra, recalibrate))
     if rc != 0:
         raise RuntimeError(f"transform exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def killed_transform(sam: str, out_dir: str, device: str, extra: tuple, spec: str) -> dict:
+    """The streamed transform through ``python -m adam_tpu_torch`` in a
+    child process armed with the fault spec ``spec``
+    (``ADAM_TPU_FAULTS``): it must die of SIGKILL -> its seconds and what
+    it left published and journaled."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ADAM_TPU_FAULTS=spec)
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "adam_tpu_torch",
+         *_transform_argv(sam, out_dir, device, extra=extra)],
+        env=env, cwd=here, capture_output=True, text=True, timeout=900,
+    )
+    secs = time.monotonic() - t0
+    if res.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the run armed with {spec!r} exited {res.returncode}, "
+                             f"not by SIGKILL: {res.stderr[-3000:]}")
+    rd = extra[extra.index("--run-dir") + 1]
+    journal = os.path.join(rd, "JOURNAL.json")
+    journaled = 0
+    if os.path.isfile(journal):
+        with open(journal) as fh:
+            journaled = len(json.load(fh)["windows"])
+    return {"spec": spec, "device": device, "killed_after_s": secs,
+            "parts_left": len(_part_hashes(out_dir)) if os.path.isdir(out_dir) else 0,
+            "journaled_parts": journaled,
+            "table_journaled": os.path.isfile(os.path.join(rd, "table.npz"))}
+
+
+def check_durable_run(work: str, sam: str, main_hashes: dict, n_win: int) -> dict:
+    """Phase 4h: the main path's command with ``--run-dir`` (its parts
+    those of phase 4, every part journaled, one observe sidecar per
+    observed part, the table), then two SIGKILLed runs, each resumed in
+    this process with ``--resume``: killed at the fifth pass-C submit
+    (the table journaled: kernel 1 launched never, kernel 2 twice per
+    fresh part, at least one part resumed; at an earlier submit the card's
+    applies outrun the writer, and no part may be published yet), and at
+    barrier 2's entry
+    (nothing but the plan journaled: kernel 1 again for every window).
+    Each resume's parts must be phase 4's."""
+    from adam_tpu_torch.ops import kernels
+
+    out, rd = os.path.join(work, "durable.adam"), os.path.join(work, "durable.rd")
+    kernels.reset_launches()
+    st = run_transform(sam, out, "cuda", extra=("--run-dir", rd))
+    launched = kernels.launches()
+    if _part_hashes(out) != main_hashes:
+        raise AssertionError("4h: the journaled run's parts differ from phase 4's")
+    with open(os.path.join(rd, "JOURNAL.json")) as fh:
+        doc = json.load(fh)
+    if doc["n_windows"] != n_win or sorted(doc["windows"].values()) != sorted(main_hashes):
+        raise AssertionError(f"4h: the journal does not list every part: {doc}")
+    obs = sorted(os.listdir(os.path.join(rd, "obs")))
+    if obs != [f"window-{i:05d}.npz" for i in range(n_win + 1)]:
+        raise AssertionError(f"4h: observe sidecars {obs} for {n_win} windows + 1 part")
+    if not os.path.isfile(os.path.join(rd, "table.npz")):
+        raise AssertionError("4h: no table.npz")
+    if launched["pack_rows"] != 2 * (n_win + 1) or st["windows_resumed"] != 0:
+        raise AssertionError(f"4h: journaled run launches {launched}, stats {st}")
+    res = {"journaled": {"stats": st, "launches": launched, "obs_sidecars": len(obs),
+                         "position": "4th streamed transform in the process"}}
+    legs = (("pass_c", "proc.kill=kill,device=pass_c,after=4,times=1",
+             "5th streamed transform in the process"),
+            ("barrier2_entry", "proc.kill=kill,device=barrier2,after=0,times=1",
+             "6th streamed transform in the process"))
+    for leg, spec, pos in legs:
+        shutil.rmtree(out)
+        shutil.rmtree(rd)
+        killed = killed_transform(sam, out, "cuda", ("--run-dir", rd), spec)
+        kernels.reset_launches()
+        st = run_transform(sam, out, "cuda", extra=("--run-dir", rd, "--resume"))
+        launched = kernels.launches()
+        if _part_hashes(out) != main_hashes:
+            raise AssertionError(f"4h {leg}: the resumed parts differ from phase 4's")
+        fresh = st["windows_fresh"]
+        if st["resume.refused"] or st["windows_resumed"] + fresh != n_win + 1:
+            raise AssertionError(f"4h {leg}: resume stats {st}")
+        if launched["pack_rows"] != 2 * fresh or st["kernel_launches"] != launched:
+            raise AssertionError(f"4h {leg}: launches {launched} for {fresh} fresh parts")
+        if leg == "pass_c" and (st["windows_resumed"] < 1 or launched["observe_hist"] != 0
+                                or not killed["table_journaled"]):
+            raise AssertionError(f"4h {leg}: {killed}, launches {launched}, stats {st}")
+        if leg == "barrier2_entry" and (launched["observe_hist"] < n_win + 1
+                                        or killed["table_journaled"]):
+            raise AssertionError(f"4h {leg}: {killed}, launches {launched}")
+        res[leg] = {"killed": killed, "stats": st, "launches": launched, "position": pos}
+    shutil.rmtree(out)
+    shutil.rmtree(rd)
+    return res
+
+
+def check_cross_device_resume(work: str, sam: str) -> dict:
+    """Phase 5's resume legs on the parity input, in windows of
+    ``PARITY_RESUME_WINDOW`` reads: a journaled run killed on the card
+    (at a late pass-C submit) and resumed on the CPU, and one killed on
+    the CPU (after its second publish) and resumed on the card; each
+    resumes (the fingerprint leaves the device out) and ends with the
+    uninterrupted card run's parts."""
+    from adam_tpu_torch.ops import kernels
+
+    win = ("-window_reads", str(PARITY_RESUME_WINDOW))
+    ref = os.path.join(work, "resume.ref.adam")
+    run_transform(sam, ref, "cuda", extra=win)
+    want = _part_hashes(ref)
+    n_parts = len(want)
+    res = {"parts": n_parts}
+    for leg, kill_dev, spec, resume_dev in (
+        ("card_to_cpu", "cuda", f"proc.kill=kill,device=pass_c,after={n_parts - 2},times=1",
+         "cpu"),
+        ("cpu_to_card", "cpu", "proc.kill=kill,device=write,after=1,times=1", "cuda"),
+    ):
+        out, rd = os.path.join(work, f"{leg}.adam"), os.path.join(work, f"{leg}.rd")
+        extra = (*win, "--run-dir", rd)
+        killed = killed_transform(sam, out, kill_dev, extra, spec)
+        kernels.reset_launches()
+        st = run_transform(sam, out, resume_dev, extra=(*extra, "--resume"))
+        launched = kernels.launches()
+        if _part_hashes(out) != want:
+            raise AssertionError(f"{leg}: the resumed parts differ from the card run's")
+        if st["windows_resumed"] < 1 or st["resume.refused"]:
+            raise AssertionError(f"{leg}: did not resume: {killed}, {st}")
+        if resume_dev == "cuda" and (launched["observe_hist"] != 0
+                                     or launched["pack_rows"] != 2 * st["windows_fresh"]):
+            raise AssertionError(f"{leg}: launches {launched}, stats {st}")
+        res[leg] = {"killed": killed, "windows_resumed": st["windows_resumed"],
+                    "windows_fresh": st["windows_fresh"], "total_s": st["total_s"],
+                    "launches": launched}
+    return res
 
 
 def profile_transform(sam: str, out_dir: str) -> dict:
@@ -1103,6 +1260,9 @@ def main() -> int:
         if launched["sw_fill"] != 0:
             raise AssertionError("sw_fill ran on the reads-model path")
         _log(f"main path: {got}, {stats['reads_per_s']:.0f} reads/s, launches {launched}")
+        _log(f"main path writer pool: write_wait_s {stats['write_wait_s']:.3f}, "
+             f"{stats['writer_shards']} write shards, final admission bound "
+             f"{stats['writer_inflight_bound']}")
         main_dups = got["duplicates"]
         by_name = {k["name"]: k for k in kern}
         for name in ("observe_hist", "pack_rows"):  # pack_rows: both encodes
@@ -1111,6 +1271,7 @@ def main() -> int:
         # the main path's parts stay for 4e's row check and 4f's k-mers
         main_adam = os.path.join(work, "main.adam")
         os.rename(out_dir, main_adam)
+        main_hashes = _part_hashes(main_adam)
         prof = profile_transform(sam, out_dir)
         _log("main path under the profiler: " + json.dumps(prof, sort_keys=True))
         shutil.rmtree(out_dir)
@@ -1126,6 +1287,29 @@ def main() -> int:
         _log(f"no-realign path: {got}, {plain_stats['reads_per_s']:.0f} reads/s, "
              f"launches {plain_launched}")
         shutil.rmtree(out_dir)
+
+        # ---- 4h. the durable run: the journal, kill and resume -------------
+        durable = check_durable_run(work, sam, main_hashes, n_win)
+        _log(f"4h journaled run ({durable['journaled']['position']}): total_s "
+             f"{durable['journaled']['stats']['total_s']:.3f} against phase 4's first run "
+             f"{stats['total_s']:.3f} (1st) and its profiled rerun {prof.get('total_s')} "
+             f"(2nd); {durable['journaled']['obs_sidecars']} observe sidecars, "
+             f"launches {durable['journaled']['launches']}")
+        for leg in ("pass_c", "barrier2_entry"):
+            d = durable[leg]
+            _log(f"4h kill at {leg} ({d['killed']['spec']}): killed after "
+                 f"{d['killed']['killed_after_s']:.3f} s with {d['killed']['parts_left']} "
+                 f"parts published, {d['killed']['journaled_parts']} journaled; resume "
+                 f"({d['position']}) total_s {d['stats']['total_s']:.3f} against the "
+                 f"uninterrupted {stats['total_s']:.3f} and journaled "
+                 f"{durable['journaled']['stats']['total_s']:.3f}; "
+                 f"{d['stats']['windows_resumed']} parts resumed, "
+                 f"{d['stats']['windows_fresh']} fresh, launches {d['launches']}; "
+                 f"parts byte-identical to phase 4's")
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_journaled"] = durable["journaled"]["launches"][name]
+            by_name[name]["launches_resume"] = {
+                leg: durable[leg]["launches"][name] for leg in ("pass_c", "barrier2_entry")}
 
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
@@ -1230,6 +1414,14 @@ def main() -> int:
             parity[model] = len(hashes["cuda"])
             _log(f"card vs CPU ({model}): {parity[model]} parts byte-identical "
                  f"({PARITY_READS} reads)")
+        resumes = check_cross_device_resume(work, sam)
+        for leg in ("card_to_cpu", "cpu_to_card"):
+            r = resumes[leg]
+            _log(f"card vs CPU resume ({leg}, {resumes['parts']} parts of "
+                 f"{PARITY_RESUME_WINDOW} reads): {r['killed']}; "
+                 f"{r['windows_resumed']} resumed, {r['windows_fresh']} fresh, "
+                 f"launches {r['launches']}; parts byte-identical to the card run")
+        parity["resume"] = resumes
         for name, flags in DATASET_PARITY_LEGS:
             got = {}
             for device in ("cuda", "cpu"):
@@ -1277,6 +1469,7 @@ def main() -> int:
         "bam": bam,
         "kmers": kmers,
         "dataset_transform": dataset,
+        "durable": durable,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

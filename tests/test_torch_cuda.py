@@ -457,3 +457,45 @@ def test_quality_profile_on_the_card_equals_the_cpu(cuda_device):
     want_sums, want_counts = quality_profile(b, 3, device="cpu")
     np.testing.assert_array_equal(counts, want_counts)
     np.testing.assert_array_equal(sums, want_sums)
+
+
+def test_journaled_run_killed_in_pass_c_resumes_on_the_card(cuda_device, tmp_path):
+    """A journaled run on the card SIGKILLed at its third pass-C submit,
+    then ``--resume`` on the card: the parts equal the CPU run's, and the
+    resume launches ``observe_hist`` never (the table was journaled) and
+    ``pack_rows`` twice per part it writes."""
+    import json
+    import signal
+    import subprocess
+
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    path = str(tmp_path / "in.sam")
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
+    cpu = transform_streamed(path, str(tmp_path / "cpu"), window_reads=1024, device="cpu")
+    out, rd = str(tmp_path / "cuda"), str(tmp_path / "rd")
+    argv = [sys.executable, "-m", "adam_tpu_torch", "transform", path, out, "-streaming",
+            "-mark_duplicate_reads", "-realign_indels", "-recalibrate_base_qualities",
+            "-window_reads", "1024", "--run-dir", rd, "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(repo),
+               ADAM_TPU_FAULTS="proc.kill=kill,device=pass_c,after=2,times=1")
+    res = subprocess.run(argv, env=env, cwd=str(repo), capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == -signal.SIGKILL, res.stderr[-2000:]
+    env.pop("ADAM_TPU_FAULTS")
+    res = subprocess.run(argv + ["--resume"], env=env, cwd=str(repo), capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    stats = json.loads(res.stdout.strip().splitlines()[-1])
+    launched = stats["kernel_launches"]
+    assert launched["observe_hist"] == 0
+    assert launched["pack_rows"] == 2 * stats["windows_fresh"]
+    assert stats["windows_resumed"] + stats["windows_fresh"] == cpu["n_parts"]
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == cpu["n_parts"]
+    assert sorted(f for f in os.listdir(out) if f.startswith("part-")) == parts
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()

@@ -124,7 +124,9 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.pipelines.checkpoint",
                                     "adam_tpu_torch.pipelines.sort",
                                     "adam_tpu_torch.pipelines.trim",
-                                    "adam_tpu_torch.utils.durability"])
+                                    "adam_tpu_torch.utils.durability",
+                                    "adam_tpu_torch.utils.faults",
+                                    "adam_tpu_torch.pipelines.streamed"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys
