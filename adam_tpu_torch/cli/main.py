@@ -1,9 +1,8 @@
-"""Command line of the port: ``python -m adam_tpu_torch transform ...``,
-``python -m adam_tpu_torch flagstat ...`` and
-``python -m adam_tpu_torch count_kmers ...``.
+"""Command line of the port: ``python -m adam_tpu_torch`` with the verbs
+``transform``, ``flagstat``, ``depth``, ``view`` and ``count_kmers``.
 
 Flag spellings, stage order, checkpoint fingerprints and refusal messages
-follow the JAX package's CLI.  ``transform`` runs in one of two modes.
+follow the JAX package's CLI.  ``transform`` runs in one of three modes.
 
 Without ``-streaming`` it is the dataset-level transform (ADAM's classic
 ``transform``): load the whole input by extension (``.sam[.gz]``,
@@ -58,6 +57,31 @@ printed to standard output as one JSON line.
 
 (a ``.adam`` or ``.parquet`` input is read with the flag columns
 projected); the stage walls go to standard error as one JSON line.
+
+With ``-shards N`` it is the sharded, out-of-core form of the same
+stages (``parallel/sharded.py``): the SAM or BAM input is shuffled into N
+genome-bin shards on disk, keyed by the 5'-clipped position, and each
+pass runs one shard at a time around the global barriers; part ``i`` is
+shard ``i`` and the realigned part comes last::
+
+    python -m adam_tpu_torch transform IN.{sam,bam} OUT.adam -shards N \\
+        -mark_duplicate_reads -realign_indels -recalibrate_base_qualities \\
+        [-known_snps K.vcf] [-known_indels I.vcf] [-dump_observations CSV] \\
+        [tuning flags] [--device cuda|cpu]
+
+``depth`` is the JAX CLI's ``CalculateDepth``: the read depth at each
+site of a VCF, by a broadcast region join on the device, or with
+``-stream`` through a genome-bin interval spill one bin at a time::
+
+    python -m adam_tpu_torch depth ADAM VCF [-cartesian] [-stream]
+        [-bin_size N] [--device cuda|cpu]
+
+``view`` is the JAX CLI's samtools-view clone (``-f/-F/-g/-G`` flag-bit
+filters computed on the device, ``-c`` count, else SAM text or a file by
+extension)::
+
+    python -m adam_tpu_torch view INPUT [OUTPUT] [-f N] [-F N] [-g N] [-G N]
+        [-c] [-o OUTPUT] [--device cuda|cpu]
 
 ``count_kmers`` is the JAX CLI's ``CountReadKmers``::
 
@@ -132,6 +156,13 @@ def _parser() -> argparse.ArgumentParser:
                    "deepest completed stage on a rerun")
     p.add_argument("-window_reads", type=int, default=262_144,
                    help="ingest window size in reads for -streaming")
+    p.add_argument("-shards", type=int, default=0,
+                   help="run as the composed out-of-core sharded pipeline over N "
+                   "genome-bin shards (parallel/sharded.py): windowed ingest "
+                   "shuffles to 5'-clipped-position bins, per-shard passes with "
+                   "global duplicate/target barriers, boundary-correct realign "
+                   "tail; supports the markdup/BQSR/realign stage set on "
+                   "SAM/BAM input")
     p.add_argument("--run-dir", dest="run_dir", default=None, metavar="DIR",
                    help="durable window-granular resume journal for -streaming: "
                    "each part is recorded after its durable publish, and the "
@@ -163,6 +194,39 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("input", metavar="INPUT")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the tensor work runs (default: cuda)")
+    p = sub.add_parser(
+        "depth", allow_abbrev=False,
+        help="Calculate the depth from a given ADAM file, at each variant in a VCF")
+    p.add_argument("adam", metavar="ADAM", help="The read file to use to calculate depths")
+    p.add_argument("vcf", metavar="VCF",
+                   help="The VCF containing the sites at which to calculate depths")
+    p.add_argument("-cartesian", action="store_true",
+                   help="use a cartesian join, then filter")
+    p.add_argument("-stream", action="store_true",
+                   help="out-of-core: stream the reads through a genome-bin shard "
+                   "spill and join one bin at a time (bounded memory on WGS-scale "
+                   "input)")
+    p.add_argument("-bin_size", type=int, default=1_000_000,
+                   help="genome bin width for -stream (default 1Mbp)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the tensor work runs (default: cuda)")
+    p = sub.add_parser("view", allow_abbrev=False,
+                       help="View certain reads from an alignment-record file.")
+    p.add_argument("input", metavar="INPUT")
+    p.add_argument("output", metavar="OUTPUT", nargs="?", default=None)
+    p.add_argument("-f", dest="match_all", type=int, default=0,
+                   help="restrict to reads matching ALL bits in N")
+    p.add_argument("-F", dest="mismatch_all", type=int, default=0,
+                   help="restrict to reads matching NONE of the bits in N")
+    p.add_argument("-g", dest="match_some", type=int, default=0,
+                   help="restrict to reads matching ANY of the bits in N")
+    p.add_argument("-G", dest="mismatch_some", type=int, default=0,
+                   help="restrict to reads mismatching at least one bit in N")
+    p.add_argument("-c", dest="print_count", action="store_true",
+                   help="print count of matching records")
+    p.add_argument("-o", dest="output_flag", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the tensor work runs (default: cuda)")
     p = sub.add_parser("count_kmers", help="Counts the k-mers/q-mers from a read dataset.")
     p.add_argument("input", metavar="INPUT")
     p.add_argument("output", metavar="OUTPUT", help="Location for storing k-mer counts")
@@ -184,6 +248,10 @@ def main(argv=None) -> int:
         return _count_kmers(args)
     if args.command == "flagstat":
         return _flagstat(args)
+    if args.command == "depth":
+        return _depth(args)
+    if args.command == "view":
+        return _view(args)
     if args.fault_spec:
         from adam_tpu_torch.utils import faults
 
@@ -267,20 +335,31 @@ def _transform(args) -> int:
               "pipeline only; use -checkpoint_dir for the composed "
               "stage pipeline", file=sys.stderr)
         return 2
+    if args.shards and args.shards < 0:
+        print(f"transform -shards must be positive (got {args.shards})",
+              file=sys.stderr)
+        return 2
     if args.window_reads < 1:
         print(f"transform -window_reads must be positive (got {args.window_reads})",
               file=sys.stderr)
         return 2
-    if args.streaming:
+    if args.shards and args.streaming:
+        print("transform -shards and -streaming are mutually exclusive "
+              "execution modes; pass one or the other", file=sys.stderr)
+        return 2
+    if args.shards or args.streaming:
+        mode = "-shards" if args.shards else "-streaming"
         base = args.input[:-3] if args.input.endswith(".gz") else args.input
         if (args.trimReads or args.qualityBasedTrim or args.sort_reads
                 or not base.endswith((".sam", ".bam"))
                 or args.force_load_fastq or args.force_load_ifastq
                 or args.force_load_parquet):
-            print("transform -streaming supports the markdup/BQSR/realign stage set "
+            print(f"transform {mode} supports the markdup/BQSR/realign stage set "
                   "on windowed SAM/BAM input; drop it for trim/sort pipelines or "
                   "other formats", file=sys.stderr)
             return 2
+        if args.shards:
+            return _transform_sharded(args)
         return _transform_streamed(args)
     return _transform_dataset(args)
 
@@ -417,11 +496,12 @@ def _transform_dataset(args) -> int:
     return 0
 
 
-def _transform_streamed(args) -> int:
+def _known_sites(args) -> tuple:
+    """The ``-known_snps`` / ``-known_indels`` tables, in the input
+    header's contig index space -> (SnpTable | None, IndelTable | None)."""
     from adam_tpu_torch.api.datasets import GenotypeDataset
-    from adam_tpu_torch.pipelines.streamed import transform_streamed
 
-    known = indels = table = None
+    known = indels = None
     if args.known_snps or args.known_indels:
         from adam_tpu_torch.io.context import load_header
 
@@ -431,6 +511,150 @@ def _transform_streamed(args) -> int:
         if args.known_indels:
             indels = GenotypeDataset.load(args.known_indels,
                                           contig_names=names).indel_table()
+    return known, indels
+
+
+def _transform_sharded(args) -> int:
+    from adam_tpu_torch.parallel.sharded import transform_sharded
+
+    known, indels = _known_sites(args)
+    stats = transform_sharded(
+        args.input, args.output, args.shards,
+        mark_duplicates=args.mark_duplicate_reads,
+        recalibrate=args.recalibrate_base_qualities,
+        realign=args.realign_indels,
+        known_snps=known,
+        known_indels=indels,
+        compression=args.parquet_compression_codec,
+        max_indel_size=args.max_indel_size,
+        max_consensus_number=args.max_consensus_number,
+        lod_threshold=args.log_odds_threshold,
+        max_target_size=args.max_target_size,
+        dump_observations=args.dump_observations,
+        device=args.device,
+    )
+    print(json.dumps(stats, sort_keys=True))
+    return 0
+
+
+def _depth(args) -> int:
+    """Read depth at each VCF site (the JAX CLI's ``CalculateDepth``): the
+    report on standard output, byte for byte the JAX CLI's; the walls on
+    standard error as one JSON line."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from adam_tpu_torch.api.datasets import GenotypeDataset
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.pipelines.region_join import IntervalArrays, broadcast_region_join
+
+    dev = resolve_device(args.device)
+    t0 = time.monotonic()
+    proj = None
+    if str(args.adam).endswith((".adam", ".parquet")):
+        # the join reads only coordinates: the projection is pushed down
+        proj = ["contig", "start", "end", "flags"]
+    if args.stream:
+        from adam_tpu_torch.parallel.sharded_join import streamed_depth
+
+        header = context.load_header(args.adam)
+        gt = GenotypeDataset.load(args.vcf, contig_names=header.seq_dict.names)
+        v = gt.variants
+        sites = IntervalArrays.of(v.contig_idx, v.start, np.asarray(v.start) + 1, device=dev)
+        t1 = time.monotonic()
+        depth = streamed_depth(context.iter_alignment_batches(args.adam, projection=proj),
+                               sites, header.seq_dict, bin_size=args.bin_size)
+    else:
+        ds = context.load_alignments(args.adam, **({"projection": proj} if proj else {}))
+        b = ds.batch.to_numpy()
+        mapped = np.flatnonzero(np.asarray(b.is_mapped) & np.asarray(b.valid))
+        reads = IntervalArrays.of(b.contig_idx[mapped], b.start[mapped], b.end[mapped],
+                                  device=dev)
+        gt = GenotypeDataset.load(args.vcf, contig_names=ds.seq_dict.names)
+        v = gt.variants
+        # the variant's position, as the reference keys it
+        sites = IntervalArrays.of(v.contig_idx, v.start, np.asarray(v.start) + 1, device=dev)
+        t1 = time.monotonic()
+        si, _ri = broadcast_region_join(sites, reads)
+        depth = torch.bincount(si, minlength=len(sites))
+    depth = depth.cpu().numpy()
+    t2 = time.monotonic()
+    names = v.sidecar.names
+    # the extended contig space: VCF-only contigs follow the read dictionary
+    contig_names = gt.contig_names
+    lines = ["location\tname\tdepth"]
+    for i in np.lexsort((v.start, v.contig_idx)):
+        loc = "%s:%d" % (contig_names[v.contig_idx[i]], int(v.start[i]))
+        lines.append("%20s\t%15s\t% 5d" % (loc, names[i] or ".", int(depth[i])))
+    print("\n".join(lines))
+    print(json.dumps({"load_s": t1 - t0, "depth_s": t2 - t1, "n_sites": len(v),
+                      "stream": bool(args.stream)}, sort_keys=True), file=sys.stderr)
+    return 0
+
+
+def _view_mask(flags, args):
+    """The JAX CLI's ``View`` filter on a flags tensor -> bool tensor on
+    its device: the twelve per-bit predicates (View.scala:103-127), where
+    0x8 also requires the read to be paired (the reference's mate-mapped
+    quirk), under ``-f`` (all), ``-F`` (none), ``-g`` (any) and ``-G``
+    (at least one bit clear)."""
+    import torch
+
+    def pred(bit):
+        if bit == 0x8:
+            return ((flags & 0x1) != 0) & ((flags & 0x8) != 0)
+        return (flags & bit) != 0
+
+    bits = [1 << i for i in range(12)]
+    keep = torch.ones(flags.shape, dtype=torch.bool, device=flags.device)
+    for bit in bits:
+        if args.match_all & bit:
+            keep &= pred(bit)
+        if args.mismatch_all & bit:
+            keep &= ~pred(bit)
+    for group, want in ((args.match_some, True), (args.mismatch_some, False)):
+        if group:
+            some = torch.zeros_like(keep)
+            for bit in bits:
+                if group & bit:
+                    some |= pred(bit) == want
+            keep &= some
+    return keep
+
+
+def _view(args) -> int:
+    import numpy as np
+    import torch
+
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.io import context, sam
+
+    dev = resolve_device(args.device)
+    output = args.output or args.output_flag
+    ds = context.load_alignments(args.input)
+    b = ds.batch.to_numpy()
+    keep = _view_mask(torch.from_numpy(np.asarray(b.flags)).to(dev), args)
+    keep &= torch.from_numpy(np.asarray(b.valid)).to(dev)
+    ds = ds.take_rows(np.flatnonzero(keep.cpu().numpy()))
+    if output:
+        ds.save(output)
+    elif args.print_count:
+        print(len(ds))
+    else:
+        out = sys.stdout
+        for line in sam.format_sam_records(ds.batch, ds.sidecar, ds.header):
+            out.write(line + "\n")
+    return 0
+
+
+def _transform_streamed(args) -> int:
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    known, indels = _known_sites(args)
+    table = None
     if args.known_recalibration_table:
         import numpy as np
 

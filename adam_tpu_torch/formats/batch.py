@@ -111,6 +111,11 @@ class ReadBatch:
     def n_valid(self) -> int:
         return int(_to_numpy(self.valid).sum())
 
+    @property
+    def is_mapped(self) -> Array:
+        """bool[N]: the unmapped flag bit is clear (host or tensor)."""
+        return (self.flags & schema.FLAG_UNMAPPED) == 0
+
     def arrays(self) -> dict:
         """Field name -> array, in declaration order."""
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}

@@ -4,7 +4,8 @@ the alignment loaders only).
 ``.sam``/``.sam.gz`` and ``.bam`` go through the SAM/BAM codecs; a
 directory or glob of SAM/BAM files loads as one dataset with merged
 header dictionaries; anything else is read as Parquet (a part file or a
-part directory).  The FASTQ, interleaved-FASTQ and FASTA loaders, and
+part directory).  :func:`iter_alignment_batches` is the windowed face of
+the same dispatch, for the out-of-core consumers.  The FASTQ, interleaved-FASTQ and FASTA loaders, and
 the contig-fragment Parquet store, are not ported yet: those paths raise
 ``NotImplementedError`` rather than being routed elsewhere.
 """
@@ -190,3 +191,67 @@ def load_alignments(path: str, **kw) -> AlignmentDataset:
     if "fragmentSequence" in pq.read_schema(parts[0] if parts else p).names:
         raise _not_ported(p, "contig-fragment Parquet")
     return load_parquet_alignments(path, **kw)
+
+
+def iter_alignment_batches(path: str, batch_reads: int = 262_144, projection=None):
+    """Windowed alignment reader: yields (ReadBatch, ReadSidecar,
+    SamHeader) without holding the whole input, for the out-of-core
+    consumers (``parallel/sharded_join``, ``parallel/host_shuffle``).
+
+    SAM/BAM stream through the windowed tokenizers; a Parquet part
+    directory yields one window per part (``projection`` pushed into the
+    part reads); a directory or glob of SAM/BAM files that share one
+    sequence dictionary streams file by file, each file's read groups
+    remapped into the merged dictionary; files with differing
+    dictionaries fall back, with a warning, to one resident merged load;
+    a single Parquet file yields once."""
+    from adam_tpu_torch.io import sam as sam_io
+
+    p = str(path)
+    base = p[:-3] if p.endswith(".gz") else p
+    if base.endswith(".sam"):
+        yield from sam_io.iter_sam_batches(p, batch_reads=batch_reads)
+        return
+    if base.endswith(".bam"):
+        yield from sam_io.iter_bam_batches(p, batch_reads=batch_reads)
+        return
+    from adam_tpu_torch.io import parquet
+
+    kw = {"projection": projection} if projection else {}
+    parts = _parquet_parts(p)
+    if parts:
+        for part in parts:
+            yield parquet.load_alignments(part, **kw)
+        return
+    multi = _expand_multi(p)
+    if multi is not None:
+        headers = [load_header(f) for f in multi]
+        sq0 = headers[0].seq_dict.to_sam_header_lines()
+        if all(h.seq_dict.to_sam_header_lines() == sq0 for h in headers[1:]):
+            # one shared dictionary: contig ids already agree, so each
+            # file streams, with its read groups remapped on the fly
+            merged = _merge_headers(headers)
+            rgd = merged.read_groups
+            for f, h in zip(multi, headers):
+                gmap = np.array([rgd.index(nm) for nm in h.read_groups.names], np.int32)
+                identity = np.array_equal(gmap, np.arange(len(gmap), dtype=np.int32))
+                for batch, side, _h in iter_alignment_batches(
+                        f, batch_reads=batch_reads, projection=projection):
+                    if len(gmap) and not identity:
+                        rg = np.asarray(batch.read_group_idx)
+                        rg = np.where(rg >= 0, gmap[np.clip(rg, 0, len(gmap) - 1)],
+                                      rg).astype(np.int32)
+                        batch = batch.replace(read_group_idx=rg)
+                    yield batch, side, merged
+            return
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "iter_alignment_batches(%s): %d sources with differing "
+            "sequence dictionaries — falling back to a resident "
+            "merged load (not out-of-core)", p, len(multi),
+        )
+        ds = load_alignments(p)
+        yield ds.batch, ds.sidecar, ds.header
+        return
+    yield parquet.load_alignments(p, **kw)

@@ -223,6 +223,17 @@ def write_part(table, path: str, compression: str) -> None:
 
     tmp = _staging_path(path)
     faults.point("parquet.write")
+    # claim the staging slot with an empty file first: concurrent writers
+    # share the staging directory, and a sibling's rmdir of it (once it
+    # is empty, in save_alignments) may land between the mkdir and the
+    # write; a non-empty directory survives the rmdir
+    while True:
+        try:
+            with open(tmp, "wb"):
+                pass
+            break
+        except FileNotFoundError:
+            tmp = _staging_path(path)
     try:
         # dictionary-encode only the low-cardinality name columns
         pq.write_table(

@@ -1,6 +1,5 @@
 """Sequence and read-group dictionaries (copied from
-``adam_tpu/models/dictionaries.py``, without the genome offsets the
-mesh partitioner reads).
+``adam_tpu/models/dictionaries.py``).
 
 Host-side metadata parsed from the SAM/BAM header: contig *names* become
 dense ``contig_idx`` i32 values and read-group names dense
@@ -84,6 +83,20 @@ class SequenceDictionary:
     @property
     def names(self) -> list[str]:
         return [r.name for r in self.records]
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return np.array([r.length for r in self.records], dtype=np.int64)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """Flattened-genome coordinate of each contig's base 0, then the
+        total length (the genome-bin partitioners' cumulative lengths)."""
+        return np.concatenate([[0], np.cumsum(self.lengths)])
+
+    @property
+    def total_length(self) -> int:
+        return int(self.lengths.sum()) if len(self.records) else 0
 
     def is_compatible_with(self, other: "SequenceDictionary") -> bool:
         mine = {r.name: r for r in self.records}

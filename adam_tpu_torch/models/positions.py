@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from functools import total_ordering
 
 import numpy as np
+import torch
 
 # 2^40 bp per contig is far above any real contig length; it leaves 23
 # bits for the contig index inside a signed i64 key.
@@ -24,10 +25,14 @@ POS_MASK = (1 << POS_BITS) - 1
 
 def pack_position_key(contig_idx, pos):
     """(contig_idx, pos) -> sortable i64 key ``(contig_idx + 1) << 40 |
-    pos``, on numpy arrays or Python ints.  Unmapped rows (contig_idx < 0)
-    pack below every mapped key; the sort pipeline sends them to the end
-    itself (unmapped reads sort last, by name)."""
-    if hasattr(contig_idx, "astype"):
+    pos``, on torch tensors (on their device), numpy arrays or Python
+    ints.  Unmapped rows (contig_idx < 0) pack below every mapped key; the
+    sort pipeline sends them to the end itself (unmapped reads sort last,
+    by name)."""
+    if isinstance(contig_idx, torch.Tensor):
+        c = contig_idx.to(torch.int64) + 1
+        p = pos.to(torch.int64)
+    elif hasattr(contig_idx, "astype"):
         c = contig_idx.astype(np.int64) + 1
         p = np.asarray(pos).astype(np.int64)
     else:

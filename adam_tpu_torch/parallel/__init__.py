@@ -1,1 +1,3 @@
-"""Placement of windows on the device."""
+"""Placement of windows on the device, genome-bin partitioning, and the
+out-of-core sharded transform and region joins (shuffle, raw shard
+spill, interval spill)."""

@@ -1,1 +1,2 @@
-"""Pipelines: duplicate marking, BQSR and the streamed transform."""
+"""Pipelines: duplicate marking, realignment, BQSR, the streamed
+transform, and the region joins."""

@@ -539,6 +539,31 @@ def _row_chunks(ds: AlignmentDataset) -> list:
             for s in range(0, n, CHUNK_ROWS)]
 
 
+def place_chunks(ds: AlignmentDataset, device) -> list:
+    """The dataset in row chunks of at most :data:`CHUNK_ROWS`, each
+    placed on ``device`` -> [(chunk, ResidentWindow)]."""
+    from adam_tpu_torch.parallel.device_pool import ResidentWindow
+
+    return [(c, ResidentWindow.place(c.batch.to_numpy(), device))
+            for c in _row_chunks(ds)]
+
+
+def observe_dataset(ds: AlignmentDataset, device, known_snps=None) -> tuple:
+    """Pass B over a whole dataset (a shard, or all of the dataset-level
+    transform's rows): one kernel-1 observe per row chunk ->
+    (placed chunks, [(total, mism, gl)] lazy device histograms, one per
+    chunk, for :func:`merge_observations`)."""
+    placed = place_chunks(ds, device)
+    return placed, [observe_window(c, rw, known_snps) for c, rw in placed]
+
+
+def apply_placed(placed: list, table_dev) -> AlignmentDataset:
+    """Gather a solved table into every placed chunk -> the recalibrated
+    dataset (the chunks concatenated back in order)."""
+    return AlignmentDataset.concat(
+        [apply_recalibration(c, rw, table_dev) for c, rw in placed])
+
+
 def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset:
     """Gather a solved table into one placed dataset's quals (reported
     quality >= Q5 only) and stash the pre-recalibration quals as OQ ->
@@ -566,22 +591,19 @@ def recalibrate_base_qualities(
     import time
 
     from adam_tpu_torch.device import resolve_device
-    from adam_tpu_torch.parallel.device_pool import ResidentWindow
 
     dev = resolve_device(device)
     stats = {} if stats is None else stats
     t0 = time.monotonic()
-    placed = [(c, ResidentWindow.place(c.batch.to_numpy(), dev)) for c in _row_chunks(ds)]
-    total, mism, gl = merge_observations(
-        [observe_window(c, rw, known_snps) for c, rw in placed])
+    placed, parts = observe_dataset(ds, dev, known_snps)
+    total, mism, gl = merge_observations(parts)
     t1 = time.monotonic()
     if dump_observation_table:
         dump_observation_csv(total, mism, ds.read_groups.names + ["null"], gl,
                              dump_observation_table)
     table_dev = torch.from_numpy(solve_recalibration_table(total, mism)).to(dev)
     t2 = time.monotonic()
-    out = AlignmentDataset.concat(
-        [apply_recalibration(c, rw, table_dev) for c, rw in placed])
+    out = apply_placed(placed, table_dev)
     stats.update(bqsr_observe_s=t1 - t0, bqsr_solve_s=t2 - t1,
                  bqsr_apply_s=time.monotonic() - t2)
     return out

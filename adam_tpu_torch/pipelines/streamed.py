@@ -579,6 +579,16 @@ def transform_streamed(
     return stats
 
 
+def _write_part(out_dir: str, part_idx: int, ds: AlignmentDataset,
+                compression: str) -> None:
+    """Synchronous single-part write (the sharded executor's sink; the
+    streamed pipeline itself writes through ``PartWriterPool``)."""
+    from adam_tpu_torch.io import parquet
+
+    parquet.save_alignments(parquet.part_path(out_dir, part_idx), ds.batch,
+                            ds.sidecar, ds.header, compression=compression)
+
+
 def _n_moved(before, after) -> int:
     """Rows whose alignment (start or CIGAR) the realignment changed."""
     a, b = before.to_numpy(), after.to_numpy()

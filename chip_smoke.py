@@ -83,6 +83,20 @@ Phases, each of which fails the script on any error:
    after=0`` (killed at barrier 2's entry, before any sidecar): phase 4's
    parts, kernel 1 again for every window; each resume's wall printed
    beside the uninterrupted run's, with its position in the process;
+4i. the sharded, out-of-core transform on the main path's SAM:
+   ``transform in.sam out.adam -shards 8 -mark_duplicate_reads
+   -realign_indels -recalibrate_base_qualities`` on the card (stage walls
+   and reads/s printed): kernel 1 launched once per row chunk of each
+   observed shard plus once for the realigned part, kernel 2 never, rows
+   == reads, and the rows, as a multiset, those of phase 4's streamed
+   parts (markdup, realign and BQSR are global, so the shard cuts change
+   no row); then kernel 1 against its plain version at the largest
+   shard's grid (g = 131,072 on this input);
+4j. ``depth`` and ``view`` on the main path's part directory with its
+   known-SNP VCF: ``depth`` by the broadcast join and ``depth -stream
+   -bin_size 100000`` (32 genome bins) on the card, each timed, their
+   reports byte-identical; ``view -c -F 1024`` on the card, whose count
+   must equal the reads less phase 4's duplicates;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -94,7 +108,11 @@ Phases, each of which fails the script on any error:
    on the card, each resuming and ending with the card run's parts; then
    the dataset-level transform with the trim flags, markdup, realign, BQSR
    and sort to ``.adam`` and to ``.sam``, and markdup alone to ``.bam``,
-   with ``flagstat`` on each output: files and reports byte-identical.
+   with ``flagstat`` on each output: files and reports byte-identical;
+   ``transform -shards 4`` (part directories byte-identical, file for
+   file), and ``depth`` (both forms) and ``view`` (SAM text and ``-c``)
+   on the reads-model run's parts, whose standard output must be
+   byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -122,6 +140,9 @@ SW_READS = 1_048_576
 PARITY_READS = 65_536
 PARITY_RESUME_WINDOW = 8_192  # phase 5's resume legs: 8 windows + the realigned part
 SEED = 7
+SHARDS = 8              # 4i: the sharded transform's genome-bin shards
+PARITY_SHARDS = 4       # phase 5's sharded leg
+DEPTH_STREAM_BIN = 100_000  # 4j: -stream's bin width (32 bins over 4 x 800 kb)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES_PER_SM = 128         # Hopper: an add, max, compare or select per lane per clock
 SW_BLOCK_SHAPE = (1024, 160, 384)  # 150 bp reads: sw_fill's block route
@@ -1151,6 +1172,112 @@ def check_dataset_transform(work: str, sam: str, snps_vcf: str, main_dups: int) 
             "residue_mask_s": mask_s}
 
 
+def run_sharded(sam: str, out_dir: str, device: str, n_shards: int) -> dict:
+    """``transform SAM OUT -shards N`` with markdup, realign and BQSR ->
+    its stats line."""
+    stdout, _ = _cli(["transform", sam, out_dir, "-shards", str(n_shards),
+                      "-mark_duplicate_reads", "-realign_indels",
+                      "-recalibrate_base_qualities", "--device", device])
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def check_sharded(work: str, sam: str, main_adam: str) -> dict:
+    """Phase 4i on ``sam`` (the main path's input) -> its record."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.bqsr import CHUNK_ROWS
+
+    out_dir = os.path.join(work, "sharded.adam")
+    kernels.reset_launches()
+    st = run_sharded(sam, out_dir, "cuda", SHARDS)
+    lv = kernels.launches()
+    got = read_parts(out_dir)
+    chunks = sum(-(-st["shard_rows"][si] // CHUNK_ROWS) for si in st["shards_observed"])
+    if lv["observe_hist"] != chunks + 1 or st["n_observed"] != chunks + 1:
+        raise AssertionError(f"4i: observe_hist launched {lv['observe_hist']} times "
+                             f"({st['n_observed']} observes) for {chunks} shard chunks + 1")
+    if lv["pack_rows"] != 0 or lv["sw_fill"] != 0 or lv["sw_score"] != 0:
+        raise AssertionError(f"4i: launches {lv}: only observe_hist runs on this path")
+    if (got["rows"] != MAIN_READS or st["n_reads"] != MAIN_READS
+            or got["parts"] != st["n_parts"] or got["realigned_rows"] == 0):
+        raise AssertionError(f"4i: {got}, stats {st}")
+    t0 = time.monotonic()
+    if not _sorted_rows(out_dir).equals(_sorted_rows(main_adam)):
+        raise AssertionError("4i: the sharded rows differ from phase 4's streamed rows")
+    rows_s = time.monotonic() - t0
+    _log("4i sharded stats: " + json.dumps(st, sort_keys=True))
+    _log(f"4i sharded ({SHARDS} shards, {st['n_shards']} shard files, rows "
+         f"{st['shard_rows']}): {got}, total_s {st['total_s']:.3f}, "
+         f"{st['reads_per_s']:.0f} reads/s, launches {lv}; rows equal phase 4's as a "
+         f"multiset (checked in {rows_s:.1f} s); stage walls: {_stage_walls(st)}")
+    shutil.rmtree(out_dir)
+    return {"stats": st, "launches": lv, "parts": got, "rows_check_s": rows_s,
+            "shard_chunks": chunks}
+
+
+def check_depth_view(main_adam: str, snps_vcf: str, main_dups: int) -> dict:
+    """Phase 4j on the main path's parts -> its record."""
+    import hashlib as _h
+
+    with open(snps_vcf) as fh:
+        n_sites = sum(1 for ln in fh if ln.strip() and not ln.startswith("#"))
+    rec = {"n_sites": n_sites}
+    digests = {}
+    for name, extra in (("broadcast", ()),
+                        ("stream", ("-stream", "-bin_size", str(DEPTH_STREAM_BIN)))):
+        t0 = time.monotonic()
+        stdout, stderr = _cli(["depth", main_adam, snps_vcf, *extra, "--device", "cuda"])
+        wall = time.monotonic() - t0
+        lines = stdout.splitlines()
+        depths = [int(ln.rsplit("\t", 1)[1]) for ln in lines[1:]]
+        if len(depths) != n_sites or sum(depths) == 0:
+            raise AssertionError(f"4j depth {name}: {len(depths)} sites for {n_sites}, "
+                                 f"total depth {sum(depths)}")
+        digests[name] = _h.sha256(stdout.encode()).hexdigest()
+        rec[name] = {"wall_s": wall, **json.loads(stderr.strip().splitlines()[-1]),
+                     "total_depth": sum(depths), "max_depth": max(depths)}
+        _log(f"4j depth ({name}{' ' + ' '.join(extra) if extra else ''}): {wall:.3f} s "
+             f"on the card, {n_sites} sites, total depth {sum(depths)}, walls "
+             f"{json.dumps(rec[name], sort_keys=True)}")
+    if digests["broadcast"] != digests["stream"]:
+        raise AssertionError("4j: depth and depth -stream print different reports")
+    t0 = time.monotonic()
+    stdout, _ = _cli(["view", "-c", "-F", "1024", main_adam, "--device", "cuda"])
+    rec["view_wall_s"] = time.monotonic() - t0
+    rec["view_count"] = int(stdout.strip())
+    if rec["view_count"] != MAIN_READS - main_dups:
+        raise AssertionError(f"4j: view -c -F 1024 counted {rec['view_count']}, "
+                             f"expected {MAIN_READS} - {main_dups} duplicates")
+    _log(f"4j view -c -F 1024: {rec['view_count']} reads in {rec['view_wall_s']:.3f} s "
+         f"on the card; depth reports byte-identical")
+    return rec
+
+
+def check_parity_sharded_depth_view(work: str, sam: str, parts: str, vcf: str) -> dict:
+    """Phase 5's sharded, depth and view legs, card against CPU."""
+    rec = {}
+    hashes = {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(work, f"sharded.{device}.adam")
+        run_sharded(sam, d, device, PARITY_SHARDS)
+        hashes[device] = _part_hashes(d)
+    if not hashes["cuda"] or hashes["cuda"] != hashes["cpu"]:
+        raise AssertionError(f"-shards {PARITY_SHARDS}: card and CPU parts differ: {hashes}")
+    rec["sharded_parts"] = len(hashes["cuda"])
+    _log(f"card vs CPU (transform -shards {PARITY_SHARDS}): {rec['sharded_parts']} parts "
+         f"byte-identical ({PARITY_READS} reads)")
+    for name, argv in (("depth", ["depth", parts, vcf]),
+                       ("depth_stream", ["depth", parts, vcf, "-stream", "-bin_size",
+                                         str(DEPTH_STREAM_BIN)]),
+                       ("view_sam", ["view", parts]),
+                       ("view_count", ["view", "-c", "-F", "1024", parts])):
+        outs = {device: _cli([*argv, "--device", device])[0] for device in ("cuda", "cpu")}
+        if not outs["cuda"] or outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"{name}: card and CPU standard output differ")
+        rec[name] = outs["cuda"].count("\n")
+        _log(f"card vs CPU ({name}): standard output byte-identical, {rec[name]} lines")
+    return rec
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -1371,6 +1498,32 @@ def main() -> int:
         dataset = check_dataset_transform(work, sam, snps_vcf, main_dups)
         kern[0]["in_memory"]["launches"] = dataset["launches"]["observe_hist"]
         kern[0]["launches_dataset_restart"] = dataset["restart_launches"]["observe_hist"]
+
+        # ---- 4i. the sharded, out-of-core transform ------------------------
+        sharded = check_sharded(work, sam, main_adam)
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_sharded"] = sharded["launches"][name]
+        # kernel 1 once more at the sharded path's shape: the largest
+        # shard's grid (g = grid_rows of its rows)
+        from adam_tpu_torch.formats.batch import grid_rows
+
+        t, g, gl = _kernel_inputs(dev, grid_rows(max(sharded["stats"]["shard_rows"])))
+        at_shard = check_observe(t, g, gl)
+        del t
+        torch.cuda.empty_cache()
+        at_shard["x_bound"] = at_shard["ms"] / at_shard["bound_ms"]
+        _log(f"kernel observe_hist at the sharded shape {at_shard['shape']}: equal="
+             f"{at_shard['equal']} {at_shard['ms']:.4f} ms (plain {at_shard['plain_ms']:.4f}"
+             f" ms, library {at_shard['library_ms']:.4f} ms, bound {at_shard['bound_ms']:.4f}"
+             f" ms by {at_shard['bound_by']}), {sharded['launches']['observe_hist']} "
+             f"launches on 4i")
+        if not at_shard["equal"]:
+            raise AssertionError(f"observe_hist disagrees with its plain version at "
+                                 f"{at_shard['shape']}: {at_shard}")
+        kern[0]["sharded"] = {k: at_shard[k] for k in (
+            "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "x_bound", "residues_counted")}
+        kern[0]["sharded"]["launches"] = sharded["launches"]["observe_hist"]
         os.unlink(sam)
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_bam"] = bam["launches"][name]
@@ -1378,6 +1531,9 @@ def main() -> int:
 
         # ---- 4f. k-mers on the main path's parts ---------------------------
         kmers = check_kmers(work, main_adam, "cuda")
+
+        # ---- 4j. depth and view on the main path's parts -------------------
+        depth_view = check_depth_view(main_adam, snps_vcf, main_dups)
         shutil.rmtree(main_adam)
 
         # ---- 5. card vs CPU ------------------------------------------------
@@ -1435,6 +1591,8 @@ def main() -> int:
             parity[f"dataset_{name}"] = got["cuda"][2]
             _log(f"card vs CPU (dataset transform {' '.join(flags)} -> {name}): output "
                  f"and flagstat byte-identical ({got['cuda'][2]} rows)")
+        parity.update(check_parity_sharded_depth_view(
+            work, sam, os.path.join(work, "reads.cuda.adam"), p_snps))
         from adam_tpu_torch.cli.main import main as cli
 
         for what, flags in (("count_kmers", ()), ("count_qmers", ("-countQmers",))):
@@ -1470,6 +1628,8 @@ def main() -> int:
         "kmers": kmers,
         "dataset_transform": dataset,
         "durable": durable,
+        "sharded": sharded,
+        "depth_view": depth_view,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

@@ -4,7 +4,11 @@ against the JAX package's, on the CPU: ``load_alignments`` and
 two SAMs with different contigs and read groups (the header merge and
 re-indexing), and a part directory the port wrote (whole, projected and
 filtered), field by field with exact equality; the formats not ported
-yet raise ``NotImplementedError``."""
+yet raise ``NotImplementedError``.  ``iter_alignment_batches`` yields JAX's
+windows, window for window: SAM and BAM windows, one window per part of a
+part directory (projected too), a directory of SAMs that share one
+dictionary streamed file by file with the read groups remapped, and the
+resident fallback for divergent dictionaries."""
 
 import dataclasses
 import gzip
@@ -36,6 +40,12 @@ def inputs(tmp_path_factory):
     with open(d / "in.sam", "rb") as src, gzip.open(d / "in.sam.gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     tsam.write_bam(str(d / "in.bam"), *tsam.read_sam(str(d / "in.sam")))
+    # two SAMs sharing the first's dictionary, the second with read
+    # groups of other names
+    (d / "shared").mkdir()
+    shutil.copy(d / "in.sam", d / "shared" / "a.sam")
+    (d / "shared" / "b.sam").write_text(
+        (d / "in.sam").read_text().replace("rg1", "rgC"))
     (d / "dir").mkdir()
     shutil.copy(d / "in.sam", d / "dir" / "a.sam")
     make_wgs(str(d / "b.sam"), 1500, 100, seed=3, n_contigs=3, contig_len=30_000)
@@ -58,6 +68,20 @@ def _args(d, case):
     return {"sam": str(d / "in.sam"), "sam_gz": str(d / "in.sam.gz"),
             "bam": str(d / "in.bam"), "sam_dir": str(d / "dir"),
             "sam_glob": str(d / "dir" / "*.sam")}[case], {}
+
+
+def _assert_same_batch(want, got):
+    """Port (batch, sidecar, header) == JAX's, field by field."""
+    jb, tb = want[0].to_numpy(), got[0]
+    for f in dataclasses.fields(tb):
+        a, b = np.asarray(getattr(jb, f.name)), np.asarray(getattr(tb, f.name))
+        assert a.dtype == b.dtype, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    for f in ("names", "attrs", "md", "orig_quals"):
+        assert getattr(want[1], f).to_list() == getattr(got[1], f).to_list(), f
+    for f in ("trimmed_from_start", "trimmed_from_end"):
+        np.testing.assert_array_equal(getattr(want[1], f), getattr(got[1], f))
+    _assert_same_header(want[2], got[2])
 
 
 def _assert_same_header(want, got):
@@ -151,3 +175,38 @@ def test_contig_fragment_parquet_raises(tmp_path):
     pq.write_table(pa.table({"fragmentSequence": ["ACGT"], "contigName": ["c"]}), path)
     with pytest.raises(NotImplementedError, match="contig-fragment"):
         tctx.load_alignments(path)
+
+
+ITER_CASES = {
+    # case: (path under the inputs, keyword arguments, windows expected)
+    "sam": ("in.sam", {"batch_reads": 1024}, 3),
+    "sam_gz": ("in.sam.gz", {"batch_reads": 1000}, 3),
+    "bam": ("in.bam", {"batch_reads": 1024}, 1),
+    "parts": ("out.adam", {}, 3),
+    "parts_projected": ("out.adam", {"projection": ["contig", "start", "end", "flags"]}, 3),
+    "part_file": ("out.adam/part-r-00001.parquet", {}, 1),
+    "shared_dir": ("shared", {"batch_reads": 2048}, 4),
+    "shared_glob": ("shared/*", {"batch_reads": 2048}, 4),
+    "divergent_dir": ("dir", {}, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITER_CASES))
+def test_iter_alignment_batches_equals_jax(inputs, case):
+    from adam_tpu.io import context as jctx
+
+    from adam_tpu_torch.io import context as tctx
+
+    rel, kw, n_windows = ITER_CASES[case]
+    path = str(inputs / rel)
+    want = list(jctx.iter_alignment_batches(path, **kw))
+    got = list(tctx.iter_alignment_batches(path, **kw))
+    assert len(got) == len(want) == n_windows
+    for w, g in zip(want, got):
+        _assert_same_batch(w, g)
+    if case.startswith("shared"):
+        # the second file's read groups land in the merged dictionary
+        assert got[-1][2].read_groups.names == ["rg1", "rg2", "rgC"]
+        assert set(np.unique(got[-1][0].read_group_idx)) <= {1, 2, -1}
+    if case == "parts_projected":
+        assert not any(got[0][1].names.to_list())

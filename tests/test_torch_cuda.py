@@ -499,3 +499,64 @@ def test_journaled_run_killed_in_pass_c_resumes_on_the_card(cuda_device, tmp_pat
     assert sorted(f for f in os.listdir(out) if f.startswith("part-")) == parts
     for f in parts:
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
+def _interval_columns(seed, n, n_contigs=3, span=5_000):
+    rng = np.random.default_rng(seed)
+    contig = rng.integers(-1, n_contigs + 1, n)  # -1 and one past: outside
+    start = rng.integers(0, span, n)
+    end = start + rng.integers(1, 300, n)
+    return contig, start, end
+
+
+@pytest.mark.parametrize("n_left,n_right", [(0, 50), (50, 0), (400, 300), (5_000, 2_000)])
+def test_interval_functions_on_the_card_equal_the_cpu(cuda_device, n_left, n_right):
+    """Every interval function and join on the card returns the CPU's
+    tensors element for element, in order."""
+    from adam_tpu_torch.models.dictionaries import SequenceDictionary, SequenceRecord
+    from adam_tpu_torch.ops import intervals as iv
+    from adam_tpu_torch.pipelines import region_join as rj
+
+    sd = SequenceDictionary(tuple(SequenceRecord(f"c{i}", n)
+                                  for i, n in enumerate((5_000, 0, 3_000))))
+    lcols, rcols = _interval_columns(1, n_left), _interval_columns(2, n_right)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        left, right = rj.IntervalArrays.of(*lcols, device=dev), rj.IntervalArrays.of(
+            *rcols, device=dev)
+        out = [iv.sort_intervals(left.contig, left.start, left.end),
+               *iv.merge_intervals(left.contig, left.start, left.end),
+               *iv.merge_intervals(left.contig, left.start, left.end, adjacent=False),
+               iv.point_depth(left.contig, left.start, left.end, right.contig, right.start),
+               *rj.broadcast_region_join(left, right),
+               *rj.broadcast_region_join(right, left),
+               *rj.shuffle_region_join(left, right, sd, 700)]
+        cov = rj.find_coverage_regions(left)
+        out += [cov.contig, cov.start, cov.end]
+        for t in out:
+            assert t.device.type == dev and t.dtype == torch.int64
+        res[dev] = [t.cpu() for t in out]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_sharded_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """``transform_sharded`` in 4 shards on the card writes the CPU run's
+    parts; kernel 1 launches once per observed shard (one row chunk each
+    here) and once for the realigned part, kernel 2 never."""
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.parallel.sharded import transform_sharded
+
+    path = str(tmp_path / "in.sam")
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
+    stats = {dev: transform_sharded(path, str(tmp_path / dev), 4, batch_reads=1024,
+                                    device=dev) for dev in ("cuda", "cpu")}
+    launched = stats["cuda"]["kernel_launches"]
+    assert launched["observe_hist"] == stats["cuda"]["n_observed"] == stats["cuda"]["n_shards"] + 1
+    assert launched["pack_rows"] == launched["sw_fill"] == launched["sw_score"] == 0
+    parts = sorted(f for f in os.listdir(tmp_path / "cpu") if f.startswith("part-"))
+    assert len(parts) == stats["cpu"]["n_parts"] >= 4
+    assert sorted(f for f in os.listdir(tmp_path / "cuda") if f.startswith("part-")) == parts
+    for f in parts:
+        assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()

@@ -91,6 +91,21 @@ def test_streamed_transform_defaults_to_the_card(tmp_path):
             transform_streamed(str(tmp_path / "missing.sam"), str(tmp_path / "out"))
 
 
+def test_sharded_transform_defaults_to_the_card(tmp_path):
+    import inspect
+
+    from adam_tpu_torch.parallel import host_shuffle
+    from adam_tpu_torch.parallel.sharded import transform_sharded
+
+    for fn in (transform_sharded, host_shuffle.shuffle_alignments_to_shards,
+               host_shuffle.shuffle_bam_to_shards):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            transform_sharded(str(tmp_path / "missing.sam"), str(tmp_path / "out"), 2)
+        assert not (tmp_path / "out").exists()
+
+
 def test_realign_names_the_next_slice():
     """Realignment with a known-indel table, once left to a later slice,
     runs: on an empty dataset it returns the dataset as it was."""
@@ -126,7 +141,14 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.pipelines.trim",
                                     "adam_tpu_torch.utils.durability",
                                     "adam_tpu_torch.utils.faults",
-                                    "adam_tpu_torch.pipelines.streamed"])
+                                    "adam_tpu_torch.pipelines.streamed",
+                                    "adam_tpu_torch.parallel.partitioner",
+                                    "adam_tpu_torch.parallel.spill",
+                                    "adam_tpu_torch.parallel.host_shuffle",
+                                    "adam_tpu_torch.parallel.sharded",
+                                    "adam_tpu_torch.parallel.sharded_join",
+                                    "adam_tpu_torch.pipelines.region_join",
+                                    "adam_tpu_torch.ops.intervals"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys
