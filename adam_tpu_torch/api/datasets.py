@@ -2,8 +2,9 @@
 (the counterpart of ``adam_tpu/api/datasets.AlignmentDataset``: load and
 save by extension, the Arrow seam, the dataset-level transforms behind
 the non-streaming ``transform``, flagstat and the k-mer and q-mer
-counts), and the VCF's variants and genotypes (``GenotypeDataset``, the
-source of the known-sites tables).
+counts), genomic features (``FeatureDataset``), and variants and
+genotypes from a VCF or a genotype Parquet store (``GenotypeDataset``,
+also the source of the known-sites tables).
 
 Transforms return new datasets.  Each method that does tensor work takes
 ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain versions)."""
@@ -39,8 +40,8 @@ class AlignmentDataset:
 
     def save(self, path: str, sort_order: Optional[str] = None,
              compression: str = "zstd") -> None:
-        """Write by extension: ``.sam``, ``.bam``, else one Parquet file.
-        FASTQ output is not ported yet and raises."""
+        """Write by extension: ``.sam``, ``.bam``, ``.fq``/``.fastq``, else
+        one Parquet file."""
         p = str(path)
         if p.endswith(".sam"):
             from adam_tpu_torch.io import sam
@@ -51,14 +52,22 @@ class AlignmentDataset:
 
             sam.write_bam(p, self.batch, self.sidecar, self.header, sort_order)
         elif p.endswith((".fq", ".fastq")):
-            from adam_tpu_torch.io.context import _not_ported
+            from adam_tpu_torch.io import fastq
 
-            raise _not_ported(p, "FASTQ output")
+            fastq.write_fastq(p, self.batch, self.sidecar)
         else:
             from adam_tpu_torch.io import parquet
 
             parquet.save_alignments(p, self.batch, self.sidecar, self.header,
                                     compression=compression)
+
+    def save_paired_fastq(self, path1: str, path2: str, stringency="lenient") -> None:
+        """First-of-pair reads to ``path1``, second-of-pair to ``path2``
+        (:func:`adam_tpu_torch.io.fastq.write_paired_fastq`)."""
+        from adam_tpu_torch.io import fastq
+
+        fastq.write_paired_fastq(path1, path2, self.batch, self.sidecar,
+                                 stringency=stringency)
 
     def to_arrow(self):
         """-> pyarrow Table (AlignmentRecord layout, header in metadata)."""
@@ -177,12 +186,47 @@ class AlignmentDataset:
 
 
 @dataclass
+class FeatureDataset:
+    """Genomic features (GTF/BED/narrowPeak), the counterpart of
+    ``adam_tpu/api/datasets.FeatureDataset``: host columns
+    (:mod:`adam_tpu_torch.formats.features`)."""
+
+    batch: "object"  # formats.features.FeatureBatch
+
+    @staticmethod
+    def load(path: str, fmt=None) -> "FeatureDataset":
+        from adam_tpu_torch.io import features as fio
+
+        return FeatureDataset(fio.read_features(path, fmt))
+
+    def save(self, path: str) -> None:
+        from adam_tpu_torch.io import features as fio
+
+        fio.write_bed(path, self.batch)
+
+    def __len__(self) -> int:
+        return len(self.batch)
+
+    def filter_by_overlapping_region(self, contig, start, end):
+        return FeatureDataset(self.batch.filter_by_overlapping_region(contig, start, end))
+
+    def as_genes(self):
+        from adam_tpu_torch.models.genes import as_genes
+
+        return as_genes(self.batch)
+
+    def intervals(self, contig_names=None, device: str = "cuda"):
+        return self.batch.intervals(contig_names, device=device)
+
+
+@dataclass
 class GenotypeDataset:
     """Variant sites + per-sample calls (the counterpart of
-    ``adam_tpu/api/datasets.GenotypeDataset``, with the VCF load and the
-    two known-sites tables).  Variants and genotypes stay columnar
-    (:mod:`adam_tpu_torch.formats.variants`), linked by
-    ``genotypes.variant_idx``."""
+    ``adam_tpu/api/datasets.GenotypeDataset``): VCF and genotype-Parquet
+    load and save, the callset samples, the variant-keyed annotation
+    join, the allele count and the two known-sites tables.  Variants and
+    genotypes stay columnar (:mod:`adam_tpu_torch.formats.variants`),
+    linked by ``genotypes.variant_idx``."""
 
     variants: "object"  # formats.variants.VariantBatch
     genotypes: "object"  # formats.variants.GenotypeBatch
@@ -190,24 +234,64 @@ class GenotypeDataset:
 
     @staticmethod
     def load(path: str, **kw) -> "GenotypeDataset":
-        """.vcf / .vcf.gz -> the VCF reader (``contig_names=`` fixes the
-        contig index space, e.g. to the SAM header's)."""
+        """.vcf / .vcf.gz -> the VCF reader, anything else -> a genotype
+        Parquet directory (``contig_names=`` fixes the contig index space,
+        e.g. to a SAM header's)."""
         p = str(path)
-        if not p.endswith((".vcf", ".vcf.gz")):
-            raise ValueError(
-                f"{p!r}: the port loads genotypes from .vcf or .vcf.gz only "
-                "(the genotype Parquet reader is not ported)"
-            )
-        from adam_tpu_torch.io import vcf as vcf_io
+        if p.endswith((".vcf", ".vcf.gz")):
+            from adam_tpu_torch.io import vcf as vcf_io
 
-        return GenotypeDataset(*vcf_io.read_vcf(p, **kw))
+            return GenotypeDataset(*vcf_io.read_vcf(p, **kw))
+        from adam_tpu_torch.io import parquet
+
+        return GenotypeDataset(*parquet.load_genotypes(p, **kw))
+
+    def save(self, path: str, sort_on_save: bool = False) -> None:
+        """.vcf / .vcf.gz -> VCF text, anything else -> a genotype Parquet
+        directory; ``sort_on_save`` orders the sites by (contig, start)."""
+        p = str(path)
+        if p.endswith((".vcf", ".vcf.gz")):
+            from adam_tpu_torch.io import vcf as vcf_io
+
+            vcf_io.write_vcf(p, self.variants, self.genotypes, self.seq_dict, sort_on_save)
+        else:
+            from adam_tpu_torch.io import parquet
+
+            ds = self.sorted_by_position() if sort_on_save else self
+            parquet.save_genotypes(p, ds.variants, ds.genotypes, ds.seq_dict)
 
     def __len__(self) -> int:
         return len(self.variants)
 
+    def sorted_by_position(self) -> "GenotypeDataset":
+        """Variants ordered by (contig, start), genotype links remapped."""
+        order = np.lexsort((self.variants.start, self.variants.contig_idx))
+        inverse = np.empty(len(order), np.int32)
+        inverse[order] = np.arange(len(order), dtype=np.int32)
+        genotypes = replace(self.genotypes, variant_idx=inverse[self.genotypes.variant_idx])
+        return GenotypeDataset(self.variants.take(order), genotypes, self.seq_dict)
+
     @property
     def contig_names(self) -> list:
         return [r.name for r in self.seq_dict.records]
+
+    def callset_samples(self) -> list:
+        """The distinct sample ids."""
+        return list(self.genotypes.samples)
+
+    def variant_keys(self) -> np.ndarray:
+        return self.variants.variant_keys(self.contig_names)
+
+    def join_annotations(self, ann_keys, ann_values) -> list:
+        """Left outer join on the variant key: each site's annotation
+        value, None where unmatched."""
+        table = dict(zip(list(ann_keys), list(ann_values)))
+        return [table.get(k) for k in self.variant_keys()]
+
+    def allele_count(self):
+        from adam_tpu_torch.formats.variants import allele_counts
+
+        return allele_counts(self.variants, self.genotypes, self.contig_names)
 
     def snp_table(self):
         """Known-sites table for BQSR: every ref position of every variant

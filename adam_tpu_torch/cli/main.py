@@ -1,27 +1,35 @@
 """Command line of the port: ``python -m adam_tpu_torch`` with the verbs
-``transform``, ``flagstat``, ``depth``, ``view`` and ``count_kmers``.
+``transform``, ``flagstat``, ``depth``, ``view``, ``count_kmers``,
+``count_contig_kmers``, ``adam2fastq`` and the conversion verbs of
+``cli/conversions.py`` (``bam2adam``, ``vcf2adam``, ``anno2adam``,
+``adam2vcf``, ``fasta2adam``, ``features2adam``, ``wigfix2bed``).
 
 Flag spellings, stage order, checkpoint fingerprints and refusal messages
 follow the JAX package's CLI.  ``transform`` runs in one of three modes.
 
 Without ``-streaming`` it is the dataset-level transform (ADAM's classic
 ``transform``): load the whole input by extension (``.sam[.gz]``,
-``.bam``, Parquet), run the stages over the whole dataset, then save by
-the output's extension (``.sam``, ``.bam``, else one Parquet file)::
+``.bam``, ``.ifq``, ``.fq``/``.fastq``, ``.fa``/``.fasta``, Parquet; a
+contig-fragment store loads as reads), run the stages over the whole
+dataset, then save by the output's extension (``.sam``, ``.bam``,
+``.fq``/``.fastq``, else one Parquet file)::
 
     python -m adam_tpu_torch transform IN OUT [-trimReads -trimFromStart N
         -trimFromEnd N [-trimReadGroup RG]] [-qualityBasedTrim
         [-qualityThreshold Q] [-trimBeforeBQSR]] [-mark_duplicate_reads]
         [-realign_indels [-known_indels I.vcf]] [-recalibrate_base_qualities
         [-known_snps K.vcf] [-dump_observations CSV]] [-sort_reads]
-        [-checkpoint_dir DIR] [-force_load_bam | -force_load_parquet]
-        [--device cuda|cpu]
+        [-checkpoint_dir DIR] [-force_load_bam | -force_load_fastq |
+        -force_load_ifastq | -force_load_parquet] [-stringency S]
+        [-sort_fastq_output] [--device cuda|cpu]
 
 The stages run in the JAX order: trim, quality trim (here when
 ``-trimBeforeBQSR``), markdup, realign, BQSR, quality trim, sort.  With
 ``-checkpoint_dir`` each completed stage is saved there and a rerun of
 the same command over the same input resumes after the deepest completed
-stage (``pipelines/checkpoint.py``).
+stage (``pipelines/checkpoint.py``).  ``-stringency`` reaches the
+interleaved-FASTQ loader (pairing by name); ``-sort_fastq_output`` sorts
+a FASTQ output by read name.
 
 With ``-streaming`` it is the streamed markdup + realign + BQSR pipeline
 over a SAM or BAM file, written as Parquet parts::
@@ -94,6 +102,24 @@ projected when it ends in ``.adam`` or ``.parquet``).  OUTPUT gets one
 ``kmer, count`` line per k-mer, byte-identical to the JAX CLI's; with
 ``-printHistogram`` the histogram of counts goes to standard output, and
 the stage walls go to standard error as one JSON line.
+
+``count_contig_kmers`` is the JAX CLI's ``CountContigKmers``: the k-mers
+of a FASTA (``.fa``/``.fasta``, ``.gz`` too) or a contig-fragment store,
+windows across fragment joins counted once, the histogram on the card::
+
+    python -m adam_tpu_torch count_contig_kmers INPUT OUTPUT KMER_LENGTH \\
+        [-printHistogram] [--device cuda|cpu]
+
+``adam2fastq`` writes reads as FASTQ (a ``.adam``/``.parquet`` input read
+with ``readName``, ``sequence``, ``qual`` and ``flags`` projected unless
+``-no-projection``); with OUTPUT2 the pairs split into two mate files
+under ``-stringency``::
+
+    python -m adam_tpu_torch adam2fastq INPUT OUTPUT [OUTPUT2] [-no-projection]
+        [-stringency S] [--device cuda|cpu]
+
+The output files of both are byte-identical to the JAX CLI's, and the
+stage walls go to standard error as one JSON line.
 """
 
 from __future__ import annotations
@@ -102,8 +128,12 @@ import argparse
 import json
 import sys
 
+from adam_tpu_torch.cli import conversions
+
 
 def _parser() -> argparse.ArgumentParser:
+    """The parser; the verbs that check the device and then run carry
+    their handler as ``args.handler``."""
     ap = argparse.ArgumentParser(prog="adam_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
     # reference flags are single-dash long options: prefix matching would
@@ -113,8 +143,9 @@ def _parser() -> argparse.ArgumentParser:
         help="load, run read pre-processing stages, save (or -streaming: the "
         "streamed markdup + realign + BQSR over a SAM or BAM file)",
     )
-    p.add_argument("input", help="the SAM (.sam, .sam.gz), BAM or Parquet input")
-    p.add_argument("output", help="where to write the result: .sam, .bam, else "
+    p.add_argument("input", help="the SAM (.sam, .sam.gz), BAM, FASTQ (.fq, .fastq, "
+                   ".ifq), FASTA or Parquet input")
+    p.add_argument("output", help="where to write the result: .sam, .bam, .fq, else "
                    "Parquet (a part directory with -streaming)")
     p.add_argument("-streaming", action="store_true",
                    help="the streamed windowed pipeline over SAM/BAM input, "
@@ -179,14 +210,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-force_load_fastq", action="store_true")
     p.add_argument("-force_load_ifastq", action="store_true")
     p.add_argument("-force_load_parquet", action="store_true")
-    p.add_argument("-stringency", default="lenient",
-                   choices=["strict", "lenient", "silent"],
-                   help="validation stringency (accepted for parity: it governs "
-                   "the FASTQ paths, which are not ported)")
-    p.add_argument("-parquet_compression_codec", default="zstd",
-                   choices=["uncompressed", "snappy", "gzip", "zstd"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the tensor work runs (default: cuda)")
+    p.add_argument("-sort_fastq_output", action="store_true",
+                   help="sort a .fq/.fastq output by read name")
+    conversions.add_common(p)
     p = sub.add_parser(
         "flagstat", allow_abbrev=False,
         help="Print statistics on reads in an ADAM file (similar to samtools flagstat)",
@@ -239,11 +265,35 @@ def _parser() -> argparse.ArgumentParser:
                    help="accepted for parity; batches need no repartition")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the tensor work runs (default: cuda)")
+    p = sub.add_parser("count_contig_kmers", allow_abbrev=False,
+                       help="Counts the k-mers/q-mers from a contig dataset.")
+    p.add_argument("input", metavar="INPUT",
+                   help="The ADAM or FASTA file to count kmers from")
+    p.add_argument("output", metavar="OUTPUT")
+    p.add_argument("kmer_length", metavar="KMER_LENGTH", type=int)
+    p.add_argument("-printHistogram", action="store_true")
+    conversions.add_common(p)
+    p = sub.add_parser("adam2fastq", allow_abbrev=False, help="Convert BAM to FASTQ files")
+    p.add_argument("input", metavar="INPUT")
+    p.add_argument("output", metavar="OUTPUT")
+    p.add_argument("output2", metavar="OUTPUT2", nargs="?", default=None,
+                   help="all second-in-pair reads go here, if provided")
+    p.add_argument("-no-projection", dest="no_projection", action="store_true")
+    p.add_argument("-repartition", type=int, default=-1)
+    conversions.add_common(p)
+    p.set_defaults(handler=_adam2fastq)
+    sub.choices["count_contig_kmers"].set_defaults(handler=_count_contig_kmers)
+    conversions.configure(sub)
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if getattr(args, "handler", None) is not None:
+        from adam_tpu_torch.device import resolve_device
+
+        resolve_device(args.device)
+        return args.handler(args)
     if args.command == "count_kmers":
         return _count_kmers(args)
     if args.command == "flagstat":
@@ -298,6 +348,47 @@ def _count_kmers(args) -> int:
     stats = {"load_s": t1 - t0, "count_s": t2 - t1, "write_s": time.monotonic() - t2,
              "n_reads": ds.batch.n_valid(), "n_kmers": len(counts)}
     print(json.dumps(stats, sort_keys=True), file=sys.stderr)
+    return 0
+
+
+def _count_contig_kmers(args) -> int:
+    import time
+
+    from adam_tpu_torch.formats.fragments import count_contig_kmers
+    from adam_tpu_torch.io import context, parquet
+
+    t0 = time.monotonic()
+    if str(args.input).endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
+        fragments, _sd, _desc = context.load_fasta(args.input)
+    else:
+        fragments, _sd, _desc = parquet.load_fragments(args.input)
+    t1 = time.monotonic()
+    counts = count_contig_kmers(fragments, args.kmer_length, device=args.device)
+    t2 = time.monotonic()
+    _write_kmer_counts(counts, args.output, args.printHistogram)
+    stats = {"load_s": t1 - t0, "count_s": t2 - t1, "write_s": time.monotonic() - t2,
+             "n_fragments": fragments.n_rows, "n_kmers": len(counts)}
+    print(json.dumps(stats, sort_keys=True), file=sys.stderr)
+    return 0
+
+
+def _adam2fastq(args) -> int:
+    import time
+
+    from adam_tpu_torch.io import context, fastq
+
+    t0 = time.monotonic()
+    kw = {}
+    if not args.no_projection and str(args.input).endswith((".adam", ".parquet")):
+        kw["projection"] = ["readName", "sequence", "qual", "flags"]
+    ds = context.load_alignments(args.input, **kw)
+    t1 = time.monotonic()
+    if args.output2:
+        ds.save_paired_fastq(args.output, args.output2, stringency=args.stringency)
+    else:
+        fastq.write_fastq(args.output, ds.batch, ds.sidecar)
+    print(json.dumps({"load_s": t1 - t0, "write_s": time.monotonic() - t1,
+                      "n_reads": ds.batch.n_valid()}, sort_keys=True), file=sys.stderr)
     return 0
 
 
@@ -380,24 +471,20 @@ def _transform_dataset(args) -> int:
         run_stages,
     )
 
-    unported = {"-force_load_fastq": args.force_load_fastq,
-                "-force_load_ifastq": args.force_load_ifastq,
-                "output": str(args.output).endswith((".fq", ".fastq"))}
-    for what, asked in unported.items():
-        if asked:
-            print(f"transform: {what}: FASTQ is not ported to adam_tpu_torch yet "
-                  "(ROADMAP queue 1 item 7, other formats)", file=sys.stderr)
-            return 2
     dev = resolve_device(args.device)
     launches0 = kernels.launches()
     stats: dict = {"device": str(dev), "stages_run": []}
     t_start = time.monotonic()
     if args.force_load_bam:
         ds = context.load_bam(args.input)
+    elif args.force_load_fastq:
+        ds = context.load_fastq(args.input)
+    elif args.force_load_ifastq:
+        ds = context.load_interleaved_fastq(args.input, stringency=args.stringency)
     elif args.force_load_parquet:
         ds = context.load_parquet_alignments(args.input)
     else:
-        ds = context.load_alignments(args.input)
+        ds = context.load_alignments(args.input, stringency=args.stringency)
     stats["load_s"] = time.monotonic() - t_start
     stats["n_reads"] = ds.batch.n_valid()
     if args.repartition != -1 or args.coalesce != -1:
@@ -485,6 +572,14 @@ def _transform_dataset(args) -> int:
         })
     ds = run_stages(ds, stages, checkpoint_dir=args.checkpoint_dir, fingerprint=fp)
     t0 = time.monotonic()
+    if args.sort_fastq_output and str(args.output).endswith((".fq", ".fastq")):
+        # name-sorted FASTQ export
+        import numpy as np
+
+        from adam_tpu_torch.formats.strings import StringColumn
+
+        names = StringColumn.of(ds.sidecar.names).to_fixed_bytes()
+        ds = ds.take_rows(np.argsort(names, kind="stable"))
     ds.save(args.output, compression=args.parquet_compression_codec)
     stats["save_s"] = time.monotonic() - t0
     stats["n_rows_out"] = ds.batch.n_valid()

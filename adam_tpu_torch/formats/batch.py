@@ -259,3 +259,85 @@ class ReadSidecar:
 
     def __len__(self) -> int:
         return len(self.names)
+
+
+def pack_reads(
+    records,
+    lmax: int | None = None,
+    cmax: int | None = None,
+    round_rows_to: int = 1,
+) -> tuple[ReadBatch, ReadSidecar]:
+    """Build a host (ReadBatch, ReadSidecar) from parsed per-read dicts
+    (copied from ``adam_tpu/formats/batch.pack_reads``).
+
+    Each record dict carries: name, flags, contig_idx, start (0-based, -1
+    unmapped), mapq, cigar (string), seq (string), qual (phred string or
+    '*'), mate_contig_idx, mate_start, tlen, read_group_idx, attrs (raw tag
+    string), md (or None).
+    """
+    n = len(records)
+    if n == 0:
+        return ReadBatch.empty(), ReadSidecar()
+    if lmax is None:
+        lmax = max((len(r["seq"]) if r["seq"] not in ("*", None) else 0) for r in records)
+        lmax = max(lmax, 1)
+    if cmax is None:
+        cmax = 1
+        for r in records:
+            c = r.get("cigar") or "*"
+            cmax = max(cmax, sum(1 for ch in c if not ch.isdigit()))
+    nrows = _round_up(n, round_rows_to)
+
+    b = ReadBatch.empty(nrows, lmax, cmax)
+    s_names, s_attrs, s_md, s_oq, s_tfs, s_tfe = [], [], [], [], [], []
+
+    for i, r in enumerate(records):
+        seq = r["seq"] if r["seq"] not in ("*", None) else ""
+        qual = r.get("qual")
+        L = len(seq)
+        if L:
+            b.bases[i, :L] = schema.encode_bases(seq)
+        if qual and qual != "*":
+            b.quals[i, : len(qual)] = schema.encode_quals(qual)
+            b.has_qual[i] = True
+        elif L:
+            b.quals[i, :L] = 0
+        b.lengths[i] = L
+        b.flags[i] = r["flags"]
+        b.contig_idx[i] = r.get("contig_idx", -1)
+        start = r.get("start", -1)
+        b.start[i] = start
+        b.mapq[i] = r.get("mapq", 255)
+        cig = r.get("cigar") or "*"
+        ops, lens, ncig = schema.encode_cigar(cig, cmax)
+        b.cigar_ops[i] = ops
+        b.cigar_lens[i] = lens
+        b.cigar_n[i] = ncig
+        _, rlen = schema.cigar_str_stats(cig) if cig != "*" else (0, 0)
+        # end = start for mapped reads whose CIGAR consumes no reference
+        # (e.g. fully soft-clipped); -1 is reserved for unplaced reads.
+        b.end[i] = start + rlen if start >= 0 else -1
+        b.mate_contig_idx[i] = r.get("mate_contig_idx", -1)
+        b.mate_start[i] = r.get("mate_start", -1)
+        b.tlen[i] = r.get("tlen", 0)
+        b.read_group_idx[i] = r.get("read_group_idx", -1)
+        b.valid[i] = True
+
+        s_names.append(r.get("name", ""))
+        s_attrs.append(r.get("attrs", ""))
+        s_md.append(r.get("md"))
+        s_oq.append(r.get("orig_qual"))
+        s_tfs.append(r.get("trimmed_from_start", 0))
+        s_tfe.append(r.get("trimmed_from_end", 0))
+
+    # padding rows keep empty sidecar slots so columns stay row-parallel
+    pad = nrows - n
+    side = ReadSidecar(
+        names=s_names + [""] * pad,
+        attrs=s_attrs + [""] * pad,
+        md=s_md + [None] * pad,
+        orig_quals=s_oq + [None] * pad,
+        trimmed_from_start=np.asarray(s_tfs + [0] * pad, np.int32),
+        trimmed_from_end=np.asarray(s_tfe + [0] * pad, np.int32),
+    )
+    return b, side

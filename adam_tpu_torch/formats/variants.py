@@ -8,7 +8,8 @@ model of ``adam_tpu/formats/variants.py``).
 
 Sites are always bi-allelic rows: the VCF reader splits multi-allelic
 records at ingest (``adam_tpu_torch/io/vcf.py``).  These are the columns
-the known-sites tables (``models/snp_table.py``) are built from.
+the known-sites tables (``models/snp_table.py``) are built from, with the
+site statistics and the allele count at the end.
 """
 
 from __future__ import annotations
@@ -81,6 +82,18 @@ class VariantBatch:
             self.sidecar.take(idx),
         )
 
+    def variant_keys(self, contig_names) -> np.ndarray:
+        """Join key per site: ``contig:start:ref:alt``."""
+        return np.array(
+            [
+                f"{contig_names[c]}:{s}:{r}:{a or ''}"
+                for c, s, r, a in zip(
+                    self.contig_idx, self.start,
+                    self.sidecar.ref_allele, self.sidecar.alt_allele,
+                )
+            ]
+        )
+
 
 @dataclass
 class GenotypeBatch:
@@ -123,3 +136,60 @@ class GenotypeBatch:
             split_from_multiallelic=self.split_from_multiallelic[idx],
             genotype_filters=[self.genotype_filters[i] for i in idx],
         )
+
+
+# ------------------------------------------------------------------ stats
+
+def rms_doubles(values: np.ndarray) -> float:
+    """Root mean square."""
+    v = np.asarray(values, np.float64)
+    return float(np.sqrt(np.mean(v**2))) if v.size else 0.0
+
+
+def rms_phred(phreds: np.ndarray) -> int:
+    """RMS over phred scores via success-probability space
+    (GenotypesToVariantsConverter.rms(Seq[Int]), :46-52)."""
+    p = np.asarray(phreds, np.float64)
+    if p.size == 0:
+        return 0
+    succ = 1.0 - 10.0 ** (-p / 10.0)
+    r = rms_doubles(succ)
+    err = max(1.0 - r, 1e-300)
+    return int(round(-10.0 * np.log10(err)))
+
+
+def variant_quality_from_genotypes(genotype_probs: np.ndarray) -> float:
+    """P(at least one variant) = 1 - prod(1 - Pg)
+    (GenotypesToVariantsConverter.variantQualityFromGenotypes, :69-70)."""
+    v = np.asarray(genotype_probs, np.float64)
+    return float(1.0 - np.prod(v))
+
+
+def allele_counts(
+    variants: VariantBatch, genotypes: GenotypeBatch, contig_names
+):
+    """Observed allele counts per site: for every called allele, Ref maps
+    to the reference allele string, Alt to the alternate; OtherAlt/NoCall
+    are dropped (AlleleCountHelper.chooseAllele semantics,
+    adam-cli AlleleCount.scala:46-64).
+
+    Returns a list of (contig_name, position, allele, count) sorted by
+    position then allele.
+    """
+    vi = np.repeat(genotypes.variant_idx, 2)
+    codes = genotypes.alleles.reshape(-1)
+    keep = (codes == ALLELE_REF) | (codes == ALLELE_ALT)
+    vi, codes = vi[keep], codes[keep]
+    out: dict = {}
+    side = variants.sidecar
+    for v, c in zip(vi, codes):
+        allele = side.ref_allele[v] if c == ALLELE_REF else side.alt_allele[v]
+        if allele is None:
+            continue
+        key = (
+            contig_names[variants.contig_idx[v]],
+            int(variants.start[v]),
+            allele,
+        )
+        out[key] = out.get(key, 0) + 1
+    return sorted((k[0], k[1], k[2], n) for k, n in out.items())

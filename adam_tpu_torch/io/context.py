@@ -1,13 +1,14 @@
 """Load dispatch by file extension (copied from ``adam_tpu/io/context.py``,
-the alignment loaders only).
+the read loaders).
 
 ``.sam``/``.sam.gz`` and ``.bam`` go through the SAM/BAM codecs; a
 directory or glob of SAM/BAM files loads as one dataset with merged
-header dictionaries; anything else is read as Parquet (a part file or a
-part directory).  :func:`iter_alignment_batches` is the windowed face of
-the same dispatch, for the out-of-core consumers.  The FASTQ, interleaved-FASTQ and FASTA loaders, and
-the contig-fragment Parquet store, are not ported yet: those paths raise
-``NotImplementedError`` rather than being routed elsewhere.
+header dictionaries; ``.ifq`` is interleaved FASTQ, ``.fq``/``.fastq``
+unpaired FASTQ, ``.fa``/``.fasta`` FASTA contigs turned into unaligned
+reads; anything else is read as Parquet (a part file or a part
+directory), where a contig-fragment store (a file whose schema has
+``fragmentSequence``) also becomes reads.  :func:`iter_alignment_batches`
+is the windowed face of the same dispatch, for the out-of-core consumers.
 """
 
 from __future__ import annotations
@@ -19,15 +20,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from adam_tpu_torch.api.datasets import AlignmentDataset
-from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
+from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar, pack_reads
 from adam_tpu_torch.io.sam import SamHeader
-
-_NOT_PORTED = ("{}: {} input is not ported to adam_tpu_torch yet "
-               "(ROADMAP queue 1 item 7, other formats)")
-
-
-def _not_ported(path: str, what: str):
-    return NotImplementedError(_NOT_PORTED.format(path, what))
 
 
 def load_bam(path: str, **kw) -> AlignmentDataset:
@@ -40,6 +34,51 @@ def load_sam(path: str, **kw) -> AlignmentDataset:
     from adam_tpu_torch.io import sam
 
     return AlignmentDataset(*sam.read_sam(path, **kw))
+
+
+def load_fastq(path: str, **kw) -> AlignmentDataset:
+    from adam_tpu_torch.io import fastq
+
+    return AlignmentDataset(*fastq.read_fastq(path, **kw))
+
+
+def load_interleaved_fastq(path: str, **kw) -> AlignmentDataset:
+    from adam_tpu_torch.io import fastq
+
+    return AlignmentDataset(*fastq.read_interleaved_fastq(path, **kw))
+
+
+def load_paired_fastq(path1: str, path2: str) -> AlignmentDataset:
+    """Two mate files as one dataset: the first file's reads flagged
+    first of pair, then the second's flagged second of pair."""
+    from adam_tpu_torch.io import fastq
+
+    b1, s1, _ = fastq.read_fastq(path1, set_first_of_pair=True)
+    b2, s2, _ = fastq.read_fastq(path2, set_second_of_pair=True)
+    return AlignmentDataset(ReadBatch.concat([b1, b2]), ReadSidecar.concat([s1, s2]),
+                            SamHeader())
+
+
+def load_fasta(path: str, fragment_length: int = 10_000):
+    """FASTA -> (FragmentBatch, SequenceDictionary, descriptions)."""
+    from adam_tpu_torch.io import fasta
+
+    return fasta.read_fasta(path, fragment_length)
+
+
+def fragments_to_alignments(fragments, seq_dict) -> AlignmentDataset:
+    """FragmentBatch -> a dataset of synthetic reads, one per run of
+    adjacent fragments."""
+    from adam_tpu_torch.formats.fragments import to_read_records
+
+    batch, side = pack_reads(to_read_records(fragments, seq_dict.names))
+    return AlignmentDataset(batch, side, SamHeader(seq_dict=seq_dict))
+
+
+def load_fasta_reads(path: str, fragment_length: int = 10_000) -> AlignmentDataset:
+    """FASTA contigs as synthetic reads."""
+    fragments, seq_dict, _ = load_fasta(path, fragment_length=fragment_length)
+    return fragments_to_alignments(fragments, seq_dict)
 
 
 def load_parquet_alignments(
@@ -55,7 +94,8 @@ def load_parquet_alignments(
 def load_header(path: str) -> SamHeader:
     """Header-only peek (sequence dictionary and read groups) without
     materializing the reads: SAM, BAM, directories and globs of them
-    (headers merged), and Parquet parts (the schema metadata)."""
+    (headers merged), and Parquet parts (the schema metadata); other
+    inputs are loaded to read their header."""
     p = str(path)
     multi = _expand_multi(p)
     if multi is not None and (len(multi) > 1 or multi[0] != p):
@@ -71,16 +111,20 @@ def load_header(path: str) -> SamHeader:
         for _, _, header in sam.iter_bam_batches(p, batch_reads=1):
             return header
         return SamHeader()
-    _refuse_unported(p, base)
-    # Parquet stores carry the header in their schema metadata
+    # Parquet stores carry the header in their schema metadata, read
+    # without materializing any rows; FASTQ, FASTA and anything without
+    # it load whole
     import pyarrow.parquet as pq
 
     from adam_tpu_torch.io.parquet import _header_from_meta
 
-    parts = _parquet_parts(p)
-    header = _header_from_meta(pq.read_schema(parts[0] if parts else p).metadata)
-    if len(header.seq_dict.names) or len(header.read_groups):
-        return header
+    try:
+        parts = _parquet_parts(p)
+        header = _header_from_meta(pq.read_schema(parts[0] if parts else p).metadata)
+        if len(header.seq_dict.names) or len(header.read_groups):
+            return header
+    except (OSError, ValueError):  # not a Parquet file (pyarrow's ArrowInvalid)
+        pass
     return load_alignments(path).header
 
 
@@ -158,23 +202,24 @@ def load_alignments_multi(paths: Sequence[str], **kw) -> AlignmentDataset:
     )
 
 
-def _refuse_unported(path: str, base: str) -> None:
-    if base.endswith(".ifq"):
-        raise _not_ported(path, "interleaved FASTQ")
-    if base.endswith((".fq", ".fastq")):
-        raise _not_ported(path, "FASTQ")
-    if base.endswith((".fa", ".fasta")):
-        raise _not_ported(path, "FASTA")
-
-
-def load_alignments(path: str, **kw) -> AlignmentDataset:
+def load_alignments(path: str, stringency: Optional[str] = None,
+                    **kw) -> AlignmentDataset:
     """Load reads by extension: ``.sam[.gz]``, ``.bam``, a directory or
-    glob of SAM/BAM files (one dataset, merged dictionaries), or Parquet
-    (``projection=`` and ``predicate=`` apply there)."""
+    glob of SAM/BAM files (one dataset, merged dictionaries), ``.ifq``,
+    ``.fq``/``.fastq``, ``.fa``/``.fasta``, or Parquet (``projection=``
+    and ``predicate=`` apply there).  ``stringency`` reaches the loader
+    that validates pairing (interleaved FASTQ); the others ignore it.
+
+    A Parquet *file* whose schema has ``fragmentSequence`` is a
+    contig-fragment store and loads as synthetic reads; the sniff reads
+    the path's own schema, as the JAX package does, so a directory is
+    always read as alignment parts."""
     multi = _expand_multi(path)
     if multi is not None:
         if len(multi) == 1:
-            return load_alignments(multi[0], **kw)
+            return load_alignments(multi[0], stringency=stringency, **kw)
+        if stringency is not None:
+            kw["stringency"] = stringency
         return load_alignments_multi(multi, **kw)
     p = str(path)
     base = p[:-3] if p.endswith(".gz") else p
@@ -182,14 +227,25 @@ def load_alignments(path: str, **kw) -> AlignmentDataset:
         return load_sam(path, **kw)
     if base.endswith(".bam"):
         return load_bam(path, **kw)
-    _refuse_unported(p, base)
-    # a contig-fragment store is sniffed by its schema, as in the JAX
-    # package, and refused
+    if base.endswith(".ifq"):
+        if stringency is not None:
+            kw["stringency"] = stringency
+        return load_interleaved_fastq(path, **kw)
+    if base.endswith((".fq", ".fastq")):
+        return load_fastq(path, **kw)
+    if base.endswith((".fa", ".fasta")):
+        return load_fasta_reads(path)
     import pyarrow.parquet as pq
 
-    parts = _parquet_parts(p)
-    if "fragmentSequence" in pq.read_schema(parts[0] if parts else p).names:
-        raise _not_ported(p, "contig-fragment Parquet")
+    try:
+        names = set(pq.read_schema(path).names)
+    except (OSError, ValueError):  # a directory, or not a Parquet file (ArrowInvalid)
+        names = set()
+    if "fragmentSequence" in names:
+        from adam_tpu_torch.io import parquet
+
+        fragments, seq_dict, _ = parquet.load_fragments(path)
+        return fragments_to_alignments(fragments, seq_dict)
     return load_parquet_alignments(path, **kw)
 
 

@@ -1,6 +1,6 @@
-"""Parquet parts: the part writer, the single-file dataset save and the
-alignment read path of ``adam_tpu/io/parquet.py`` (copied; the genotype,
-feature and fragment stores are not ported).
+"""Parquet storage (copied from ``adam_tpu/io/parquet.py``): the part
+writer, the single-file dataset save and the alignment read path, and
+the genotype, feature and contig-fragment stores.
 
 The on-disk format is the JAX package's: the AlignmentRecord field
 layout, the header dictionaries as JSON under the schema metadata key
@@ -12,7 +12,12 @@ imported only inside the functions that write or read.
 
 The reader (:func:`load_alignments`) is the inverse of the writer: a
 part file or a part directory -> (ReadBatch, ReadSidecar, SamHeader),
-with column projection and a pyarrow filter pushed into the read.
+with column projection and a pyarrow filter pushed into the read.  The
+genotype store is a directory of ``variants.parquet`` and
+``genotypes.parquet`` (recognized INFO keys as typed ``ann_*`` columns),
+the feature and fragment stores one file each; the genotype and fragment
+stores carry the sequence dictionary as JSON under
+``b"adam_tpu.seq_dict"``.
 """
 
 from __future__ import annotations
@@ -668,3 +673,425 @@ def from_arrow_alignments(table) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
         trimmed_from_end=_int_col(table, "basesTrimmedFromEnd", n, 0, np.int32),
     )
     return batch, side, header
+
+
+# --------------------------------------------------------------------------
+# the genotype store (vcf2adam / anno2adam target): a directory of two
+# tables, variants.parquet + genotypes.parquet, linked by
+# genotype.variantIdx (a sites-only VCF gives an empty genotype table)
+# --------------------------------------------------------------------------
+def _seq_dict_meta(seq_dict) -> dict[bytes, bytes]:
+    meta = [
+        {"name": r.name, "length": r.length, "md5": r.md5, "url": r.url}
+        for r in seq_dict
+    ]
+    return {b"adam_tpu.seq_dict": json.dumps(meta).encode()}
+
+
+def _seq_dict_from_meta(meta) -> SequenceDictionary:
+    if not meta or b"adam_tpu.seq_dict" not in meta:
+        return SequenceDictionary(())
+    return SequenceDictionary(tuple(
+        SequenceRecord(s["name"], s["length"], md5=s.get("md5"), url=s.get("url"))
+        for s in json.loads(meta[b"adam_tpu.seq_dict"])
+    ))
+
+
+def save_genotypes(path: str, variants, genotypes, seq_dict, compression: str = "zstd",
+                   typed_annotations=None) -> None:
+    """``typed_annotations``: ``{adamKey: [value-or-None per variant]}``
+    (``formats/annotations.split_typed``), stored as typed ``ann_<adamKey>``
+    columns; by default the recognized INFO keys are split out (``{}``
+    keeps every key in the generic map)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(path, exist_ok=True)
+    vside = variants.sidecar
+    cols = {
+        "contig": pa.array([seq_dict.names[c] for c in variants.contig_idx], pa.string()),
+        "start": pa.array(variants.start.tolist(), pa.int64()),
+        "end": pa.array(variants.end.tolist(), pa.int64()),
+        "referenceAllele": pa.array(vside.ref_allele, pa.string()),
+        "alternateAllele": pa.array(vside.alt_allele, pa.string()),
+        "qual": pa.array([None if np.isnan(q) else float(q) for q in variants.qual],
+                         pa.float64()),
+        "filtersApplied": pa.array(variants.filters_applied.tolist(), pa.bool_()),
+        "filtersPassed": pa.array(variants.passing.tolist(), pa.bool_()),
+        "name": pa.array(vside.names, pa.string()),
+        "filters": pa.array(vside.filters, pa.list_(pa.string())),
+        "annotations": pa.array([json.dumps(d) for d in vside.info], pa.string()),
+        # row index: a pushed-down variant predicate selects the matching
+        # genotype rows without reading the whole genotype table
+        "variantIdx": pa.array(np.arange(len(variants.start), dtype=np.int32), pa.int32()),
+    }
+    if typed_annotations is None:
+        from adam_tpu_torch.formats.annotations import split_typed
+
+        typed_annotations, leftover = split_typed(vside.info)
+        if typed_annotations:
+            cols["annotations"] = pa.array([json.dumps(d) for d in leftover], pa.string())
+    if typed_annotations:
+        from adam_tpu_torch.formats.annotations import arrow_type
+
+        for adam_key in sorted(typed_annotations):
+            cols[f"ann_{adam_key}"] = pa.array(typed_annotations[adam_key],
+                                               arrow_type(adam_key))
+    vt = pa.table(cols).replace_schema_metadata(_seq_dict_meta(seq_dict))
+    pq.write_table(vt, os.path.join(path, "variants.parquet"),
+                   **parquet_codec_kw(compression))
+
+    gt = pa.table({
+        "variantIdx": pa.array(genotypes.variant_idx.tolist(), pa.int32()),
+        "sampleId": pa.array([genotypes.samples[s] for s in genotypes.sample_idx],
+                             pa.string()),
+        "allele0": pa.array(genotypes.alleles[:, 0].tolist(), pa.int8()),
+        "allele1": pa.array(genotypes.alleles[:, 1].tolist(), pa.int8()),
+        "genotypeQuality": pa.array(genotypes.gq.tolist(), pa.int32()),
+        "readDepth": pa.array(genotypes.dp.tolist(), pa.int32()),
+        "referenceReadDepth": pa.array(genotypes.ref_depth.tolist(), pa.int32()),
+        "alternateReadDepth": pa.array(genotypes.alt_depth.tolist(), pa.int32()),
+        "isPhased": pa.array(genotypes.phased.tolist(), pa.bool_()),
+        "genotypeLikelihoods": pa.array(genotypes.pl.tolist(), pa.list_(pa.int32())),
+        "nonReferenceLikelihoods": pa.array(genotypes.nonref_pl.tolist(),
+                                            pa.list_(pa.int32())),
+        "splitFromMultiAllelic": pa.array(genotypes.split_from_multiallelic.tolist(),
+                                          pa.bool_()),
+        "genotypeFilters": pa.array(list(genotypes.genotype_filters), pa.string()),
+    })
+    pq.write_table(gt, os.path.join(path, "genotypes.parquet"),
+                   **parquet_codec_kw(compression))
+
+
+def _likelihood_matrix(col, m: int, what: str) -> np.ndarray:
+    """Genotype likelihood lists -> i32[m, 3]; lists of another length
+    (a file written elsewhere) are padded with 0 or truncated, with a
+    warning."""
+    if not m:
+        return np.zeros((0, 3), np.int32)
+    rows = col.to_pylist()
+    if all(r is not None and len(r) == 3 for r in rows):
+        return np.array(rows, np.int32).reshape(m, 3)
+    import logging
+
+    logging.getLogger(__name__).warning(
+        "%s: lists are not uniformly length 3; padding/truncating "
+        "(bi-allelic PL layout expected)", what,
+    )
+    out = np.zeros((m, 3), np.int32)
+    for i, r in enumerate(rows):
+        if r:
+            out[i, : min(3, len(r))] = r[:3]
+    return out
+
+
+def _pylist_or(t, name: str, n: int, default):
+    """Column as pylist, or defaults when projected away."""
+    if name in t.column_names:
+        return t[name].to_pylist()
+    return [default] * n
+
+
+def load_genotypes(path: str, contig_names=None, projection=None, filters=None):
+    """-> (VariantBatch, GenotypeBatch, SequenceDictionary).
+
+    ``contig_names`` fixes the contig index space (as in
+    :func:`adam_tpu_torch.io.vcf.read_vcf`).  ``projection`` is a subset
+    of VARIANT_FIELDS | GENOTYPE_FIELDS (``formats/fields.py``): only those
+    columns are read, the rest come back as defaults.  ``filters`` is a
+    pyarrow predicate over the variant columns, pushed into the variants
+    read; the matching genotype rows are selected by a pushed
+    ``variantIdx in ...`` predicate and re-indexed."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from adam_tpu_torch.formats import variants as vf
+    from adam_tpu_torch.formats.fields import (
+        GENOTYPE_FIELDS,
+        VARIANT_FIELDS,
+        validate_projection,
+    )
+
+    v_cols = g_cols = None
+    if projection is not None:
+        proj = set(projection)
+        bad = sorted(proj - (VARIANT_FIELDS | GENOTYPE_FIELDS))
+        if bad:
+            raise ValueError(f"unknown genotype/variant projection field(s) {bad}")
+        v_cols = validate_projection(
+            sorted(proj & VARIANT_FIELDS), VARIANT_FIELDS,
+            ("contig", "start", "end", "referenceAllele", "alternateAllele", "variantIdx"),
+            "variant",
+        )
+        g_cols = validate_projection(
+            sorted(proj & GENOTYPE_FIELDS), GENOTYPE_FIELDS,
+            ("variantIdx", "sampleId", "allele0", "allele1"), "genotype",
+        )
+    v_path = os.path.join(path, "variants.parquet")
+    if v_cols is not None:
+        # legacy stores predate the variantIdx row-index column
+        present = set(pq.read_schema(v_path).names)
+        if "annotations" in v_cols:
+            # the annotations field means all of them, the typed ann_*
+            # columns included
+            v_cols = v_cols + sorted(c for c in present if c.startswith("ann_"))
+        v_cols = [c for c in v_cols if c in present]
+    vt = pq.read_table(v_path, columns=v_cols, filters=filters)
+    if contig_names is not None:
+        seq_dict = SequenceDictionary(tuple(SequenceRecord(n, 0) for n in contig_names))
+    else:
+        seq_dict = _seq_dict_from_meta(vt.schema.metadata)
+    name_idx = {n: i for i, n in enumerate(seq_dict.names)}
+    contigs = vt["contig"].to_pylist()
+    for c in contigs:
+        if c not in name_idx:
+            name_idx[c] = len(name_idx)
+    names = [None] * len(name_idx)
+    for n, i in name_idx.items():
+        names[i] = n
+    if len(names) > len(seq_dict.names):
+        seq_dict = SequenceDictionary(tuple(
+            list(seq_dict.records)
+            + [SequenceRecord(n, 0) for n in names[len(seq_dict.names):]]
+        ))
+
+    nv = vt.num_rows
+    info = [json.loads(s) if s else {} for s in _pylist_or(vt, "annotations", nv, None)]
+    ann_cols = [c for c in vt.column_names if c.startswith("ann_")]
+    if ann_cols:
+        # typed annotation columns merge back under their VCF keys
+        from adam_tpu_torch.formats.annotations import merge_typed
+
+        cols = {}
+        for c in ann_cols:
+            vals = vt[c].to_pylist()
+            if vt.schema.field(c).type == pa.float32():
+                # legacy float32 store: keep the column's own precision
+                vals = [None if v is None else np.float32(v) for v in vals]
+            cols[c[4:]] = vals
+        info = merge_typed(cols, info)
+    side = vf.VariantSidecar(
+        ref_allele=vt["referenceAllele"].to_pylist(),
+        alt_allele=vt["alternateAllele"].to_pylist(),
+        names=_pylist_or(vt, "name", nv, None),
+        filters=_pylist_or(vt, "filters", nv, None),
+        info=info,
+    )
+    quals = [np.nan if q is None else q for q in _pylist_or(vt, "qual", nv, None)]
+    variants = vf.VariantBatch(
+        contig_idx=np.array([name_idx[c] for c in contigs], np.int32),
+        start=np.array(vt["start"].to_pylist(), np.int64),
+        end=np.array(vt["end"].to_pylist(), np.int64),
+        ref_len=np.array([len(r) for r in side.ref_allele], np.int32),
+        alt_len=np.array([len(a) if a else 0 for a in side.alt_allele], np.int32),
+        qual=np.array(quals, np.float32),
+        filters_applied=np.array(_pylist_or(vt, "filtersApplied", nv, False), bool),
+        passing=np.array(_pylist_or(vt, "filtersPassed", nv, False), bool),
+        sidecar=side,
+    )
+
+    g_path = os.path.join(path, "genotypes.parquet")
+    g_filters = None
+    remap = None
+    if filters is not None:
+        # the surviving variant rows select the genotype rows, whose
+        # variant_idx then re-indexes into the filtered variant batch
+        if "variantIdx" in vt.column_names:
+            keep = np.asarray(vt["variantIdx"].combine_chunks(), np.int64)
+        else:
+            # a legacy store without the row-index column: read it whole
+            # with a synthesized row index and filter in memory
+            expr = (filters if isinstance(filters, pc.Expression)
+                    else pq.filters_to_expression(filters))
+            full = pq.read_table(v_path)
+            full = full.append_column(
+                "__row", pa.array(np.arange(full.num_rows, dtype=np.int64)))
+            keep = np.asarray(full.filter(expr)["__row"].combine_chunks(), np.int64)
+        keep = np.sort(keep)
+        g_filters = pc.field("variantIdx").isin(pa.array(keep))
+        remap = keep
+    gt = pq.read_table(g_path, columns=g_cols, filters=g_filters)
+    sample_names = gt["sampleId"].to_pylist()
+    samples: list = []
+    sample_idx = {}
+    si = []
+    for s in sample_names:
+        if s not in sample_idx:
+            sample_idx[s] = len(samples)
+            samples.append(s)
+        si.append(sample_idx[s])
+    m = gt.num_rows
+    vidx = np.array(gt["variantIdx"].to_pylist(), np.int64)
+    if remap is not None and m:
+        vidx = np.searchsorted(remap, vidx)
+
+    def _pl(name):
+        if name in gt.column_names:
+            return _likelihood_matrix(gt[name], m, name)
+        return np.zeros((m, 3), np.int32)
+
+    genotypes = vf.GenotypeBatch(
+        variant_idx=vidx.astype(np.int32),
+        sample_idx=np.array(si, np.int32),
+        alleles=np.stack([
+            np.array(gt["allele0"].to_pylist(), np.int8),
+            np.array(gt["allele1"].to_pylist(), np.int8),
+        ], axis=1) if m else np.zeros((0, 2), np.int8),
+        gq=np.clip(np.array(_pylist_or(gt, "genotypeQuality", m, 0), np.int32),
+                   0, 32767).astype(np.int16),
+        dp=np.array(_pylist_or(gt, "readDepth", m, -1), np.int32),
+        ref_depth=np.array(_pylist_or(gt, "referenceReadDepth", m, -1), np.int32),
+        alt_depth=np.array(_pylist_or(gt, "alternateReadDepth", m, -1), np.int32),
+        phased=np.array(_pylist_or(gt, "isPhased", m, False), bool),
+        pl=_pl("genotypeLikelihoods"),
+        nonref_pl=_pl("nonReferenceLikelihoods"),
+        split_from_multiallelic=np.array(_pylist_or(gt, "splitFromMultiAllelic", m, False),
+                                         bool),
+        samples=samples,
+        genotype_filters=_pylist_or(gt, "genotypeFilters", m, None),
+    )
+    return variants, genotypes, seq_dict
+
+
+# --------------------------------------------------------------------------
+# the feature store (features2adam target)
+# --------------------------------------------------------------------------
+def save_features(path: str, feats, compression: str = "zstd") -> None:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    side = feats.sidecar
+    t = pa.table({
+        "contig": pa.array([feats.contig_names[c] for c in feats.contig_idx], pa.string()),
+        "start": pa.array(feats.start.tolist(), pa.int64()),
+        "end": pa.array(feats.end.tolist(), pa.int64()),
+        "strand": pa.array(feats.strand.tolist(), pa.int8()),
+        "score": pa.array([None if np.isnan(s) else float(s) for s in feats.score],
+                          pa.float64()),
+        "featureId": pa.array(side.feature_id, pa.string()),
+        "featureType": pa.array(side.feature_type, pa.string()),
+        "source": pa.array(side.source, pa.string()),
+        "parentIds": pa.array(side.parent_ids, pa.list_(pa.string())),
+        "attributes": pa.array([json.dumps(d) for d in side.attributes], pa.string()),
+    })
+    pq.write_table(t, path, **parquet_codec_kw(compression))
+
+
+def load_features(path: str, projection=None, filters=None):
+    """``projection``: a subset of FEATURE_FIELDS; ``filters``: a pyarrow
+    predicate pushed into the read."""
+    import pyarrow.parquet as pq
+
+    from adam_tpu_torch.formats.features import FeatureBatch, FeatureSidecar
+    from adam_tpu_torch.formats.fields import FEATURE_FIELDS, validate_projection
+
+    cols = validate_projection(projection, FEATURE_FIELDS, ("contig", "start", "end"),
+                               "feature")
+    t = pq.read_table(path, columns=cols, filters=filters)
+    n = t.num_rows
+    contigs = t["contig"].to_pylist()
+    names: list = []
+    idx = {}
+    ci = []
+    for c in contigs:
+        if c not in idx:
+            idx[c] = len(names)
+            names.append(c)
+        ci.append(idx[c])
+    scores = [np.nan if s is None else s for s in _pylist_or(t, "score", n, None)]
+    return FeatureBatch(
+        contig_idx=np.array(ci, np.int32),
+        start=np.array(t["start"].to_pylist(), np.int64),
+        end=np.array(t["end"].to_pylist(), np.int64),
+        strand=np.array(_pylist_or(t, "strand", n, 0), np.int8),
+        score=np.array(scores, np.float32),
+        contig_names=names,
+        sidecar=FeatureSidecar(
+            feature_id=_pylist_or(t, "featureId", n, None),
+            feature_type=_pylist_or(t, "featureType", n, None),
+            source=_pylist_or(t, "source", n, None),
+            parent_ids=_pylist_or(t, "parentIds", n, None),
+            attributes=[json.loads(s) if s else {}
+                        for s in _pylist_or(t, "attributes", n, None)],
+        ),
+    )
+
+
+# --------------------------------------------------------------------------
+# the contig-fragment store (fasta2adam target)
+# --------------------------------------------------------------------------
+def save_fragments(path: str, fragments, seq_dict, descriptions=None,
+                   compression: str = "zstd") -> None:
+    """``descriptions``: contig index -> description, as a dict or as
+    ``read_fasta``'s per-contig list."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    b = fragments.to_numpy()
+    rows = np.flatnonzero(np.asarray(b.valid))
+    if isinstance(descriptions, (list, tuple)):
+        descriptions = {i: d for i, d in enumerate(descriptions) if d}
+    t = pa.table({
+        "contig": pa.array([seq_dict.names[int(b.contig_idx[i])] for i in rows],
+                           pa.string()),
+        "description": pa.array([(descriptions or {}).get(int(b.contig_idx[i]))
+                                 for i in rows], pa.string()),
+        "fragmentSequence": pa.array([schema.decode_bases(b.bases[i], int(b.lengths[i]))
+                                      for i in rows], pa.string()),
+        "fragmentStartPosition": pa.array([int(b.start[i]) for i in rows], pa.int64()),
+        "fragmentNumber": pa.array([int(b.fragment_number[i]) for i in rows], pa.int32()),
+        "numberOfFragmentsInContig": pa.array([int(b.num_fragments[i]) for i in rows],
+                                              pa.int32()),
+    }).replace_schema_metadata(_seq_dict_meta(seq_dict))
+    pq.write_table(t, path, **parquet_codec_kw(compression))
+
+
+def load_fragments(path: str, projection=None, filters=None):
+    """-> (FragmentBatch, SequenceDictionary, descriptions dict).
+    ``projection``: a subset of FRAGMENT_FIELDS; ``filters``: a pyarrow
+    predicate pushed into the read.  Contigs missing from the stored
+    dictionary extend it (length 0)."""
+    import pyarrow.parquet as pq
+
+    from adam_tpu_torch.formats.fields import FRAGMENT_FIELDS, validate_projection
+    from adam_tpu_torch.formats.fragments import FragmentBatch
+
+    cols = validate_projection(
+        projection, FRAGMENT_FIELDS,
+        ("contig", "fragmentSequence", "fragmentStartPosition", "fragmentNumber",
+         "numberOfFragmentsInContig"),
+        "fragment",
+    )
+    t = pq.read_table(path, columns=cols, filters=filters)
+    seq_dict = _seq_dict_from_meta(t.schema.metadata)
+    name_idx = {n: i for i, n in enumerate(seq_dict.names)}
+    contigs = t["contig"].to_pylist()
+    extra = []
+    for c in contigs:
+        if c not in name_idx:
+            name_idx[c] = len(name_idx)
+            extra.append(SequenceRecord(c, 0))
+    if extra:
+        seq_dict = SequenceDictionary(tuple(list(seq_dict.records) + extra))
+    seqs = t["fragmentSequence"].to_pylist()
+    n = t.num_rows
+    fmax = max((len(s) for s in seqs), default=1)
+    out = FragmentBatch(
+        bases=np.full((n, fmax), schema.BASE_PAD, np.uint8),
+        lengths=np.zeros(n, np.int32),
+        contig_idx=np.zeros(n, np.int32),
+        start=np.array(t["fragmentStartPosition"].to_pylist(), np.int64),
+        fragment_number=np.array(t["fragmentNumber"].to_pylist(), np.int32),
+        num_fragments=np.array(t["numberOfFragmentsInContig"].to_pylist(), np.int32),
+        valid=np.ones(n, bool),
+    )
+    descriptions = {}
+    descs = _pylist_or(t, "description", n, None)
+    for i in range(n):
+        out.bases[i, : len(seqs[i])] = schema.encode_bases(seqs[i])
+        out.lengths[i] = len(seqs[i])
+        out.contig_idx[i] = name_idx[contigs[i]]
+        if descs[i]:
+            descriptions[int(out.contig_idx[i])] = descs[i]
+    return out, seq_dict, descriptions

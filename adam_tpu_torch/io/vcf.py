@@ -1,4 +1,4 @@
-"""VCF reader with bi-allelic splitting (the port's copy of the read path
+"""VCF reader with bi-allelic splitting, and the writer (the port's copy
 of ``adam_tpu/io/vcf.py``).
 
 Every emitted site is bi-allelic: multi-allelic records are split per
@@ -239,3 +239,113 @@ def read_vcf(path: str, contig_names: Optional[list] = None):
         g_rows["ft"],
     )
     return variants, genotypes, seq_dict
+
+
+def write_vcf(
+    path: str,
+    variants: vf.VariantBatch,
+    genotypes: vf.GenotypeBatch,
+    seq_dict: SequenceDictionary,
+    sort_on_save: bool = False,
+) -> None:
+    """Emit VCF 4.1: 1-based coordinates, every genotype as
+    GT:AD:DP:GQ:PL:FT, the rows optionally coordinate-sorted
+    (``sort_on_save``)."""
+    names = [r.name for r in seq_dict.records]
+    order = np.arange(len(variants))
+    if sort_on_save:
+        order = np.lexsort(
+            (variants.start, variants.contig_idx)
+        )
+
+    # genotype rows grouped by variant
+    by_variant: dict[int, list[int]] = {}
+    for gi, vi in enumerate(genotypes.variant_idx):
+        by_variant.setdefault(int(vi), []).append(gi)
+
+    gt_sep = {True: "|", False: "/"}
+    code_to_num = {vf.ALLELE_REF: "0", vf.ALLELE_ALT: "1",
+                   vf.ALLELE_OTHER_ALT: ".", vf.ALLELE_NO_CALL: "."}
+
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.1\n")
+        for r in seq_dict.records:
+            if r.length:
+                fh.write(f"##contig=<ID={r.name},length={r.length}>\n")
+        fh.write(
+            '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+            '##FORMAT=<ID=AD,Number=.,Type=Integer,Description="Allelic depths">\n'
+            '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">\n'
+            '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">\n'
+            '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Phred likelihoods">\n'
+            '##FORMAT=<ID=FT,Number=1,Type=String,Description="Genotype-level filter">\n'
+        )
+        fh.write(
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+            + ("\tFORMAT\t" + "\t".join(genotypes.samples)
+               if genotypes.samples else "")
+            + "\n"
+        )
+        for vi in order:
+            vi = int(vi)
+            side = variants.sidecar
+            chrom = names[variants.contig_idx[vi]]
+            pos1 = int(variants.start[vi]) + 1
+            vid = side.names[vi] or "."
+            ref = side.ref_allele[vi]
+            alt = side.alt_allele[vi] or NON_REF
+            q = variants.qual[vi]
+            qual = "." if np.isnan(q) else f"{float(q):.2f}"
+            if not variants.filters_applied[vi]:
+                filt = "."
+            elif variants.passing[vi]:
+                filt = "PASS"
+            else:
+                filt = ";".join(side.filters[vi]) or "PASS"
+            info_d = side.info[vi]
+            info_s = (
+                ";".join(
+                    k if v is True else f"{k}={v}"
+                    for k, v in info_d.items()
+                )
+                if info_d
+                else "."
+            )
+            cols = [chrom, str(pos1), vid, ref, alt, qual, filt, info_s]
+            gis = by_variant.get(vi, [])
+            if genotypes.samples:
+                cols.append("GT:AD:DP:GQ:PL:FT")
+                per_sample = {int(genotypes.sample_idx[g]): g for g in gis}
+                ref_block = side.alt_allele[vi] is None
+                for si in range(len(genotypes.samples)):
+                    g = per_sample.get(si)
+                    if g is None:
+                        cols.append("./.")
+                        continue
+                    sep = gt_sep[bool(genotypes.phased[g])]
+                    gt = sep.join(
+                        code_to_num[int(a)] for a in genotypes.alleles[g]
+                    )
+                    ad = (
+                        f"{genotypes.ref_depth[g]},{genotypes.alt_depth[g]}"
+                        if genotypes.ref_depth[g] >= 0
+                        and genotypes.alt_depth[g] >= 0
+                        else "."
+                    )
+                    dp = str(genotypes.dp[g]) if genotypes.dp[g] >= 0 else "."
+                    gq = str(genotypes.gq[g]) if genotypes.gq[g] >= 0 else "."
+                    # reference-model rows round-trip their likelihoods
+                    # through the PL column (read_vcf routes them back to
+                    # nonref_pl when ALT is <NON_REF>)
+                    pls = (
+                        genotypes.nonref_pl[g] if ref_block
+                        else genotypes.pl[g]
+                    )
+                    pl = (
+                        ",".join(str(int(p)) for p in pls if p != vf.PL_MISSING)
+                        if pls[0] != vf.PL_MISSING
+                        else "."
+                    )
+                    ft = genotypes.genotype_filters[g] or "."
+                    cols.append(":".join([gt, ad, dp, gq, pl, ft]))
+            fh.write("\t".join(cols) + "\n")

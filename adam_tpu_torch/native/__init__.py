@@ -168,6 +168,12 @@ def _bind(lib: ct.CDLL) -> None:
         _u8p, _i64p, ct.c_int32,
         ct.c_int64, _u8p, ct.c_int64, ct.c_int,
     ]
+    lib.fastq_encode.restype = ct.c_int64
+    lib.fastq_encode.argtypes = [
+        _i32p, _i32p, _u8p, _u8p, _u8p, ct.c_int64,
+        _u8p, _i64p, ct.c_int, ct.c_int64, _u8p, ct.c_int64,
+        ct.c_int,
+    ]
     lib.ref_positions.restype = None
     lib.ref_positions.argtypes = [
         _u8p, _i32p, _i32p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
@@ -628,6 +634,39 @@ def sam_encode(batch, side, rg_names: Sequence[str],
         raise ValueError("sam_encode: a record's contig or read group lies "
                          f"outside the header's {len(contig_names)} references "
                          f"and {len(rg_names)} read groups")
+    return out[:got].tobytes()
+
+
+def fastq_encode(batch, side, select, add_suffix: bool) -> bytes:
+    """Format the ``select``-ed rows as FASTQ text: reverse-strand reads
+    reverse-complemented back to sequencer orientation (quals reversed),
+    ``/1`` ``/2`` on paired names when ``add_suffix``.  A sidecar with
+    fewer names than rows raises (the JAX binding returns None there)."""
+    from adam_tpu_torch.formats.strings import StringColumn
+
+    L_ = lib()
+    b = batch.to_numpy()
+    n = b.n_rows
+    names = StringColumn.of(side.names)
+    if len(names) < n:
+        raise ValueError(f"fastq_encode: {len(names)} names for {n} rows")
+    lens = np.where(select, b.lengths, 0).astype(np.int64)
+    cap = int(int(names.offsets[-1]) + 2 * int(lens.sum()) + 16 * n + 64)
+    out = np.empty(cap, np.uint8)
+    sel = np.ascontiguousarray(select, np.uint8)
+    flags = np.ascontiguousarray(b.flags, np.int32)
+    lengths = np.ascontiguousarray(b.lengths, np.int32)
+    bases = np.ascontiguousarray(b.bases, np.uint8).reshape(-1)
+    quals = np.ascontiguousarray(b.quals, np.uint8).reshape(-1)
+    got = L_.fastq_encode(
+        flags.ctypes.data_as(_i32p), lengths.ctypes.data_as(_i32p),
+        _u8_ptr(sel), _u8_ptr(bases), _u8_ptr(quals), ct.c_int64(b.lmax),
+        _u8_ptr(names.buf), names.offsets.ctypes.data_as(_i64p),
+        ct.c_int(1 if add_suffix else 0),
+        ct.c_int64(n), _u8_ptr(out), ct.c_int64(cap), ct.c_int(_nthreads()),
+    )
+    if got < 0:
+        raise RuntimeError("fastq_encode: output capacity exceeded")
     return out[:got].tobytes()
 
 

@@ -83,7 +83,7 @@ class BinnedIntervalSpill:
     def touched_bins(self) -> list[int]:
         return sorted(self._counts)
 
-    def read_bin(self, b: int, device="cpu") -> tuple[IntervalArrays, torch.Tensor]:
+    def read_bin(self, b: int, device) -> tuple[IntervalArrays, torch.Tensor]:
         """-> (intervals, row ids) of one bin's spilled rows, on ``device``."""
         with open(self._path(b), "rb") as fh:
             mat = np.frombuffer(fh.read(), "<i8").astype(np.int64).reshape(-1, self._ROW)

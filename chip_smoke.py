@@ -97,6 +97,21 @@ Phases, each of which fails the script on any error:
    -bin_size 100000`` (32 genome bins) on the card, each timed, their
    reports byte-identical; ``view -c -F 1024`` on the card, whose count
    must equal the reads less phase 4's duplicates;
+4k. the other file formats, no hand kernel launched: ``adam2fastq`` of
+   the main path's parts into two mate files, interleaved here and read
+   back through ``transform pairs.ifq out.adam -force_load_ifastq`` (the
+   reads, as a multiset of name, sequence and quality, phase 4's in
+   sequencer orientation); ``transform <parts> out.fq
+   -sort_fastq_output`` (names in order); ``fasta2adam`` and
+   ``count_contig_kmers 21`` of a synthetic FASTA of E. coli K-12
+   MG1655's length (4,641,652 bp) with N runs, on the FASTA and on the
+   fragment store (the k-mer files byte-identical; the histogram timed
+   on the card as k-mers/s, and the load, count and write walls);
+   ``vcf2adam`` then ``adam2vcf`` of a generated trio VCF (100,000 sites,
+   GT:AD:DP:GQ:PL), which must give back the same records (its data
+   lines, the FT that ``adam2vcf`` adds aside);
+   ``features2adam`` of a generated GTF of 20,000 genes x 2 transcripts
+   x 5 exons; ``bam2adam`` of 4e's BAM;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -112,7 +127,11 @@ Phases, each of which fails the script on any error:
    ``transform -shards 4`` (part directories byte-identical, file for
    file), and ``depth`` (both forms) and ``view`` (SAM text and ``-c``)
    on the reads-model run's parts, whose standard output must be
-   byte-identical.
+   byte-identical; ``count_contig_kmers 21`` on a 3-contig FASTA and its
+   fragment store, ``adam2fastq`` (single and paired) on the reads-model
+   run's parts, ``transform -mark_duplicate_reads -sort_fastq_output`` to
+   ``.fq`` and ``transform -force_load_ifastq`` of the paired output
+   interleaved: output files byte-identical.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -143,6 +162,11 @@ SEED = 7
 SHARDS = 8              # 4i: the sharded transform's genome-bin shards
 PARITY_SHARDS = 4       # phase 5's sharded leg
 DEPTH_STREAM_BIN = 100_000  # 4j: -stream's bin width (32 bins over 4 x 800 kb)
+ECOLI_BP = 4_641_652    # 4k: E. coli K-12 MG1655 (GenBank U00096.3)
+CONTIG_K = 21           # 4k: count_contig_kmers' k
+TRIO_SITES = 100_000    # 4k: the trio VCF's sites
+GTF_GENES = 20_000      # 4k: about a human annotation's protein-coding genes
+PARITY_CONTIGS = (600_000, 250_000, 9_999)  # phase 5's FASTA
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES_PER_SM = 128         # Hopper: an add, max, compare or select per lane per clock
 SW_BLOCK_SHAPE = (1024, 160, 384)  # 150 bp reads: sw_fill's block route
@@ -910,8 +934,8 @@ def check_bam(work: str, sam: str, main_adam: str, device: str = "cuda") -> dict
     _log(f"BAM markdup-only path: {got_md}, {md['reads_per_s']:.0f} reads/s, launches "
          f"{md_lv}; stage walls: {_stage_walls(md)}")
     shutil.rmtree(out_dir)
-    os.unlink(bam)
-    return {**rec, "stats": st, "launches": lv, "variant_launches": vv,
+    # the BAM stays for 4k's bam2adam, which deletes it
+    return {**rec, "bam_path": bam, "stats": st, "launches": lv, "variant_launches": vv,
             "rows_check_s": rows_s, "markdup_only_stats": md,
             "markdup_only_launches": md_lv}
 
@@ -1278,6 +1302,387 @@ def check_parity_sharded_depth_view(work: str, sam: str, parts: str, vcf: str) -
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 4k: the other file formats
+# ---------------------------------------------------------------------------
+def make_fasta(path: str, lengths, seed: int, n_runs: int = 5) -> list:
+    """A FASTA of random contigs (80-column lines), each with ``n_runs``
+    runs of N (10 bp to 5 kb) -> the sequences."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seqs = []
+    with open(path, "w") as fh:
+        for i, length in enumerate(lengths):
+            s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)].copy()
+            for at in rng.integers(0, max(length - 5000, 1), n_runs):
+                s[at: at + int(rng.integers(10, 5000))] = ord("N")
+            seq = s.tobytes().decode()
+            seqs.append(seq)
+            fh.write(f">contig{i} synthetic, seed {seed}\n")
+            fh.writelines(seq[j: j + 80] + "\n" for j in range(0, length, 80))
+    return seqs
+
+
+TRIO = ("NA12878", "NA12891", "NA12892")
+
+
+def make_trio_vcf(path: str, n_sites: int, seed: int) -> None:
+    """A trio VCF of ``n_sites`` bi-allelic sites (10% insertions) on 3
+    contigs, FORMAT GT:AD:DP:GQ:PL, INFO with typed keys (DP, MQ, QD)
+    beside an untyped one (AF): a call set whose VCF -> store -> VCF
+    round trip returns the same records.  The columns are drawn at once."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    contigs = ("chr20", "chr21", "chr22")
+    n, s = n_sites, len(TRIO)
+    chrom = np.repeat(np.arange(len(contigs)), -(-n // len(contigs)))[:n]
+    pos = np.empty(n, np.int64)
+    for c in range(len(contigs)):
+        at = chrom == c
+        pos[at] = np.cumsum(rng.integers(1, 1200, int(at.sum()))) + 10_000
+    bases = np.array(list("ACGT"))
+    ref = rng.integers(0, 4, n)
+    alt = bases[(ref + rng.integers(1, 4, n)) % 4]
+    ref = bases[ref]
+    ins = rng.random(n) < 0.1
+    ins_len = rng.integers(1, 6, n)
+    ins_bases = bases[rng.integers(0, 4, (n, 5))]
+    alt = [r + "".join(b[:k]) if i else a
+           for r, a, i, k, b in zip(ref, alt, ins, ins_len, ins_bases)]
+    gt = np.sort(rng.integers(0, 2, (n, s, 2)), axis=2)
+    ad = rng.integers(0, 40, (n, s, 2))
+    gq = rng.integers(1, 99, (n, s))
+    pl = rng.integers(0, 400, (n, s, 3))
+    np.put_along_axis(pl, gt.sum(axis=2)[..., None], 0, axis=2)
+    qual = rng.random(n) * 1000
+    af, dp, mq = rng.random(n), rng.integers(10, 300, n), rng.integers(20, 61, n)
+    qd = np.round(rng.random(n) * 30, 2)
+
+    def calls(i):
+        return "\t".join(
+            f"{gt[i, j, 0]}/{gt[i, j, 1]}:{ad[i, j, 0]},{ad[i, j, 1]}:{ad[i, j].sum()}:"
+            f"{gq[i, j]}:{pl[i, j, 0]},{pl[i, j, 1]},{pl[i, j, 2]}" for j in range(s))
+
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.1\n")
+        fh.writelines(f"##contig=<ID={c},length={60_000_000}>\n" for c in contigs)
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(TRIO) + "\n")
+        for i in range(n):
+            q = float(qd[i])  # the digits adam2vcf writes back
+            q = str(int(q)) if q.is_integer() else repr(q)
+            fh.write(f"{contigs[chrom[i]]}\t{pos[i]}\t{'rs%d' % i if i % 3 == 0 else '.'}\t"
+                     f"{ref[i]}\t{alt[i]}\t{qual[i]:.2f}\t{'PASS' if i % 5 else 'LowQual'}\t"
+                     f"AF={af[i]:.3f};DP={dp[i]};MQ={mq[i]};QD={q}\tGT:AD:DP:GQ:PL\t"
+                     + calls(i) + "\n")
+
+
+def make_gtf(path: str, n_genes: int, seed: int, n_tx: int = 2, n_exons: int = 5) -> int:
+    """A GTF of ``n_genes`` genes, each with ``n_tx`` transcripts of
+    ``n_exons`` exons, on 22 contigs -> its number of feature lines."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = 0
+    with open(path, "w") as fh:
+        fh.write("#!genome-build synthetic\n")
+        for g in range(n_genes):
+            chrom, strand = f"chr{1 + g % 22}", "+-"[g % 2]
+            start = int(rng.integers(1, 200_000_000))
+            exon_len = rng.integers(50, 400, n_exons)
+            intron = rng.integers(100, 5000, n_exons)
+            end = start + int((exon_len + intron).sum())
+            gid = f"ENSG{g:011d}"
+            fh.write(f'{chrom}\tsynthetic\tgene\t{start}\t{end}\t.\t{strand}\t.\t'
+                     f'gene_id "{gid}"; gene_name "G{g}"; gene_biotype "protein_coding";\n')
+            n += 1
+            for t in range(n_tx):
+                tid = f"ENST{g:09d}{t:02d}"
+                fh.write(f'{chrom}\tsynthetic\ttranscript\t{start}\t{end}\t.\t{strand}\t.\t'
+                         f'gene_id "{gid}"; transcript_id "{tid}";\n')
+                n += 1
+                s = start
+                for e in range(n_exons):
+                    e_end = s + int(exon_len[e]) - 1 - 10 * t
+                    fh.write(f'{chrom}\tsynthetic\texon\t{s}\t{e_end}\t.\t{strand}\t.\t'
+                             f'gene_id "{gid}"; transcript_id "{tid}"; '
+                             f'exon_number "{e + 1}";\n')
+                    n += 1
+                    s += int(exon_len[e] + intron[e])
+    return n
+
+
+def _fastq_records(path: str) -> list:
+    with open(path) as fh:
+        lines = fh.read().split("\n")
+    return ["\n".join(lines[i: i + 4]) for i in range(0, len(lines) - 1, 4)]
+
+
+def interleave_mates(fq1: str, fq2: str, out: str) -> int:
+    """Mate files -> one interleaved FASTQ, each first mate followed by
+    the second of its name -> the pairs written."""
+    second = {r[1: r.index("\n") - 2]: r for r in _fastq_records(fq2)}
+    n = 0
+    with open(out, "w") as fh:
+        for r in _fastq_records(fq1):
+            fh.write(r + "\n" + second.pop(r[1: r.index("\n") - 2]) + "\n")
+            n += 1
+    if second:
+        raise AssertionError(f"{len(second)} second mates without a first")
+    return n
+
+
+_COMPLEMENT = str.maketrans("ACGTN", "TGCAN")
+
+
+def _sequencer_rows(parts: str):
+    """The reads of a part directory as FASTQ gives them back: (name,
+    sequence, quality), reverse-strand reads reverse-complemented."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    tbl = pa.concat_tables([
+        pq.read_table(os.path.join(parts, f), columns=["readName", "sequence", "qual", "flags"])
+        for f in sorted(os.listdir(parts)) if f.startswith("part-")])
+    seqs, quals = tbl.column("sequence").to_pylist(), tbl.column("qual").to_pylist()
+    for i in (tbl.column("flags").to_numpy() & 0x10).nonzero()[0]:
+        seqs[i] = seqs[i].translate(_COMPLEMENT)[::-1]
+        quals[i] = quals[i][::-1]
+    return pa.table({"readName": tbl.column("readName"), "sequence": pa.array(seqs),
+                     "qual": pa.array(quals)})
+
+
+def _rows_sorted(tbl):
+    return tbl.sort_by([(c, "ascending") for c in tbl.column_names])
+
+
+def _vcf_body(path: str, drop_ft: bool = False) -> list:
+    """The data lines of a VCF; with ``drop_ft`` the FT key and each
+    call's FT value (which ``adam2vcf`` writes, "." where the input had
+    none) are cut off."""
+    with open(path) as fh:
+        lines = [ln.rstrip("\n") for ln in fh if not ln.startswith("#")]
+    if not drop_ft:
+        return lines
+    out = []
+    for ln in lines:
+        cols = ln.split("\t")
+        if cols[8].endswith(":FT"):
+            cols[8] = cols[8][:-3]
+            cols[9:] = [c.rsplit(":", 1)[0] for c in cols[9:]]
+        out.append("\t".join(cols))
+    return out
+
+
+def _cli_timed(argv) -> tuple:
+    """The port's CLI -> (stdout, the stderr JSON line or None, wall s)."""
+    t0 = time.monotonic()
+    out, err = _cli(argv)
+    wall = time.monotonic() - t0
+    last = err.strip().splitlines()[-1] if err.strip() else ""
+    return out, (json.loads(last) if last.startswith("{") else None), wall
+
+
+def check_other_formats(work: str, main_adam: str, bam: str) -> dict:
+    """Phase 4k on the main path's parts and 4e's BAM -> its record."""
+    import statistics
+
+    import pyarrow.parquet as pq
+    import torch
+
+    from adam_tpu_torch.formats.fragments import flank_fragments
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops import kernels, kmer
+
+    rec = {}
+    kernels.reset_launches()
+    # -- FASTQ: paired export, interleave, read back, sorted export --------
+    fq1, fq2 = os.path.join(work, "m1.fq"), os.path.join(work, "m2.fq")
+    _, st, wall = _cli_timed(["adam2fastq", main_adam, fq1, fq2, "--device", "cuda"])
+    rec["adam2fastq_paired"] = {"wall_s": wall, **st, "bytes": os.path.getsize(fq1)
+                                + os.path.getsize(fq2)}
+    t0 = time.monotonic()
+    ifq = os.path.join(work, "pairs.ifq")
+    pairs = interleave_mates(fq1, fq2, ifq)
+    rec["interleave_s"] = time.monotonic() - t0
+    os.unlink(fq1)
+    os.unlink(fq2)
+    if 2 * pairs != MAIN_READS:
+        raise AssertionError(f"4k: adam2fastq wrote {pairs} pairs for {MAIN_READS} reads")
+    back = os.path.join(work, "from_ifq.adam")
+    out, _, wall = _cli_timed(["transform", ifq, back, "-force_load_ifastq", "--device",
+                               "cuda"])
+    rec["transform_ifq"] = {"wall_s": wall, **json.loads(out.strip().splitlines()[-1])}
+    os.unlink(ifq)
+    t0 = time.monotonic()
+    got = pq.read_table(back, columns=["readName", "sequence", "qual"]).replace_schema_metadata(
+        None)
+    if got.num_rows != MAIN_READS or not _rows_sorted(got).equals(
+            _rows_sorted(_sequencer_rows(main_adam).cast(got.schema))):
+        raise AssertionError("4k: the FASTQ round trip's reads differ from phase 4's")
+    rec["round_trip_check_s"] = time.monotonic() - t0
+    os.unlink(back)
+    sorted_fq = os.path.join(work, "sorted.fq")
+    out, _, wall = _cli_timed(["transform", main_adam, sorted_fq, "-sort_fastq_output",
+                               "--device", "cuda"])
+    rec["transform_sorted_fq"] = {"wall_s": wall, **json.loads(out.strip().splitlines()[-1])}
+    with open(sorted_fq) as fh:  # sorted by name, the mates' /1 /2 aside
+        names = [n[:-2] if n.endswith(("/1", "/2")) else n
+                 for n in fh.read().split("\n")[:-1:4]]
+    if len(names) != MAIN_READS or names != sorted(names):
+        raise AssertionError("4k: -sort_fastq_output wrote unsorted or missing records")
+    os.unlink(sorted_fq)
+    _log(f"4k FASTQ: adam2fastq (paired) {rec['adam2fastq_paired']['wall_s']:.3f} s, "
+         f"interleave {rec['interleave_s']:.3f} s, transform -force_load_ifastq "
+         f"{rec['transform_ifq']['wall_s']:.3f} s (load {rec['transform_ifq']['load_s']:.3f} "
+         f"s), reads equal phase 4's as a multiset of (name, sequence, quality) (checked in "
+         f"{rec['round_trip_check_s']:.1f} s); transform -sort_fastq_output "
+         f"{rec['transform_sorted_fq']['wall_s']:.3f} s")
+
+    # -- FASTA, the fragment store and the contig k-mers -------------------
+    fa, store = os.path.join(work, "ecoli.fa"), os.path.join(work, "ecoli.adam")
+    seqs = make_fasta(fa, [ECOLI_BP], SEED)
+    _, st, wall = _cli_timed(["fasta2adam", fa, store, "--device", "cuda"])
+    rec["fasta2adam"] = {"wall_s": wall, **st}
+    files = {}
+    for src in (fa, store):
+        txt = src + ".kmers.txt"
+        _, st, wall = _cli_timed(["count_contig_kmers", src, txt, str(CONTIG_K),
+                                  "--device", "cuda"])
+        rec[f"count_contig_kmers_{os.path.splitext(src)[1][1:]}"] = {"wall_s": wall, **st}
+        files[src] = _file_hash(txt)
+        os.unlink(txt)
+    windows = sum(max(len(s) - CONTIG_K + 1, 0) for s in seqs)
+    if files[fa] != files[store] or st["n_kmers"] == 0:
+        raise AssertionError("4k: count_contig_kmers on the FASTA and on the store differ")
+    frags = flank_fragments(context.load_fasta(fa)[0], CONTIG_K - 1).to("cuda")
+    s, counts, head = kmer.device_kmer_histogram(frags.bases, frags.lengths, frags.valid,
+                                                 CONTIG_K)
+    if int(counts[head].long().sum()) != windows or int(head.sum()) != st["n_kmers"]:
+        raise AssertionError(f"4k: the contig histogram counted {int(counts[head].sum())} "
+                             f"of {windows} windows")
+    del s, counts, head
+    secs = _timed_reps(lambda: kmer.device_kmer_histogram(
+        frags.bases, frags.lengths, frags.valid, CONTIG_K), torch.cuda.synchronize)
+    hist_ms = _time_ms(lambda: kmer.device_kmer_histogram(
+        frags.bases, frags.lengths, frags.valid, CONTIG_K), iters=10, warm=1)
+    nominal = frags.n_rows * (frags.fmax - CONTIG_K + 1)
+    rec["contig_histogram"] = {
+        "k": CONTIG_K, "contig_bp": ECOLI_BP, "fragments": frags.n_rows,
+        "width": frags.fmax, "kmer_windows": windows, "windows_nominal": nominal,
+        "distinct_kmers": st["n_kmers"], "s": secs, "median_s": statistics.median(secs),
+        "device_ms": hist_ms, "kmers_per_s": windows / (hist_ms / 1e3),
+        "kmers_per_s_wall_median": windows / statistics.median(secs)}
+    del frags
+    h = rec["contig_histogram"]
+    _log(f"4k contigs: {ECOLI_BP} bp, {h['fragments']} fragments of width {h['width']}; "
+         f"fasta2adam {rec['fasta2adam']['wall_s']:.3f} s; count_contig_kmers {CONTIG_K} "
+         f"on the FASTA / the store: "
+         + " / ".join(f"wall {rec[k]['wall_s']:.3f} s (load {rec[k]['load_s']:.3f}, count "
+                      f"{rec[k]['count_s']:.3f}, write {rec[k]['write_s']:.3f})"
+                      for k in ("count_contig_kmers_fa", "count_contig_kmers_adam"))
+         + f"; files byte-identical, {st['n_kmers']} distinct k-mers; histogram "
+         f"{hist_ms:.4f} ms on the card (CUDA events) = {h['kmers_per_s']:.6g} k-mers/s "
+         f"over {windows} windows ({nominal} with padding), wall median "
+         f"{h['median_s']:.5f} s")
+
+    # -- VCF: vcf2adam, adam2vcf, the same records back --------------------
+    vcf, gstore, vcf_back = (os.path.join(work, n) for n in ("trio.vcf", "trio.adam",
+                                                             "trio.back.vcf"))
+    t0 = time.monotonic()
+    make_trio_vcf(vcf, TRIO_SITES, SEED)
+    rec["make_trio_vcf_s"] = time.monotonic() - t0
+    _, st, wall = _cli_timed(["vcf2adam", vcf, gstore, "--device", "cuda"])
+    rec["vcf2adam"] = {"wall_s": wall, **st}
+    _, st, wall = _cli_timed(["adam2vcf", gstore, vcf_back, "--device", "cuda"])
+    rec["adam2vcf"] = {"wall_s": wall, **st}
+    t0 = time.monotonic()
+    if (st["n_variants"] != TRIO_SITES or st["n_genotypes"] != 3 * TRIO_SITES
+            or _vcf_body(vcf) != _vcf_body(vcf_back, drop_ft=True)):
+        raise AssertionError("4k: vcf2adam + adam2vcf changed the records")
+    rec["vcf_check_s"] = time.monotonic() - t0
+    _log(f"4k VCF ({TRIO_SITES} sites x {len(TRIO)} samples): vcf2adam "
+         f"{rec['vcf2adam']['wall_s']:.3f} s (read {rec['vcf2adam']['load_s']:.3f}, save "
+         f"{rec['vcf2adam']['save_s']:.3f}), adam2vcf {rec['adam2vcf']['wall_s']:.3f} s "
+         f"(load {rec['adam2vcf']['load_s']:.3f}, write {rec['adam2vcf']['save_s']:.3f}); "
+         f"the same records back")
+
+    # -- GTF: features2adam ------------------------------------------------
+    gtf, fstore = os.path.join(work, "genes.gtf"), os.path.join(work, "genes.adam")
+    n_lines = make_gtf(gtf, GTF_GENES, SEED)
+    _, st, wall = _cli_timed(["features2adam", gtf, fstore, "--device", "cuda"])
+    rec["features2adam"] = {"wall_s": wall, **st}
+    types = pq.read_table(fstore, columns=["featureType"]).column("featureType")
+    if st["n_features"] != n_lines or len(types) != n_lines:
+        raise AssertionError(f"4k: features2adam stored {st['n_features']} of {n_lines}")
+    _log(f"4k GTF ({GTF_GENES} genes x 2 transcripts x 5 exons, {n_lines} features): "
+         f"features2adam {wall:.3f} s (parse {st['load_s']:.3f}, save {st['save_s']:.3f})")
+
+    # -- bam2adam of 4e's BAM ----------------------------------------------
+    bstore = os.path.join(work, "bam2adam.adam")
+    out, st, wall = _cli_timed(["bam2adam", bam, bstore, "--device", "cuda"])
+    rec["bam2adam"] = {"wall_s": wall, **st}
+    if out.strip() != f"bam2adam: streamed {MAIN_READS} reads" or \
+            pq.read_metadata(bstore).num_rows != MAIN_READS:
+        raise AssertionError(f"4k: bam2adam: {out!r}")
+    _log(f"4k bam2adam: {MAIN_READS} reads streamed in {wall:.3f} s")
+    lv = kernels.launches()
+    if any(lv.values()):
+        raise AssertionError(f"4k: launches {lv}: no hand kernel runs on these paths")
+    rec["launches"] = lv
+    for p in (fa, store, vcf, gstore, vcf_back, gtf, fstore, bstore, bam):
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        else:
+            os.unlink(p)
+    return rec
+
+
+def check_parity_other_formats(work: str, sam: str, parts: str) -> dict:
+    """Phase 5's legs of 4k, card against CPU: ``count_contig_kmers`` on a
+    FASTA and its store, ``adam2fastq`` single and paired, and
+    ``transform`` with FASTQ out (markdup, sorted by name) and FASTQ in
+    (interleaved)."""
+    rec = {}
+    fa, store = os.path.join(work, "parity.fa"), os.path.join(work, "parity.fa.adam")
+    make_fasta(fa, PARITY_CONTIGS, SEED + 1)
+    _cli(["fasta2adam", fa, store, "--device", "cpu"])
+    legs = {  # name -> the argv writing to the path o
+        "count_contig_kmers_fa": lambda o: ["count_contig_kmers", fa, o, str(CONTIG_K)],
+        "count_contig_kmers_store": lambda o: ["count_contig_kmers", store, o, str(CONTIG_K)],
+        "adam2fastq": lambda o: ["adam2fastq", parts, o],
+        "adam2fastq_paired": lambda o: ["adam2fastq", parts, o, o + ".2.fq"],
+        "transform_fq_out": lambda o: ["transform", sam, o + ".fq", "-mark_duplicate_reads",
+                                       "-sort_fastq_output"],
+    }
+    for name, argv_of in legs.items():
+        digests = {}
+        for device in ("cuda", "cpu"):
+            o = os.path.join(work, f"{name}.{device}")
+            _cli(argv_of(o) + ["--device", device])
+            outs = [p for p in (o, o + ".2.fq", o + ".fq") if os.path.exists(p)]
+            digests[device] = [_file_hash(p) for p in outs]
+        if not digests["cuda"] or digests["cuda"] != digests["cpu"]:
+            raise AssertionError(f"{name}: card and CPU output files differ: {digests}")
+        rec[name] = len(digests["cuda"])
+        _log(f"card vs CPU ({name}): {rec[name]} output file(s) byte-identical")
+    ifq = os.path.join(work, "parity.ifq")
+    interleave_mates(os.path.join(work, "adam2fastq_paired.cuda"),
+                     os.path.join(work, "adam2fastq_paired.cuda.2.fq"), ifq)
+    digests = {}
+    for device in ("cuda", "cpu"):
+        o = os.path.join(work, f"ifq.{device}.adam")
+        _cli(["transform", ifq, o, "-force_load_ifastq", "--device", device])
+        digests[device] = _file_hash(o)
+    if digests["cuda"] != digests["cpu"]:
+        raise AssertionError("transform -force_load_ifastq: card and CPU outputs differ")
+    rec["transform_ifq_in"] = 1
+    _log("card vs CPU (transform -force_load_ifastq): output byte-identical")
+    return rec
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -1534,6 +1939,12 @@ def main() -> int:
 
         # ---- 4j. depth and view on the main path's parts -------------------
         depth_view = check_depth_view(main_adam, snps_vcf, main_dups)
+
+        # ---- 4k. the other file formats ------------------------------------
+        t0 = time.monotonic()
+        other = check_other_formats(work, main_adam, bam["bam_path"])
+        other["phase_s"] = time.monotonic() - t0
+        _log(f"4k: {other['phase_s']:.1f} s in all; launches {other['launches']}")
         shutil.rmtree(main_adam)
 
         # ---- 5. card vs CPU ------------------------------------------------
@@ -1593,6 +2004,10 @@ def main() -> int:
                  f"and flagstat byte-identical ({got['cuda'][2]} rows)")
         parity.update(check_parity_sharded_depth_view(
             work, sam, os.path.join(work, "reads.cuda.adam"), p_snps))
+        t0 = time.monotonic()
+        parity["other_formats"] = check_parity_other_formats(
+            work, sam, os.path.join(work, "reads.cuda.adam"))
+        parity["other_formats"]["phase_s"] = time.monotonic() - t0
         from adam_tpu_torch.cli.main import main as cli
 
         for what, flags in (("count_kmers", ()), ("count_qmers", ("-countQmers",))):
@@ -1630,6 +2045,7 @@ def main() -> int:
         "durable": durable,
         "sharded": sharded,
         "depth_view": depth_view,
+        "other_formats": other,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

@@ -560,3 +560,46 @@ def test_sharded_transform_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     assert sorted(f for f in os.listdir(tmp_path / "cuda") if f.startswith("part-")) == parts
     for f in parts:
         assert (tmp_path / "cuda" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes()
+
+
+@pytest.mark.parametrize("k", [5, 21])
+def test_contig_kmers_on_the_card_equal_the_cpu(cuda_device, k):
+    """``count_contig_kmers`` on the card: the table of the CPU run, entry
+    for entry in the same order (fragments of 1 kb with N runs, windows
+    across the joins included), and the CLI's k-mer file byte for byte,
+    from a FASTA and from the fragment store."""
+    import contextlib
+    import io
+
+    from adam_tpu_torch.cli.main import main
+    from adam_tpu_torch.formats.fragments import FragmentBatch, count_contig_kmers
+
+    rng = np.random.default_rng(k)
+    seqs = []
+    for L in (25_000, 9_999, 1_001, 30):
+        s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)].copy()
+        s[L // 3: L // 3 + 7] = ord("N")
+        seqs.append(s.tobytes().decode())
+    frags = FragmentBatch.from_sequences(list(enumerate(seqs)), 1_000)
+    got = count_contig_kmers(frags, k, device="cuda")
+    want = count_contig_kmers(frags, k, device="cpu")
+    assert list(got.items()) == list(want.items())
+    assert sum(got.values()) == sum(max(len(s) - k + 1, 0) for s in seqs)
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        fa = os.path.join(d, "g.fa")
+        with open(fa, "w") as fh:
+            fh.write("".join(f">c{i}\n{s}\n" for i, s in enumerate(seqs)))
+        out = {}
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert main(["fasta2adam", fa, os.path.join(d, "g.adam"), "--device", "cpu"]) == 0
+            for src in ("g.fa", "g.adam"):
+                for dev in ("cuda", "cpu"):
+                    path = os.path.join(d, f"{src}.{dev}.txt")
+                    assert main(["count_contig_kmers", os.path.join(d, src), path, str(k),
+                                 "--device", dev]) == 0
+                    with open(path, "rb") as fh:
+                        out[src, dev] = fh.read()
+        assert len(set(out.values())) == 1 and out["g.fa", "cuda"].count(b"\n") == len(got)

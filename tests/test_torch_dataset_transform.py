@@ -248,9 +248,13 @@ def test_save_round_trips_through_load(inputs, tmp_path):
 
 
 def test_save_fastq_names_the_queue(inputs, tmp_path):
-    ds, _ = _load(inputs)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ds.save(str(tmp_path / "out.fq"))
+    """FASTQ output, once refused naming its queue item, writes the JAX
+    package's bytes."""
+    ds, jds = _load(inputs)
+    ds.save(str(tmp_path / "out.fq"))
+    jds.save(str(tmp_path / "jax.fq"))
+    got = (tmp_path / "out.fq").read_bytes()
+    assert got == (tmp_path / "jax.fq").read_bytes() and got.count(b"\n") == 4 * N_READS
 
 
 def test_readme_chain(inputs, tmp_path):
@@ -395,12 +399,19 @@ def test_cli_refusals_equal_jax(inputs, tmp_path, case):
 
 @pytest.mark.parametrize("flag", ["-force_load_fastq", "-force_load_ifastq", "out.fq"])
 def test_cli_refuses_fastq_naming_the_queue(inputs, tmp_path, flag):
+    """The FASTQ flags and output, once refused naming their queue item,
+    run as the JAX CLI runs them: the same exit code and the same bytes
+    (a SAM forced through a FASTQ loader holds no FASTQ record)."""
+    from adam_tpu.cli.main import main as jax_main
+
     from adam_tpu_torch.cli.main import main
 
-    out = str(tmp_path / (flag if flag.endswith(".fq") else "o.adam"))
-    argv = ["transform", str(inputs / "in.sam"), out, "-mark_duplicate_reads",
-            "--device", "cpu"] + ([] if flag.endswith(".fq") else [flag])
-    rc, _, err = _run_cli(main, argv)
-    assert rc == 2
-    assert "queue 1 item 7" in err
-    assert list(tmp_path.iterdir()) == []
+    ext = ".fq" if flag.endswith(".fq") else ".adam"
+    for who, fn, extra in (("jax", jax_main, []), ("torch", main, ["--device", "cpu"])):
+        argv = ["transform", str(inputs / "in.sam"), str(tmp_path / f"{who}{ext}"),
+                "-mark_duplicate_reads"] + ([] if flag.endswith(".fq") else [flag])
+        rc, _, err = _run_cli(fn, argv + extra)
+        assert rc == 0, err
+        assert "queue 1 item 7" not in err
+    got = (tmp_path / f"torch{ext}").read_bytes()
+    assert got == (tmp_path / f"jax{ext}").read_bytes()

@@ -148,7 +148,17 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.parallel.sharded",
                                     "adam_tpu_torch.parallel.sharded_join",
                                     "adam_tpu_torch.pipelines.region_join",
-                                    "adam_tpu_torch.ops.intervals"])
+                                    "adam_tpu_torch.ops.intervals",
+                                    "adam_tpu_torch.io.fastq",
+                                    "adam_tpu_torch.io.fasta",
+                                    "adam_tpu_torch.io.features",
+                                    "adam_tpu_torch.formats.fragments",
+                                    "adam_tpu_torch.formats.features",
+                                    "adam_tpu_torch.formats.fields",
+                                    "adam_tpu_torch.formats.annotations",
+                                    "adam_tpu_torch.models.genes",
+                                    "adam_tpu_torch.utils.validation",
+                                    "adam_tpu_torch.cli.conversions"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys

@@ -180,10 +180,17 @@ def test_vcf_reader_equals_jax(inputs, case):
 
 
 def test_genotype_dataset_refuses_what_it_does_not_read(tmp_path):
+    """A path that is not a VCF is read as a genotype Parquet store (the
+    branch once refused); a missing one fails as in the JAX package."""
+    from adam_tpu.api.datasets import GenotypeDataset as JG
+
     from adam_tpu_torch.api.datasets import GenotypeDataset
 
-    with pytest.raises(ValueError, match="genotype Parquet"):
+    with pytest.raises(FileNotFoundError) as je:
+        JG.load(str(tmp_path / "calls.parquet"))
+    with pytest.raises(FileNotFoundError) as te:
         GenotypeDataset.load(str(tmp_path / "calls.parquet"))
+    assert str(te.value) == str(je.value)
 
 
 # ------------------------------------------------------------------ tables
