@@ -3,13 +3,14 @@
 ``anno2adam``, ``adam2vcf``, ``fasta2adam``, ``features2adam`` and
 ``wigfix2bed``.
 
-Each takes the JAX verb's arguments, ``-stringency``,
-``-parquet_compression_codec`` and ``--device {cuda,cpu}`` (default
-``cuda``).  None of them does tensor work: the device argument is checked
-(``cuda`` without a card raises) so that every verb has the same face.
-They write the JAX verbs' files byte for byte and print the JAX verbs'
-standard output; the stage walls go to standard error as one JSON line
-(``wigfix2bed`` prints none: it streams)."""
+Each takes the JAX verb's arguments and the shared flags of
+``cli/main.py`` (``-parquet_compression_codec`` among them, and
+``--device {cuda,cpu}``, default ``cuda``).  None of them does tensor
+work: the device argument is checked (``cuda`` without a card raises) so
+that every verb has the same face.  They write the JAX verbs' files byte
+for byte and print the JAX verbs' standard output; the stage walls go to
+standard error as one JSON line (``wigfix2bed`` prints none: it
+streams)."""
 
 from __future__ import annotations
 
@@ -19,83 +20,134 @@ import time
 
 import numpy as np
 
-
-def add_common(p) -> None:
-    """The flags every verb of this slice shares."""
-    p.add_argument("-stringency", default="lenient",
-                   choices=["strict", "lenient", "silent"],
-                   help="validation stringency for malformed input (the FASTQ "
-                   "pairing and export paths)")
-    p.add_argument("-parquet_compression_codec", default="zstd",
-                   choices=["uncompressed", "snappy", "gzip", "zstd"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the tensor work runs (default: cuda)")
+from adam_tpu_torch.cli.main import Command
 
 
-def configure(sub) -> None:
-    """Add the seven verbs to ``sub``, each with its handler as
-    ``args.handler``."""
-    p = sub.add_parser("bam2adam", allow_abbrev=False,
-                       help="Single-node BAM to ADAM converter (Note: the 'transform' "
-                       "command can take SAM or BAM as input)")
-    p.add_argument("bam", metavar="BAM")
-    p.add_argument("adam", metavar="ADAM")
-    p.add_argument("-samtools_validation", default="lenient", help="accepted for parity")
-    p.add_argument("-num_threads", type=int, default=4)
-    p.add_argument("-queue_size", type=int, default=10000, help="accepted for parity")
-    add_common(p)
-    p = sub.add_parser("vcf2adam", allow_abbrev=False,
-                       help="Convert a VCF file to the corresponding ADAM format")
-    p.add_argument("vcf", metavar="VCF")
-    p.add_argument("adam", metavar="ADAM")
-    p.add_argument("-onlyvariants", action="store_true",
-                   help="output only variants, not genotypes")
-    add_common(p)
-    p = sub.add_parser("anno2adam", allow_abbrev=False,
-                       help="Convert a annotation file (in VCF format) to the "
-                       "corresponding ADAM format")
-    p.add_argument("vcf", metavar="VCF")
-    p.add_argument("adam", metavar="ADAM")
-    p.add_argument("-current-db", dest="current_db", default=None,
-                   help="existing annotation store to merge with")
-    add_common(p)
-    p = sub.add_parser("adam2vcf", allow_abbrev=False,
-                       help="Convert an ADAM variant to the VCF ADAM format")
-    p.add_argument("adam", metavar="ADAM")
-    p.add_argument("vcf", metavar="VCF")
-    p.add_argument("-coalesce", type=int, default=-1, help="accepted for parity")
-    p.add_argument("-sort_on_save", action="store_true")
-    add_common(p)
-    p = sub.add_parser("fasta2adam", allow_abbrev=False,
-                       help="Converts a text FASTA sequence file into an "
-                       "ADAMNucleotideContig Parquet file which represents assembled "
-                       "sequences.")
-    p.add_argument("fasta", metavar="FASTA")
-    p.add_argument("adam", metavar="ADAM")
-    p.add_argument("-fragment_length", type=int, default=10000)
-    p.add_argument("-verbose", action="store_true")
-    p.add_argument("-reads", default=None,
-                   help="reads file for a sequence dictionary to use instead")
-    add_common(p)
-    p = sub.add_parser("features2adam", allow_abbrev=False,
-                       help="Convert a file with sequence features into corresponding "
-                       "ADAM format")
-    p.add_argument("features", metavar="FEATURES",
-                   help="feature file (gtf/gff/bed/narrowpeak)")
-    p.add_argument("adam", metavar="ADAM")
-    add_common(p)
-    p = sub.add_parser("wigfix2bed", allow_abbrev=False,
-                       help="Locally convert a wigFix file to BED format")
-    p.add_argument("wig", metavar="WIG", nargs="?", default=None,
-                   help="input wigFix file (default: stdin)")
-    p.add_argument("-o", dest="output", default=None,
-                   help="output BED file (default: stdout)")
-    add_common(p)
-    for name, fn in (("bam2adam", bam2adam), ("vcf2adam", vcf2adam),
-                     ("anno2adam", anno2adam), ("adam2vcf", adam2vcf),
-                     ("fasta2adam", fasta2adam), ("features2adam", features2adam),
-                     ("wigfix2bed", wigfix2bed)):
-        sub.choices[name].set_defaults(handler=fn)
+class Bam2Adam(Command):
+    name = "bam2adam"
+    description = ("Single-node BAM to ADAM converter (Note: the 'transform' "
+                   "command can take SAM or BAM as input)")
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("bam", metavar="BAM")
+        p.add_argument("adam", metavar="ADAM")
+        p.add_argument("-samtools_validation", default="lenient", help="accepted for parity")
+        p.add_argument("-num_threads", type=int, default=4)
+        p.add_argument("-queue_size", type=int, default=10000, help="accepted for parity")
+
+    @classmethod
+    def run(cls, args):
+        return bam2adam(args)
+
+
+class Vcf2Adam(Command):
+    name = "vcf2adam"
+    description = "Convert a VCF file to the corresponding ADAM format"
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("vcf", metavar="VCF")
+        p.add_argument("adam", metavar="ADAM")
+        p.add_argument("-onlyvariants", action="store_true",
+                       help="output only variants, not genotypes")
+
+    @classmethod
+    def run(cls, args):
+        return vcf2adam(args)
+
+
+class VcfAnnotation2Adam(Command):
+    name = "anno2adam"
+    description = "Convert a annotation file (in VCF format) to the corresponding ADAM format"
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("vcf", metavar="VCF")
+        p.add_argument("adam", metavar="ADAM")
+        p.add_argument("-current-db", dest="current_db", default=None,
+                       help="existing annotation store to merge with")
+
+    @classmethod
+    def run(cls, args):
+        return anno2adam(args)
+
+
+class Adam2Vcf(Command):
+    name = "adam2vcf"
+    description = "Convert an ADAM variant to the VCF ADAM format"
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("adam", metavar="ADAM")
+        p.add_argument("vcf", metavar="VCF")
+        p.add_argument("-coalesce", type=int, default=-1, help="accepted for parity")
+        p.add_argument("-sort_on_save", action="store_true")
+
+    @classmethod
+    def run(cls, args):
+        return adam2vcf(args)
+
+
+class Fasta2Adam(Command):
+    name = "fasta2adam"
+    description = ("Converts a text FASTA sequence file into an ADAMNucleotideContig "
+                   "Parquet file which represents assembled sequences.")
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("fasta", metavar="FASTA")
+        p.add_argument("adam", metavar="ADAM")
+        p.add_argument("-fragment_length", type=int, default=10000)
+        p.add_argument("-verbose", action="store_true")
+        p.add_argument("-reads", default=None,
+                       help="reads file for a sequence dictionary to use instead")
+
+    @classmethod
+    def run(cls, args):
+        return fasta2adam(args)
+
+
+class Features2Adam(Command):
+    name = "features2adam"
+    description = "Convert a file with sequence features into corresponding ADAM format"
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("features", metavar="FEATURES",
+                       help="feature file (gtf/gff/bed/narrowpeak)")
+        p.add_argument("adam", metavar="ADAM")
+
+    @classmethod
+    def run(cls, args):
+        return features2adam(args)
+
+
+class WigFix2Bed(Command):
+    name = "wigfix2bed"
+    description = "Locally convert a wigFix file to BED format"
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument("wig", metavar="WIG", nargs="?", default=None,
+                       help="input wigFix file (default: stdin)")
+        p.add_argument("-o", dest="output", default=None,
+                       help="output BED file (default: stdout)")
+
+    @classmethod
+    def run(cls, args):
+        return wigfix2bed(args)
+
+
+COMMANDS = [
+    Bam2Adam,
+    Vcf2Adam,
+    VcfAnnotation2Adam,
+    Adam2Vcf,
+    Fasta2Adam,
+    Features2Adam,
+    WigFix2Bed,
+]
 
 
 def _walls(**kw) -> None:

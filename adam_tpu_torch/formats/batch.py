@@ -111,10 +111,33 @@ class ReadBatch:
     def n_valid(self) -> int:
         return int(_to_numpy(self.valid).sum())
 
+    def flag_set(self, bit: int) -> Array:
+        """bool[N]: ``bit`` is set in the flags (host or tensor)."""
+        return (self.flags & bit) != 0
+
     @property
     def is_mapped(self) -> Array:
         """bool[N]: the unmapped flag bit is clear (host or tensor)."""
         return (self.flags & schema.FLAG_UNMAPPED) == 0
+
+    @property
+    def is_primary(self) -> Array:
+        """bool[N]: neither secondary nor supplementary (host or tensor)."""
+        return (self.flags & (schema.FLAG_SECONDARY | schema.FLAG_SUPPLEMENTARY)) == 0
+
+    def pad_rows(self, n: int) -> "ReadBatch":
+        """A host batch padded to exactly ``n`` rows with invalid rows
+        (``ValueError`` when it already has more)."""
+        cur = self.n_rows
+        if cur == n:
+            return self
+        if cur > n:
+            raise ValueError(f"cannot pad {cur} rows down to {n}")
+        fill = ReadBatch.empty(n - cur, self.lmax, self.cmax).arrays()
+        return ReadBatch(**{
+            k: np.concatenate([_to_numpy(v), fill[k]], axis=0)
+            for k, v in self.arrays().items()
+        })
 
     def arrays(self) -> dict:
         """Field name -> array, in declaration order."""

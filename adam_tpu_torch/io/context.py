@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from adam_tpu_torch.api.datasets import AlignmentDataset
+from adam_tpu_torch.api.datasets import AlignmentDataset, GenotypeDataset
 from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar, pack_reads
 from adam_tpu_torch.io.sam import SamHeader
 
@@ -89,6 +89,17 @@ def load_parquet_alignments(
     return AlignmentDataset(
         *parquet.load_alignments(path, projection=projection, predicate=predicate)
     )
+
+
+def load_vcf(path: str, **kw):
+    """VCF -> GenotypeDataset (loadVcf, rdd/ADAMContext.scala:311-335)."""
+    return GenotypeDataset.load(path, **kw)
+
+
+def load_genotypes(path: str, **kw):
+    """Dispatcher over genotype sources (loadGenotypes): a VCF or a
+    genotype Parquet store, by :meth:`GenotypeDataset.load`."""
+    return load_vcf(path, **kw)
 
 
 def load_header(path: str) -> SamHeader:

@@ -6,7 +6,9 @@ Text SAM is tokenized window by window through the native C++ tokenizer
 BAM's BGZF blocks are inflated and its records tokenized by the same
 library, window by window as well.  Where the JAX package falls back to
 pure-Python codecs, the port has none: the native library is built or
-the call raises.  Positions: SAM text is 1-based; everything in the port
+the call raises.  :func:`iter_sam_records` is JAX's text-line parser
+into :func:`pack_reads` records, for callers that build batches from a
+few SAM lines.  Positions: SAM text is 1-based; everything in the port
 is 0-based end-exclusive, as in the JAX package.
 """
 
@@ -72,6 +74,73 @@ class SamHeader:
         out += self.program_lines
         out += self.comment_lines
         return out
+
+
+def _parse_tags(
+    tag_fields: list[str],
+) -> tuple[str, Optional[str], Optional[str], Optional[str]]:
+    """Split raw SAM tag fields into (other_tags, md, orig_qual, rg).
+
+    MD/OQ/RG move to dedicated columns (the reference's
+    mismatchingPositions/origQual/recordGroup* record fields,
+    converters/SAMRecordConverter.scala:103-130) and are re-emitted from
+    those columns on export, so they are stripped from the attribute
+    string here.
+    """
+    md = oq = rg = None
+    rest = []
+    for f in tag_fields:
+        if f.startswith("MD:Z:"):
+            md = f[5:]
+        elif f.startswith("OQ:Z:"):
+            oq = f[5:]
+        elif f.startswith("RG:Z:") and rg is None:
+            rg = f[5:]
+        else:
+            rest.append(f)
+    return "\t".join(rest), md, oq, rg
+
+
+def iter_sam_records(text_lines: Iterable[str], header: SamHeader) -> Iterator[dict]:
+    """SAM body lines -> record dicts for :func:`pack_reads`."""
+    sd, rgd = header.seq_dict, header.read_groups
+    for line in text_lines:
+        if not line or line.startswith("@"):
+            continue
+        f = line.rstrip("\n").split("\t")
+        qname, flag, rname, pos, mapq, cigar, rnext, pnext, tlen, seq, qual = f[:11]
+        flags = int(flag)
+        attrs, md, oq, rg = _parse_tags(f[11:])
+        rg_idx = rgd.index_or(rg) if rg is not None else -1
+        if rg is not None and rg_idx < 0:
+            # RG naming a group absent from the header: keep the tag in
+            # attrs so round-trip preserves it (rg_idx stays -1).
+            tag = f"RG:Z:{rg}"
+            attrs = f"{attrs}\t{tag}" if attrs else tag
+        contig_idx = sd.index_or(rname) if rname != "*" else -1
+        if rnext == "=":
+            mate_contig_idx = contig_idx
+        elif rnext == "*":
+            mate_contig_idx = -1
+        else:
+            mate_contig_idx = sd.index_or(rnext)
+        yield dict(
+            name=qname,
+            flags=flags,
+            contig_idx=contig_idx,
+            start=int(pos) - 1 if rname != "*" and int(pos) > 0 else -1,
+            mapq=int(mapq),
+            cigar=cigar,
+            seq=seq,
+            qual=qual,
+            mate_contig_idx=mate_contig_idx,
+            mate_start=int(pnext) - 1 if int(pnext) > 0 else -1,
+            tlen=int(tlen),
+            read_group_idx=rg_idx,
+            attrs=attrs,
+            md=md,
+            orig_qual=oq,
+        )
 
 
 def _columns_to_batch(out: dict) -> tuple[ReadBatch, ReadSidecar]:

@@ -43,6 +43,12 @@ class SequenceDictionary:
     records: tuple[SequenceRecord, ...] = ()
 
     @staticmethod
+    def from_lists(names, lengths) -> "SequenceDictionary":
+        return SequenceDictionary(
+            tuple(SequenceRecord(name=n, length=int(ln)) for n, ln in zip(names, lengths))
+        )
+
+    @staticmethod
     def from_sam_header_lines(lines: Iterable[str]) -> "SequenceDictionary":
         recs = []
         for line in lines:
@@ -66,6 +72,15 @@ class SequenceDictionary:
 
     def __iter__(self):
         return iter(self.records)
+
+    def __contains__(self, name: str) -> bool:
+        return any(r.name == name for r in self.records)
+
+    def __getitem__(self, name: str) -> SequenceRecord:
+        for r in self.records:
+            if r.name == name:
+                return r
+        raise KeyError(name)
 
     def index(self, name: str) -> int:
         """Dense contig index; raises KeyError if absent."""

@@ -142,3 +142,11 @@ class ReferenceRegion:
         return (self.referenceName, self.start, self.end) < (
             other.referenceName, other.start, other.end,
         )
+
+
+def regions_from_arrays(names, starts, ends) -> list:
+    """Parallel name/start/end columns -> list[ReferenceRegion]."""
+    return [
+        ReferenceRegion(n, int(s), int(e))
+        for n, s, e in zip(names, np.asarray(starts), np.asarray(ends))
+    ]

@@ -67,6 +67,13 @@ class SnpTable:
             return np.zeros(0, np.int64)
         return np.sort(np.concatenate(keys))
 
+    def contains(self, contig: str, pos: int) -> bool:
+        arr = self.table.get(contig)
+        if arr is None or not len(arr):
+            return False
+        i = np.searchsorted(arr, pos)
+        return bool(i < len(arr) and arr[i] == pos)
+
     def mask_positions(self, contig_names: list[str], contig_idx, positions) -> np.ndarray:
         """Vectorized membership test -> bool mask of known-SNP sites.
 

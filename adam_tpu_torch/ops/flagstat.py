@@ -81,7 +81,8 @@ def _metric_masks(flags, contig_idx, mate_contig_idx, mapq) -> list:
     ]
 
 
-def _to_metrics(counts) -> FlagStatMetrics:
+def to_metrics(counts) -> FlagStatMetrics:
+    """One row of :func:`flagstat_device`'s counts -> its metrics."""
     c = [int(x) for x in counts]
     return FlagStatMetrics(c[0], DuplicateMetrics(*c[1:5]), DuplicateMetrics(*c[5:9]),
                            *c[9:])
@@ -104,7 +105,7 @@ def flagstat(b: ReadBatch, device: str = "cuda") -> tuple[FlagStatMetrics, FlagS
     cols = [torch.from_numpy(np.ascontiguousarray(getattr(b, f))).to(dev)
             for f in ("flags", "contig_idx", "mate_contig_idx", "mapq", "valid")]
     counts = flagstat_device(*cols).cpu().numpy()
-    return _to_metrics(counts[0]), _to_metrics(counts[1])
+    return to_metrics(counts[0]), to_metrics(counts[1])
 
 
 def format_flagstat(failed: FlagStatMetrics, passed: FlagStatMetrics) -> str:

@@ -24,6 +24,17 @@ def unpack_bits(packed: torch.Tensor, n_cols: int) -> torch.Tensor:
     return bits.reshape(packed.shape[0], -1)[:, :n_cols].bool()
 
 
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """bool[n, n_cols] -> u8[n, ceil(n_cols/8)] big-endian bit-packed mask
+    (``np.packbits``' layout, the inverse of :func:`unpack_bits`), on the
+    mask's device."""
+    n, n_cols = mask.shape
+    pad = -n_cols % 8
+    bits = torch.nn.functional.pad(mask.to(torch.int32), (0, pad)).reshape(n, -1, 8)
+    weights = 1 << (7 - torch.arange(8, dtype=torch.int32, device=mask.device))
+    return (bits * weights).sum(dim=-1).to(torch.uint8)
+
+
 def observe_hist_plain(flat_key, res_bits, mm_bits, read_ok, size: int,
                        slab_w: int | None = None):
     """Plain PyTorch version: unpack the masks, then scatter-add ones

@@ -13,7 +13,7 @@ these are per-read integer maps on the host.
 * :func:`shard_rows_by_position` — row indices per shard.
 
 The mesh partitioner of the JAX module (multi-device execution) is not
-ported yet (ROADMAP queue 1 item 5).
+ported yet (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -43,7 +43,7 @@ from adam_tpu_torch.api.datasets import AlignmentDataset
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.ops import cigar as cigar_ops
 from adam_tpu_torch.ops.colpack import pack_rows
-from adam_tpu_torch.ops.observe import observe_hist
+from adam_tpu_torch.ops.observe import observe_hist, pack_bits
 from adam_tpu_torch.ops.phred import PHRED_TO_ERROR
 
 N_QUAL = 94  # valid phred range 0..93
@@ -180,6 +180,18 @@ def observe_packed_body(bases, quals, lengths, flags, read_group_idx,
             mism.reshape(shape).to(torch.int64))
 
 
+def observe_kernel(bases, quals, lengths, flags, read_group_idx,
+                   residue_ok, is_mismatch, read_ok, n_rg: int, lmax: int):
+    """Observe pass over boolean ``[N, lmax]`` residue masks -> (total,
+    mism) i64[n_rg, 94, 2*lmax+1, 17] (the JAX package's
+    ``observe_kernel``): the masks are bit-packed on their device and the
+    histogram built by :func:`observe_packed_body`, so on the card it is
+    kernel 1."""
+    return observe_packed_body(bases, quals, lengths, flags, read_group_idx,
+                               pack_bits(residue_ok), pack_bits(is_mismatch),
+                               read_ok, n_rg, lmax)
+
+
 class ObservationTable:
     """Dense covariate histogram + the reference's ObservationTable CSV."""
 
@@ -313,6 +325,17 @@ def recalibration_phred_table_np(total, mismatches) -> np.ndarray:
     return np.floor(-10.0 * np.log10(np.exp(bounded)) + 0.5).astype(np.int32)
 
 
+def recalibration_phred_table(total, mismatches) -> torch.Tensor:
+    """The recalibrated quality of every covariate cell -> i32[RG, Q, C, D]
+    on the histograms' device: the f64 host solve of
+    :func:`recalibration_phred_table_np` (bit for bit the JAX package's
+    ``recalibration_phred_table``, which its tests hold to the same host
+    twin), placed back where the histograms live."""
+    device = total.device if isinstance(total, torch.Tensor) else torch.device("cpu")
+    table = recalibration_phred_table_np(_host(total), _host(mismatches))
+    return torch.from_numpy(table).to(device)
+
+
 def solve_recalibration_table(total, mism) -> np.ndarray:
     """Merged histograms -> compact u8 phred table (barrier 2)."""
     return recalibration_phred_table_np(total, mism).astype(np.uint8)
@@ -354,6 +377,18 @@ def apply_table_body(bases, quals, lengths, flags, read_group_idx,
         & valid[:, None]
     )
     return torch.where(apply_mask, new_q, quals).to(torch.uint8)
+
+
+def recalibrate_kernel(bases, quals, lengths, flags, read_group_idx, has_qual,
+                       valid, total, mismatches, lmax: int):
+    """Apply the recalibration solved from (``total``, ``mismatches``) to
+    every residue -> new quals u8[N, lmax] (the JAX package's
+    ``recalibrate_kernel``): :func:`recalibration_phred_table`, then the
+    table gather of :func:`apply_table_body`, reported quality >= Q5
+    only."""
+    table = recalibration_phred_table(total, mismatches).to(torch.uint8)
+    return apply_table_body(bases, quals, lengths, flags, read_group_idx,
+                            has_qual, valid, table, lmax)
 
 
 def apply_pack2_body(bases, quals, lengths, flags, read_group_idx,
@@ -573,6 +608,18 @@ def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset
     new_q = np.ascontiguousarray(new_q[: b.n_rows, : b.lmax].cpu().numpy())
     out = stash_orig_quals(ds, b)
     return out.with_batch(b.replace(quals=new_q))
+
+
+def build_observation_table(ds: AlignmentDataset, known_snps=None,
+                            device: str = "cuda") -> ObservationTable:
+    """The observe pass over one whole dataset (kernel 1 on ``device``,
+    known SNPs masked on the host) -> its :class:`ObservationTable`, the
+    cycle axis at the dataset's lane grid."""
+    from adam_tpu_torch.device import resolve_device
+
+    _placed, parts = observe_dataset(ds, resolve_device(device), known_snps)
+    total, mism, gl = merge_observations(parts)
+    return ObservationTable(total, mism, ds.read_groups.names + ["null"], gl)
 
 
 def recalibrate_base_qualities(

@@ -264,6 +264,17 @@ def extract_indel_event_arrays(
     return np.concatenate(parts, axis=0)
 
 
+def extract_indel_events(b, max_indel_size: int = MAX_INDEL_SIZE
+                         ) -> list[RealignmentTarget]:
+    """Per-read I/D targets (IndelRealignmentTarget.apply) as objects, in
+    the order of :func:`extract_indel_event_arrays`, the array form the
+    pipelines use."""
+    return [
+        RealignmentTarget(int(c), int(vs), int(ve), int(rs), int(re))
+        for c, vs, ve, rs, re in extract_indel_event_arrays(b, max_indel_size).tolist()
+    ]
+
+
 def find_targets(
     ds: AlignmentDataset,
     max_target_size: int = MAX_TARGET_SIZE,
@@ -291,15 +302,19 @@ def resolve_tuning(
 
 
 def merge_events(
-    ev: np.ndarray,
+    ev,
     names: list[str],
     max_target_size: int = MAX_TARGET_SIZE,
 ):
     """Sort + overlap-merge + dedupe per-read indel events (the ``[n, 5]``
-    i64 array of :func:`extract_indel_event_arrays`) into targets (the
-    global barrier of the streamed path: per-window event arrays
-    concatenate here, so targets spanning window edges merge exactly as
-    in the single-batch path)."""
+    i64 array of :func:`extract_indel_event_arrays`, or a list of
+    :class:`RealignmentTarget` from :func:`extract_indel_events`) into
+    targets (the global barrier of the streamed path: per-window event
+    arrays concatenate here, so targets spanning window edges merge
+    exactly as in the single-batch path)."""
+    if not isinstance(ev, np.ndarray):
+        ev = np.array([[t.contig_idx, t.var_start, t.var_end, t.range_start,
+                        t.range_end] for t in ev], np.int64).reshape(-1, 5)
     if not len(ev):
         return []
     # sort by (contig NAME, range_start, range_end) — the reference
@@ -343,17 +358,62 @@ def merge_events(
     ]
 
 
+def map_reads_to_targets(
+    read_contig_rank, read_start, read_end, mapped_mask,
+    target_rank, target_start, target_end,
+) -> np.ndarray:
+    """Vectorized replica of RealignIndels.mapToTarget's set-halving
+    search (:72-94), including its pruning rule and the
+    ``-1 - start/3000`` empty-target spreading."""
+    n = len(read_start)
+    nt = len(target_start)
+    lo = np.zeros(n, dtype=np.int64)
+    hi = np.full(n, nt, dtype=np.int64)
+    while True:
+        size = hi - lo
+        if (size <= 1).all():
+            break
+        mult = size > 1
+        mid = lo + size // 2
+        m = np.clip(mid, 0, nt - 1)
+        # lt(targets[mid], read): target orders before read (name,start,end)
+        t_key_lt = (
+            (target_rank[m] < read_contig_rank)
+            | ((target_rank[m] == read_contig_rank) & (target_start[m] < read_start))
+            | ((target_rank[m] == read_contig_rank) & (target_start[m] == read_start)
+               & (target_end[m] < read_end))
+        ) & mapped_mask
+        hi = np.where(mult & t_key_lt, mid, hi)
+        lo = np.where(mult & ~t_key_lt, mid, lo)
+    t = np.clip(lo, 0, nt - 1)
+    contains = (
+        mapped_mask
+        & (target_rank[t] == read_contig_rank)
+        & (target_end[t] > read_start)
+        & (read_end > target_start[t])
+    )
+    # Scala's `/` truncates toward zero, so the reference's unmapped
+    # (start = -1) sentinel is -1 - 0 = -1; Python's floor division
+    # would give -1 - (-1) = 0, a *valid* target index
+    empty = np.where(
+        read_start >= 0, -1 - read_start // 3000, -1
+    ).astype(np.int64)
+    return np.where(contains, t, empty)
+
+
 def map_reads_to_targets_overlap(
     read_contig_rank, read_start, read_end, mapped_mask,
     target_rank, target_start, target_end,
 ) -> np.ndarray:
     """Interval mapping: each read goes to the *first target whose read
     range it overlaps* (GATK's IntervalListReferenceOrderedData walk;
-    the JAX package's default ``mode="overlap"``).  The JAX package's
-    other mode, a replica of the reference's set-halving search
-    (RealignIndels.scala:72-94), drops most overlapping reads once there
-    is more than one target; no pipeline uses it, and the port leaves it
-    out.
+    the default ``mode="overlap"``).  The reference's set-halving search
+    (:func:`map_reads_to_targets`, RealignIndels.scala:72-94) keeps the
+    head half when the probe orders before the read, so with more than
+    one target most overlapping reads fall out of realignment; its own
+    suite exercises only single-target sets.  This mode restores the
+    stated semantics; ``mode="faithful"`` keeps the reference's, quirks
+    included.
 
     Vectorized: targets sorted by (rank, start); with a composite
     coordinate and a running max of target ends, the first overlapping
@@ -387,11 +447,20 @@ def map_reads_to_targets_overlap(
     return np.where(contains, order[jc], empty)
 
 
-def map_batch_to_targets(b, targets, names) -> np.ndarray:
-    """Target index per row of a batch (-k spreading for unmatched rows):
-    every read maps to the first target it overlaps.  The candidate
-    filter of the streamed path: rows with tidx >= 0 are gathered for
-    realignment, everything else passes through untouched."""
+TARGET_MAPPINGS = ("overlap", "faithful")
+
+
+def map_batch_to_targets(b, targets, names, mode: str = "overlap") -> np.ndarray:
+    """Target index per row of a batch (-k spreading for unmatched rows).
+    The candidate filter of the streamed path: rows with tidx >= 0 are
+    gathered for realignment, everything else passes through untouched.
+
+    ``mode="overlap"`` (default) maps every read to the first target it
+    overlaps (:func:`map_reads_to_targets_overlap`); ``mode="faithful"``
+    replicates the reference's set-halving search bit for bit
+    (:func:`map_reads_to_targets`)."""
+    if mode not in TARGET_MAPPINGS:
+        raise ValueError(f"target mapping {mode!r}: one of {TARGET_MAPPINGS}")
     if not targets:
         return np.full(b.n_rows, -1, dtype=np.int64)
     rank_of_name = {nm: i for i, nm in enumerate(sorted(names))}
@@ -408,7 +477,8 @@ def map_batch_to_targets(b, targets, names) -> np.ndarray:
         contig_rank[np.clip(np.asarray(b.contig_idx), 0, len(names) - 1)],
         -1,
     )
-    return map_reads_to_targets_overlap(
+    fn = map_reads_to_targets_overlap if mode == "overlap" else map_reads_to_targets
+    return fn(
         read_rank, np.asarray(b.start).astype(np.int64),
         np.asarray(b.end).astype(np.int64), mapped, t_rank, t_start, t_end,
     )
@@ -750,6 +820,7 @@ def realign_indels(
     max_target_size: int = MAX_TARGET_SIZE,
     sw_weights: tuple = (1.0, -0.333, -0.5, -0.5),
     rng: Optional[random.Random] = None,
+    target_mapping: str = "overlap",
     device: str = "cuda",
 ) -> AlignmentDataset:
     """GATK-style local realignment (RealignIndels.realignTargetGroup).
@@ -762,7 +833,10 @@ def realign_indels(
     model runs the Python path, whose preprocessing
     Smith-Waterman-aligns every read to its target's reference.  The
     sweeps and the Smith-Waterman fill run on ``device`` (default: the
-    card)."""
+    card).  ``target_mapping`` is :func:`map_batch_to_targets`' mode:
+    ``"overlap"`` (default) or the reference's ``"faithful"`` search."""
+    if target_mapping not in TARGET_MAPPINGS:
+        raise ValueError(f"target mapping {target_mapping!r}: one of {TARGET_MAPPINGS}")
     if consensus_model not in CONSENSUS_MODELS:
         raise ValueError(f"consensus_model {consensus_model!r}: one of {CONSENSUS_MODELS}")
     dev = resolve_device(device)
@@ -770,11 +844,12 @@ def realign_indels(
         return _realign_indels_py(
             ds, consensus_model, known_indels, max_indel_size,
             max_consensus_number, lod_threshold, max_target_size, sw_weights,
-            rng, device=dev,
+            rng, target_mapping, device=dev,
         )
     return _realign_indels_native(
         ds, consensus_model, known_indels, max_indel_size,
-        max_consensus_number, lod_threshold, max_target_size, rng, device=dev,
+        max_consensus_number, lod_threshold, max_target_size, rng, target_mapping,
+        device=dev,
     )
 
 
@@ -813,6 +888,7 @@ def _realign_indels_py(
     max_target_size: int = MAX_TARGET_SIZE,
     sw_weights: tuple = (1.0, -0.333, -0.5, -0.5),
     rng: Optional[random.Random] = None,
+    target_mapping: str = "overlap",
     *,
     device: torch.device,
 ) -> AlignmentDataset:
@@ -834,7 +910,7 @@ def _realign_indels_py(
     names = ds.seq_dict.names
     flags = np.asarray(b.flags)
     mapped = ((flags & schema.FLAG_UNMAPPED) == 0) & np.asarray(b.valid)
-    tidx = map_batch_to_targets(b, targets, names)
+    tidx = map_batch_to_targets(b, targets, names, mode=target_mapping)
 
     # group rows by target, position-sorted within the group — the shared
     # vectorized construction (see _group_candidates for why shared)
@@ -1159,6 +1235,7 @@ def _realign_indels_native(
     lod_threshold: float,
     max_target_size: int,
     rng: Optional[random.Random],
+    target_mapping: str = "overlap",
     *,
     device: torch.device,
 ):
@@ -1179,7 +1256,7 @@ def _realign_indels_native(
     names = ds.seq_dict.names
     flags = np.asarray(b.flags)
     mapped = ((flags & schema.FLAG_UNMAPPED) == 0) & np.asarray(b.valid)
-    tidx = map_batch_to_targets(b, targets, names)
+    tidx = map_batch_to_targets(b, targets, names, mode=target_mapping)
     srows, goff, gtid = _group_candidates(b, tidx, mapped)
     if not len(srows):
         return ds

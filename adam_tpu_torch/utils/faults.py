@@ -81,21 +81,21 @@ ARMED_POINTS = frozenset({"proc.kill", "parquet.write", "parquet.encode"})
 CORRUPT_POINTS = frozenset({"device.fetch"})
 
 #: What arms each site the port does not arm yet.
-_ITEM_5 = ("ROADMAP queue 1 item 5 (multi-GPU: the device pool with its "
+_MULTI_GPU = ("ROADMAP queue 1 item 4 (multi-GPU: the device pool with its "
            "retry, deadline and eviction layers)")
-_ITEM_8 = "ROADMAP queue 1 item 8 (the service and operations layers)"
+_SERVICE = "ROADMAP queue 1 item 5 (the service and operations layers)"
 _UNARMED_BY = {
-    "device.dispatch": _ITEM_5,
-    "device.fetch": _ITEM_5,
-    "pool.prewarm": _ITEM_5,
-    "sched.admit": _ITEM_8,
-    "sched.batch": _ITEM_8,
-    "sched.dispatch": _ITEM_8,
-    "sched.drain": _ITEM_8,
-    "sched.job_crash": _ITEM_8,
-    "gateway.accept": _ITEM_8,
-    "gateway.stream": _ITEM_8,
-    "gateway.fetch": _ITEM_8,
+    "device.dispatch": _MULTI_GPU,
+    "device.fetch": _MULTI_GPU,
+    "pool.prewarm": _MULTI_GPU,
+    "sched.admit": _SERVICE,
+    "sched.batch": _SERVICE,
+    "sched.dispatch": _SERVICE,
+    "sched.drain": _SERVICE,
+    "sched.job_crash": _SERVICE,
+    "gateway.accept": _SERVICE,
+    "gateway.stream": _SERVICE,
+    "gateway.fetch": _SERVICE,
 }
 
 
@@ -249,7 +249,7 @@ def _check_armed(clause: _Clause) -> None:
         raise ValueError(
             f"fault clause at {clause.site!r}: 'corrupt' needs the fetch "
             "boundary and the SDC audit, which adam_tpu_torch does not "
-            f"have yet ({_ITEM_8})"
+            f"have yet ({_SERVICE})"
         )
     if clause.site not in ARMED_POINTS:
         raise ValueError(
@@ -270,7 +270,7 @@ def install(spec: str | None) -> None:
     Raises ``ValueError`` for a malformed spec, and for a clause the
     port does not arm (see :func:`_check_armed`).  (JAX's ``install``
     also resets its device-health scoreboard, ``utils/health.py``; the
-    port has none yet, ROADMAP queue 1 item 8.)"""
+    port has none yet, ROADMAP queue 1 item 5.)"""
     global ENABLED, _CLAUSES
     clauses = parse_spec(spec) if spec else []
     for clause in clauses:

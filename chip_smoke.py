@@ -112,6 +112,19 @@ Phases, each of which fails the script on any error:
    lines, the FT that ``adam2vcf`` adds aside);
    ``features2adam`` of a generated GTF of 20,000 genes x 2 transcripts
    x 5 exons; ``bam2adam`` of 4e's BAM;
+4l. the Spark embedding executor on the main path's SAM: loaded, cut in
+   file order into 8 partitions of 131,072 reads (as Spark's input splits
+   hand a BAM's slices to executors), written as one Arrow IPC stream
+   (``to_arrow_alignments``) and piped through ``python -m adam_tpu_torch
+   transform - - -backend spark -mark_duplicate_reads -realign_indels
+   -recalibrate_base_qualities -known_snps K.vcf`` on the card: 8 batches
+   back with their partitions' rows, kernel 1 launched once per partition
+   (the child's stats line on stderr: partitions, reads/s, stage walls);
+4m. ``transform_step`` (``pipelines/transform_step.py``) at the graft
+   entry's shape (256 x 100) and at a window's (262,144 x 100): one
+   kernel-1 launch per call, every output (quals, observe totals, 5'
+   positions, dup scores, flagstat) equal to the CPU run with the plain
+   version, each call timed by CUDA events;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -131,7 +144,10 @@ Phases, each of which fails the script on any error:
    fragment store, ``adam2fastq`` (single and paired) on the reads-model
    run's parts, ``transform -mark_duplicate_reads -sort_fastq_output`` to
    ``.fq`` and ``transform -force_load_ifastq`` of the paired output
-   interleaved: output files byte-identical.
+   interleaved: output files byte-identical; ``transform -backend spark``
+   on 4 partitions of 16,384 reads with the known SNPs (every output batch
+   equal), ``plugin`` with a plugin and access control this script writes
+   (the same lines), and ``buildinfo`` printed once.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -174,8 +190,13 @@ SW_WEIGHTS = {"f32": (1.0, -0.333, -0.5, -0.5), "i16": (2.0, -1.0, -1.0, -1.0),
               "bf16": (2.0, -1.0, -1.0, -1.0)}
 
 
+#: the script's start on the monotonic clock: every log line carries the
+#: seconds since, so a run's phases can be timed from its output
+_T0 = time.monotonic()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.monotonic() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def _smi() -> str:
@@ -1683,6 +1704,223 @@ def check_parity_other_formats(work: str, sam: str, parts: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 4l: the Spark embedding executor; 4m: transform_step
+# ---------------------------------------------------------------------------
+SPARK_PARTITIONS = 8   # 4l: the main path's SAM cut in file order (131,072 reads each)
+PARITY_SPARK_PARTITIONS = 4  # phase 5's executor leg
+SPARK_FLAGS = ("-mark_duplicate_reads", "-realign_indels", "-recalibrate_base_qualities")
+STEP_SHAPES = ((256, 100), (WINDOW_READS, 100))  # 4m: the graft entry's, and a window's
+STEP_N_RG = 2  # the graft entry's read-group bins
+
+#: phase 5's plugin and access control, written beside the parity parts and
+#: imported by the ``plugin`` verb from there
+SMOKE_PLUGIN = '''
+import numpy as np
+import torch
+
+from adam_tpu_torch.plugins import AccessControl, AdamPlugin
+
+
+class FirstHighMapq(AdamPlugin):
+    projection = ["readName", "flags", "mapq", "start", "contig"]
+
+    def predicate(self, batch):
+        return np.asarray(batch.mapq) >= 30
+
+    def run(self, ds, args):
+        n = int(args[0]) if args else 10
+        b = ds.batch.to_numpy()
+        return [f"{name}\\t{int(f)}\\t{int(s)}" for name, f, s in
+                zip(list(ds.sidecar.names)[:n], b.flags[:n], b.start[:n])]
+
+
+class NoDuplicates(AccessControl):
+    def predicate(self, batch):
+        return (torch.from_numpy(np.asarray(batch.flags)) & 0x400) == 0
+'''
+
+
+def write_partition_stream(ds, path: str, n_parts: int) -> list:
+    """``ds`` cut in file order into ``n_parts`` contiguous partitions, as
+    Spark's input splits hand a BAM's slices to executors, written as one
+    Arrow IPC stream at ``path`` (the port's ``to_arrow_alignments``) ->
+    the partitions' row counts."""
+    import numpy as np
+    import pyarrow as pa
+
+    edges = np.linspace(0, ds.batch.n_rows, n_parts + 1).astype(np.int64)
+    rows = []
+    writer = None
+    with pa.OSFile(path, "wb") as sink:
+        for a, b in zip(edges[:-1], edges[1:]):
+            rb = ds.take_rows(np.arange(a, b)).to_arrow().combine_chunks().to_batches()[0]
+            if writer is None:
+                writer = pa.ipc.new_stream(sink, rb.schema)
+            writer.write_batch(rb)
+            rows.append(rb.num_rows)
+        writer.close()
+    return rows
+
+
+def run_spark_executor(stream: str, out: str, device: str, extra: tuple = ()) -> tuple:
+    """``python -m adam_tpu_torch transform - - -backend spark`` with the
+    three stage flags in a child process, standard input from ``stream``
+    and standard output into ``out`` -> (its stderr stats line, the output
+    batches, the wall including the interpreter's start)."""
+    import pyarrow as pa
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    with open(stream, "rb") as fin, open(out, "wb") as fout:
+        res = subprocess.run(
+            [sys.executable, "-m", "adam_tpu_torch", "transform", "-", "-", "-backend",
+             "spark", *SPARK_FLAGS, *extra, "--device", device],
+            stdin=fin, stdout=fout, stderr=subprocess.PIPE, cwd=here, timeout=900)
+    wall = time.monotonic() - t0
+    err = res.stderr.decode(errors="replace")
+    if res.returncode != 0:
+        raise RuntimeError(f"transform -backend spark ({device}) exited "
+                           f"{res.returncode}: {err[-3000:]}")
+    stats = json.loads(err.strip().splitlines()[-1])
+    with pa.memory_map(out) as src:
+        batches = list(pa.ipc.open_stream(src))
+    return stats, batches, wall
+
+
+def check_spark_executor(work: str, sam: str, snps_vcf: str) -> dict:
+    """4l: the main path's SAM in 8 partitions through the executor on the
+    card, with its known-SNP VCF -> its record.  8 batches back, each with
+    its partition's rows, kernel 1 once per partition (the dataset-level
+    BQSR of each), no other hand kernel."""
+    from adam_tpu_torch.io.context import load_alignments
+
+    t0 = time.monotonic()
+    ds = load_alignments(sam)
+    stream = os.path.join(work, "parts.arrows")
+    rows_in = write_partition_stream(ds, stream, SPARK_PARTITIONS)
+    del ds
+    prep_s = time.monotonic() - t0
+    out = os.path.join(work, "parts.out.arrows")
+    stats, batches, wall = run_spark_executor(stream, out, "cuda",
+                                              ("-known_snps", snps_vcf))
+    rows_out = [b.num_rows for b in batches]
+    lv = stats["kernel_launches"]
+    stream_bytes, out_bytes = os.path.getsize(stream), os.path.getsize(out)
+    del batches
+    os.unlink(stream)
+    os.unlink(out)
+    if rows_out != rows_in or stats["n_partitions"] != SPARK_PARTITIONS:
+        raise AssertionError(f"4l: {len(rows_out)} batches of {rows_out} rows for "
+                             f"{SPARK_PARTITIONS} partitions of {rows_in}: {stats}")
+    if (lv["observe_hist"] != SPARK_PARTITIONS or lv["pack_rows"] != 0
+            or lv["sw_fill"] != 0 or lv["sw_score"] != 0):
+        raise AssertionError(f"4l: launches {lv} for {SPARK_PARTITIONS} partitions")
+    _log("4l spark executor stats: " + json.dumps(stats, sort_keys=True))
+    _log(f"4l spark executor: {SPARK_PARTITIONS} partitions of {rows_in[0]} reads in "
+         f"{stats['total_s']:.3f} s served ({stats['reads_per_s']:.0f} reads/s), "
+         f"{wall:.3f} s with the interpreter's start; read {stats['read_s']:.3f}, markdup "
+         f"{stats['mark_duplicates_s']:.3f}, realign {stats['realign_indels_s']:.3f}, "
+         f"BQSR {stats['bqsr_s']:.3f}, write {stats['write_s']:.3f} s; stream "
+         f"{stream_bytes} bytes in, {out_bytes} out (built in {prep_s:.3f} s); kernel 1 "
+         f"launches {lv['observe_hist']}; card {_smi()}")
+    return {"stats": stats, "wall_s": wall, "prep_s": prep_s, "rows": rows_in,
+            "stream_bytes": stream_bytes, "out_bytes": out_bytes, "launches": lv}
+
+
+def check_transform_step(dev) -> dict:
+    """4m: ``transform_step`` at the graft entry's shape and at a window's,
+    on the card: one kernel-1 launch per call, every output equal to the
+    CPU run with the plain version, the card's call timed (CUDA events
+    around whole calls, its two host syncs included)."""
+    import torch
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.transform_step import (
+        synthetic_batch,
+        synthetic_masks,
+        transform_step,
+    )
+
+    out = {}
+    for n, lmax in STEP_SHAPES:
+        b = synthetic_batch(n, lmax)
+        res, mm = synthetic_masks(b)
+        kernels.reset_launches()
+        gout, gaux = transform_step(b, res, mm, STEP_N_RG, lmax, device="cuda")
+        torch.cuda.synchronize()
+        lv = kernels.launches()
+        if lv["observe_hist"] != 1 or lv["pack_rows"] != 0:
+            raise AssertionError(f"4m at {n} x {lmax}: launches {lv}")
+        cout, caux = transform_step(b, res, mm, STEP_N_RG, lmax, device="cpu")
+        keys = ("five_prime", "dup_score", "obs_total", "obs_mism")
+        equal = (torch.equal(gout.quals.cpu(), cout.quals)
+                 and all(torch.equal(gaux[k].cpu(), caux[k]) for k in keys)
+                 and gaux["flagstat"] == caux["flagstat"])
+        if not equal:
+            raise AssertionError(f"4m at {n} x {lmax}: the card's outputs differ from "
+                                 "the CPU's")
+        bt = b.to(dev)
+        rt, mt = torch.from_numpy(res).to(dev), torch.from_numpy(mm).to(dev)
+        ms = _time_ms(lambda: transform_step(bt, rt, mt, STEP_N_RG, lmax, device="cuda"),
+                      iters=10, warm=2)
+        out[str(n)] = {"shape": [n, lmax, STEP_N_RG], "launches": lv["observe_hist"],
+                       "equal": equal, "ms": ms,
+                       "residues_observed": int(caux["obs_total"].sum())}
+        _log(f"4m transform_step at {n} x {lmax} (n_rg {STEP_N_RG}): {ms:.4f} ms on the "
+             f"card, kernel 1 launched once, quals, observe totals, 5' positions, dup "
+             f"scores and flagstat equal to the CPU run ({out[str(n)]['residues_observed']}"
+             " residues observed)")
+        del bt, rt, mt, gout, gaux
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_parity_spark(work: str, sam: str, vcf: str) -> dict:
+    """Phase 5: the parity SAM in 4 partitions through the executor on the
+    card and on the CPU, with the known SNPs: every output batch equal."""
+    from adam_tpu_torch.io.context import load_alignments
+
+    stream = os.path.join(work, "parity.arrows")
+    rows = write_partition_stream(load_alignments(sam), stream, PARITY_SPARK_PARTITIONS)
+    got = {}
+    for device in ("cuda", "cpu"):
+        got[device] = run_spark_executor(stream, os.path.join(work, f"spark.{device}.arrows"),
+                                         device, ("-known_snps", vcf))
+    (st, card, _), (_, cpu, _) = got["cuda"], got["cpu"]
+    if (len(card) != PARITY_SPARK_PARTITIONS or len(cpu) != len(card)
+            or not all(a.equals(b) for a, b in zip(card, cpu))
+            or [b.num_rows for b in card] != rows):
+        raise AssertionError("spark executor: card and CPU batches differ")
+    if st["kernel_launches"]["observe_hist"] != PARITY_SPARK_PARTITIONS:
+        raise AssertionError(f"spark executor parity: launches {st['kernel_launches']}")
+    _log(f"card vs CPU (transform -backend spark, {PARITY_SPARK_PARTITIONS} partitions of "
+         f"{rows[0]} reads, known SNPs): every output batch equal")
+    return {"partitions": len(card), "rows": rows}
+
+
+def check_parity_plugin(work: str, parts: str) -> dict:
+    """Phase 5: ``plugin`` with the plugin and access control of
+    :data:`SMOKE_PLUGIN` on the parity parts, on the card and on the CPU:
+    the same lines."""
+    with open(os.path.join(work, "smoke_plugin.py"), "w") as fh:
+        fh.write(SMOKE_PLUGIN)
+    sys.path.insert(0, work)
+    try:
+        got = {dev: _cli(["plugin", "smoke_plugin.FirstHighMapq", parts, "-access_control",
+                          "smoke_plugin.NoDuplicates", "-plugin_args", "200",
+                          "--device", dev])[0]
+               for dev in ("cuda", "cpu")}
+    finally:
+        sys.path.remove(work)
+    n = got["cuda"].count("\n")
+    if got["cuda"] != got["cpu"] or n != 200:
+        raise AssertionError(f"plugin: card and CPU lines differ or are not 200 ({n})")
+    _log(f"card vs CPU (plugin with a projection, a predicate and an access control): "
+         f"the same {n} lines")
+    return {"lines": n}
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -1694,6 +1932,7 @@ def _part_hashes(d: str) -> dict:
 
 def main() -> int:
     import torch
+
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1929,7 +2168,16 @@ def main() -> int:
             "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "x_bound", "residues_counted")}
         kern[0]["sharded"]["launches"] = sharded["launches"]["observe_hist"]
+
+        # ---- 4l. the Spark executor on the main path's SAM -----------------
+        kernels.reset_launches()
+        spark = check_spark_executor(work, sam, snps_vcf)
+        kern[0]["launches_spark"] = spark["launches"]["observe_hist"]
         os.unlink(sam)
+
+        # ---- 4m. transform_step on the card --------------------------------
+        tstep = check_transform_step(dev)
+        kern[0]["launches_transform_step"] = {k: v["launches"] for k, v in tstep.items()}
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_bam"] = bam["launches"][name]
         by_name["pack_rows_sanger"]["launches_bam"] = bam["variant_launches"]["pack_rows:sanger"]
@@ -2008,6 +2256,13 @@ def main() -> int:
         parity["other_formats"] = check_parity_other_formats(
             work, sam, os.path.join(work, "reads.cuda.adam"))
         parity["other_formats"]["phase_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        parity["spark_executor"] = check_parity_spark(work, sam, p_snps)
+        parity["plugin"] = check_parity_plugin(work, os.path.join(work, "reads.cuda.adam"))
+        _log("buildinfo: " + " | ".join(_cli(["buildinfo"])[0].splitlines()))
+        parity["spark_plugin_buildinfo_s"] = time.monotonic() - t0
+        _log(f"card vs CPU executor, plugin and buildinfo legs: "
+             f"{parity['spark_plugin_buildinfo_s']:.1f} s")
         from adam_tpu_torch.cli.main import main as cli
 
         for what, flags in (("count_kmers", ()), ("count_qmers", ("-countQmers",))):
@@ -2033,6 +2288,7 @@ def main() -> int:
     for k in kern:
         k["kernel_ms"] = k["ms"]
         k["x_bound"] = k["ms"] / k["bound_ms"]
+    _log("smoke: done")
     print(json.dumps({"main_path": {
         "reads": MAIN_READS, "window_reads": WINDOW_READS, "stats": stats,
         "profile": prof, "no_realign_stats": plain_stats,
@@ -2046,6 +2302,8 @@ def main() -> int:
         "sharded": sharded,
         "depth_view": depth_view,
         "other_formats": other,
+        "spark_executor": spark,
+        "transform_step": tstep,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

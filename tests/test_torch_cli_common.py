@@ -1,0 +1,221 @@
+"""The port's command line has the JAX CLI's shape (``adam_tpu/cli/main.py``):
+every verb takes JAX's shared flags, the observability and multi-chip
+flags the port lacks are refused naming their ROADMAP item, usage and
+exit codes match, and a closed standard output ends a verb with exit
+code 0 and no traceback.  Both packages' CLIs run on the same input."""
+
+import argparse
+import contextlib
+import io
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "tools"))
+
+#: JAX's shared flags with a non-default value each (the same in both CLIs)
+SHARED = ["-log_level", "info", "-stringency", "strict",
+          "-parquet_compression_codec", "snappy", "-parquet_block_size", "1",
+          "-parquet_page_size", "2", "-parquet_disable_dictionary",
+          "--fault-spec", "proc.kill=kill,after=99"]
+SHARED_DESTS = ("log_level", "stringency", "parquet_compression_codec",
+                "parquet_block_size", "parquet_page_size",
+                "parquet_disable_dictionary", "fault_spec")
+
+
+@pytest.fixture(scope="module")
+def sam(tmp_path_factory):
+    from make_synth_sam import make_sam
+
+    path = tmp_path_factory.mktemp("cli_common") / "in.sam"
+    make_sam(str(path), 20_000, 100, seed=3)
+    return path
+
+
+def _positionals(parser) -> list:
+    """One placeholder per required positional of ``parser``."""
+    return ["1" for a in parser._actions
+            if not a.option_strings and a.nargs in (None, "+")]
+
+
+def _jax_parser(name):
+    from adam_tpu.cli.main import add_common_args, command_groups
+
+    cmd = {c.name: c for _, cmds in command_groups() for c in cmds}[name]
+    p = argparse.ArgumentParser(allow_abbrev=False)
+    add_common_args(p)
+    cmd.configure(p)
+    return p
+
+
+def _port_verbs():
+    from adam_tpu_torch.cli.main import command_groups
+
+    return [c.name for _, cmds in command_groups() for c in cmds]
+
+
+def test_groups_and_order_are_jax_for_the_ported_verbs():
+    from adam_tpu.cli.main import command_groups as jax_groups
+
+    from adam_tpu_torch.cli.main import command_groups
+
+    jax = {g: [c.name for c in cmds] for g, cmds in jax_groups()}
+    for group, cmds in command_groups():
+        names = [c.name for c in cmds]
+        assert names == [n for n in jax[group] if n in names], group
+    jax_desc = {c.name: c.description for _, cmds in jax_groups() for c in cmds}
+    assert all(c.description == jax_desc[c.name]
+               for _, cmds in command_groups() for c in cmds)
+    assert len(_port_verbs()) == 22
+
+
+@pytest.mark.parametrize("verb", [
+    "depth", "count_kmers", "count_contig_kmers", "transform", "adam2fastq", "plugin",
+    "flatten", "bam2adam", "vcf2adam", "anno2adam", "adam2vcf", "fasta2adam",
+    "features2adam", "wigfix2bed", "print", "print_genes", "flagstat", "print_tags",
+    "listdict", "allelecount", "buildinfo", "view"])
+def test_every_verb_parses_the_shared_flags_as_jax(verb):
+    from adam_tpu_torch.cli.main import parser_for
+
+    port = parser_for(verb)
+    jax = _jax_parser(verb)
+    argv = _positionals(port) + SHARED
+    assert _positionals(port) == _positionals(jax)
+    got, want = port.parse_args(argv), jax.parse_args(argv)
+    for dest in SHARED_DESTS:
+        assert getattr(got, dest) == getattr(want, dest), dest
+    # every flag of the JAX verb is there, with JAX's name and default
+    got_all = vars(port.parse_args(_positionals(port)))
+    want_all = vars(jax.parse_args(_positionals(jax)))
+    assert {k: got_all.get(k, "missing") for k in want_all} == want_all
+    assert got.device == "cuda"
+
+
+def _run(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("argv", [
+    ["flagstat", "{sam}", "-parquet_block_size", "1", "-log_level", "info"],
+    ["flagstat", "{sam}", "-stringency", "silent", "--devices", "1"],
+    ["view", "{sam}", "-c", "-F", "1024", "-parquet_compression_codec", "gzip"],
+    ["view", "{sam}", "-c", "-f", "64", "-o", "{tmp}/v.sam", "-parquet_page_size", "9"],
+    ["count_kmers", "{sam}", "{tmp}/k.txt", "5", "-stringency", "strict",
+     "-parquet_disable_dictionary", "-printHistogram"],
+])
+def test_shared_flags_run_as_in_jax(sam, tmp_path, argv):
+    from adam_tpu.cli.main import main as jax_main
+
+    from adam_tpu_torch.cli.main import main
+
+    argv = [a.format(sam=sam, tmp=tmp_path) for a in argv]
+    jrc, jout, _ = _run(jax_main, argv)
+    outputs = {}
+    for f in tmp_path.iterdir():
+        outputs[f.name] = f.read_bytes()
+        f.unlink()
+    rc, out, _ = _run(main, argv + ["--device", "cpu"])
+    assert rc == jrc == 0
+    assert out == jout
+    for name, data in outputs.items():
+        assert (tmp_path / name).read_bytes() == data, name
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["-print_metrics"], "item 3"),
+    (["--metrics-json", "m.json"], "item 3"),
+    (["--trace-out", "t.json"], "item 3"),
+    (["--progress"], "item 3"),
+    (["--progress", "p.ndjson"], "item 3"),
+    (["--xprof-dir", "xp"], "item 3"),
+    (["--devices", "2"], "item 4"),
+    (["--partitioner", "mesh"], "item 4"),
+    (["--partitioner", "pool"], "item 4"),
+])
+def test_unported_flags_exit_2_naming_their_item(sam, tmp_path, flags, item):
+    from adam_tpu_torch.cli.main import main
+
+    rc, out, err = _run(main, ["flagstat", str(sam), *flags, "--device", "cpu"])
+    assert rc == 2 and out == ""
+    assert err.startswith(flags[0] + ": not in adam_tpu_torch yet")
+    assert f"ROADMAP queue 1 {item}" in err
+    assert not any(tmp_path.iterdir())
+
+
+def test_transform_report_is_refused(sam, tmp_path):
+    from adam_tpu_torch.cli.main import main
+
+    rc, _, err = _run(main, ["transform", str(sam), str(tmp_path / "o.adam"), "-streaming",
+                             "--report", str(tmp_path / "r.txt"), "--device", "cpu"])
+    assert rc == 2 and "--report" in err and "item 3" in err
+    assert not (tmp_path / "o.adam").exists()
+
+
+@pytest.mark.parametrize("argv", [[], ["-h"], ["--help"]])
+def test_usage_exits_0_in_both(argv):
+    from adam_tpu.cli.main import main as jax_main
+
+    from adam_tpu_torch.cli.main import main
+
+    for fn in (main, jax_main):
+        rc, out, err = _run(fn, argv)
+        assert rc == 0 and err == ""
+        assert out.startswith("\nUsage: ")
+        assert "ADAM ACTIONS\n" in out and "PRINT\n" in out
+    assert "           transform : " in _run(main, argv)[1]
+
+
+@pytest.mark.parametrize("verb", ["bogus", "serve", "Transform"])
+def test_unknown_verb_exits_1_in_both(verb):
+    from adam_tpu.cli.main import main as jax_main
+
+    from adam_tpu_torch.cli.main import main
+
+    rc, out, err = _run(main, [verb, "x"])
+    assert rc == 1 and out == ""
+    assert err.startswith(f"unknown command: {verb}\n\nUsage: ")
+    if verb != "serve":  # a JAX verb the port does not have yet
+        jrc, _, jerr = _run(jax_main, [verb, "x"])
+        assert jrc == 1 and jerr.startswith(f"unknown command: {verb}\n")
+
+
+@pytest.mark.parametrize("package", ["adam_tpu_torch", "adam_tpu.cli.main"])
+def test_view_into_a_closed_pipe_exits_0(sam, package):
+    argv = [sys.executable, "-m", package, "view", str(sam)]
+    if package == "adam_tpu_torch":
+        argv += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(argv, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    first = proc.stdout.readline()
+    proc.stdout.close()  # the reader is gone, as after `| head -1`
+    try:
+        rc = proc.wait(timeout=120)
+    finally:
+        err = proc.stderr.read().decode()
+        proc.stderr.close()
+    assert first.startswith(b"read")
+    assert rc == 0, err
+    assert "Traceback" not in err and "BrokenPipeError" not in err
+
+
+def test_the_cli_resolves_the_device_before_the_verb(sam, tmp_path):
+    import torch
+
+    from adam_tpu_torch.cli.main import main
+
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a machine without a card")
+    for argv in (["listdict", str(sam)], ["flatten", "a", str(tmp_path / "b")],
+                 ["print", "a"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    rc, out, _ = _run(main, ["buildinfo"])  # reports the device, checks none
+    assert rc == 0 and out.splitlines()[-1] == "device: cpu"

@@ -603,3 +603,68 @@ def test_contig_kmers_on_the_card_equal_the_cpu(cuda_device, k):
                     with open(path, "rb") as fh:
                         out[src, dev] = fh.read()
         assert len(set(out.values())) == 1 and out["g.fa", "cuda"].count(b"\n") == len(got)
+
+
+@pytest.mark.parametrize("n,lmax,n_rg", [(256, 100, 2), (65_536, 100, 3)])
+def test_transform_step_on_the_card_equals_the_cpu(cuda_device, n, lmax, n_rg):
+    """``transform_step`` on the card launches kernel 1 once and equals,
+    output for output, the CPU run with the plain version."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.transform_step import (
+        synthetic_batch,
+        synthetic_masks,
+        transform_step,
+    )
+
+    b = synthetic_batch(n, lmax, seed=n_rg)
+    res, mm = synthetic_masks(b)
+    before = kernels.launches()
+    gout, gaux = transform_step(b, res, mm, n_rg, lmax, device="cuda")
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["observe_hist"] == before["observe_hist"] + 1
+    assert after["pack_rows"] == before["pack_rows"]
+    cout, caux = transform_step(b, res, mm, n_rg, lmax, device="cpu")
+    assert gout.quals.device.type == "cuda"
+    assert torch.equal(gout.quals.cpu(), cout.quals)
+    for key in ("five_prime", "dup_score", "obs_total", "obs_mism"):
+        assert torch.equal(gaux[key].cpu(), caux[key]), key
+    assert gaux["flagstat"] == caux["flagstat"]
+    assert int(caux["obs_total"].sum()) > 0
+
+
+def test_spark_serve_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """The Spark executor's ``serve`` on the card returns, for two
+    partitions, the batches of the CPU run, with kernel 1 launched once
+    per partition (the dataset-level BQSR of each)."""
+    import io
+
+    import pyarrow as pa
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.api.spark_executor import StageConfig, serve
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops import kernels
+
+    sam = str(tmp_path / "in.sam")
+    make_wgs(sam, 4000, 100, seed=9, n_contigs=2, contig_len=40_000)
+    ds = context.load_alignments(sam)
+    buf = io.BytesIO()
+    writer = None
+    for rows in (np.arange(0, 2000), np.arange(2000, ds.batch.n_rows)):
+        rb = ds.take_rows(rows).to_arrow().combine_chunks().to_batches()[0]
+        writer = writer or pa.ipc.new_stream(buf, rb.schema)
+        writer.write_batch(rb)
+    writer.close()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = StageConfig(mark_duplicates=True, realign=True, recalibrate=True, device=dev)
+        sink = io.BytesIO()
+        before = kernels.launches()["observe_hist"]
+        assert serve(cfg, io.BytesIO(buf.getvalue()), sink) == 2
+        out[dev] = list(pa.ipc.open_stream(io.BytesIO(sink.getvalue())))
+        launched = kernels.launches()["observe_hist"] - before
+        assert launched == (2 if dev == "cuda" else 0)
+    assert len(out["cuda"]) == 2
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.equals(want)

@@ -105,10 +105,10 @@ def test_view_output_file_equals_jax(inputs, tmp_path):
 def test_view_and_depth_default_to_the_card(inputs):
     import torch
 
-    from adam_tpu_torch.cli.main import _parser
+    from adam_tpu_torch.cli.main import parser_for
 
     for argv in (["view", "x"], ["depth", "a", "b"]):
-        assert _parser().parse_args(argv).device == "cuda"
+        assert parser_for(argv[0]).parse_args(argv[1:]).device == "cuda"
     if not torch.cuda.is_available():
         from adam_tpu_torch.cli.main import main as cli
 

@@ -202,12 +202,12 @@ def test_kill_sigkills_a_child(how):
 
 
 _UNARMED = {
-    "device.dispatch": "queue 1 item 5", "device.fetch": "queue 1 item 5",
-    "pool.prewarm": "queue 1 item 5", "sched.admit": "queue 1 item 8",
-    "sched.batch": "queue 1 item 8", "sched.dispatch": "queue 1 item 8",
-    "sched.drain": "queue 1 item 8", "sched.job_crash": "queue 1 item 8",
-    "gateway.accept": "queue 1 item 8", "gateway.stream": "queue 1 item 8",
-    "gateway.fetch": "queue 1 item 8",
+    "device.dispatch": "queue 1 item 4", "device.fetch": "queue 1 item 4",
+    "pool.prewarm": "queue 1 item 4", "sched.admit": "queue 1 item 5",
+    "sched.batch": "queue 1 item 5", "sched.dispatch": "queue 1 item 5",
+    "sched.drain": "queue 1 item 5", "sched.job_crash": "queue 1 item 5",
+    "gateway.accept": "queue 1 item 5", "gateway.stream": "queue 1 item 5",
+    "gateway.fetch": "queue 1 item 5",
 }
 
 
@@ -234,7 +234,7 @@ def test_install_refuses_unarmed_sites(site):
 
 def test_install_refuses_corrupt():
     jf.install("device.fetch=corrupt,seed=1")
-    with pytest.raises(ValueError, match="queue 1 item 8") as e:
+    with pytest.raises(ValueError, match="queue 1 item 5") as e:
         tf.install("device.fetch=corrupt,seed=1")
     assert "'corrupt'" in str(e.value) and "SDC audit" in str(e.value)
     assert not tf.ENABLED
@@ -263,4 +263,4 @@ def test_cli_refuses_a_bad_fault_spec_as_jax(spec, tmp_path):
             assert jax_main(argv[:-2]) == 2
         assert line == jerr.getvalue().strip() == f"--fault-spec: {e}"
     else:
-        assert "queue 1 item 5" in line
+        assert "queue 1 item 4" in line

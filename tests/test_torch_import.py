@@ -3,6 +3,7 @@ nor any module of ``adam_tpu``, no source of the port (or
 ``chip_smoke.py``) imports them, and the device rule holds — the card
 unless the caller asks for the CPU."""
 
+import io
 import os
 import pathlib
 import re
@@ -106,6 +107,36 @@ def test_sharded_transform_defaults_to_the_card(tmp_path):
         assert not (tmp_path / "out").exists()
 
 
+def test_plugin_stage_config_and_transform_step_default_to_the_card(tmp_path):
+    import inspect
+
+    from adam_tpu_torch import plugins
+    from adam_tpu_torch.api.spark_executor import StageConfig, serve
+    from adam_tpu_torch.pipelines.transform_step import (
+        synthetic_batch,
+        synthetic_masks,
+        transform_step,
+    )
+
+    assert StageConfig().device == "cuda"
+    for fn in (plugins.execute_plugin, transform_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    b = synthetic_batch(8, 10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transform_step(b, *synthetic_masks(b), 2, 10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(StageConfig(mark_duplicates=True), io.BytesIO(b""), io.BytesIO())
+
+    class Rows(plugins.AdamPlugin):
+        def run(self, ds, args):
+            return []
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        plugins.execute_plugin(Rows(), str(tmp_path / "missing.sam"))
+
+
 def test_realign_names_the_next_slice():
     """Realignment with a known-indel table, once left to a later slice,
     runs: on an empty dataset it returns the dataset as it was."""
@@ -158,7 +189,19 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.formats.annotations",
                                     "adam_tpu_torch.models.genes",
                                     "adam_tpu_torch.utils.validation",
-                                    "adam_tpu_torch.cli.conversions"])
+                                    "adam_tpu_torch.cli.conversions",
+                                    "adam_tpu_torch.cli.actions",
+                                    "adam_tpu_torch.cli.printers",
+                                    "adam_tpu_torch.api.spark_executor",
+                                    "adam_tpu_torch.plugins",
+                                    "adam_tpu_torch.pipelines.transform_step",
+                                    "adam_tpu_torch.utils.two_bit",
+                                    "adam_tpu_torch.utils.interval_list",
+                                    "adam_tpu_torch.utils.attributes",
+                                    "adam_tpu_torch.utils.flattener",
+                                    "adam_tpu_torch.ops.prefix_trie",
+                                    "adam_tpu_torch.ops.phred",
+                                    "adam_tpu_torch.ops.cigar"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys
