@@ -132,6 +132,7 @@ import json
 import sys
 
 from adam_tpu_torch.cli.main import Command
+from adam_tpu_torch.utils import instrumentation as ins
 
 
 class CalculateDepth(Command):
@@ -249,8 +250,10 @@ class Transform(Command):
                        help="save each completed stage here and resume after the "
                        "deepest completed stage on a rerun")
         p.add_argument("--report", dest="report", default=None, metavar="PATH",
-                       help="not in the port yet: ROADMAP queue 1 item 3 (telemetry "
-                       "and the observability flags)")
+                       help="write the analyzer run report (per-device busy/idle "
+                       "attribution, barrier decomposition, critical path, latency "
+                       "quantiles: the 'analyze' view of this run) to PATH on "
+                       "completion; -streaming only")
         p.add_argument("-window_reads", type=int, default=262_144,
                        help="ingest window size in reads for -streaming")
         p.add_argument("--run-dir", dest="run_dir", default=None, metavar="DIR",
@@ -413,15 +416,17 @@ def _count_kmers(args) -> int:
     from adam_tpu_torch.io import context
 
     t0 = time.monotonic()
-    kw = {}
-    if str(args.input).endswith((".adam", ".parquet")):
-        kw["projection"] = ["sequence", "qual"]
-    ds = context.load_alignments(args.input, **kw)
+    with ins.TIMERS.time(ins.LOAD_ALIGNMENTS):
+        kw = {}
+        if str(args.input).endswith((".adam", ".parquet")):
+            kw["projection"] = ["sequence", "qual"]
+        ds = context.load_alignments(args.input, **kw)
     t1 = time.monotonic()
-    if args.countQmers:
-        counts = ds.count_qmers(args.kmer_length, device=args.device)
-    else:
-        counts = ds.count_kmers(args.kmer_length, device=args.device)
+    with ins.TIMERS.time(ins.COUNT_KMERS):
+        if args.countQmers:
+            counts = ds.count_qmers(args.kmer_length, device=args.device)
+        else:
+            counts = ds.count_kmers(args.kmer_length, device=args.device)
     t2 = time.monotonic()
     _write_kmer_counts(counts, args.output, args.printHistogram)
     stats = {"load_s": t1 - t0, "count_s": t2 - t1, "write_s": time.monotonic() - t2,
@@ -442,7 +447,8 @@ def _count_contig_kmers(args) -> int:
     else:
         fragments, _sd, _desc = parquet.load_fragments(args.input)
     t1 = time.monotonic()
-    counts = count_contig_kmers(fragments, args.kmer_length, device=args.device)
+    with ins.TIMERS.time(ins.COUNT_KMERS):
+        counts = count_contig_kmers(fragments, args.kmer_length, device=args.device)
     t2 = time.monotonic()
     _write_kmer_counts(counts, args.output, args.printHistogram)
     stats = {"load_s": t1 - t0, "count_s": t2 - t1, "write_s": time.monotonic() - t2,
@@ -474,6 +480,17 @@ def _adam2fastq(args) -> int:
 def _transform(args) -> int:
     if args.backend == "spark":
         return _transform_spark(args)
+    # the observability sinks only the -streaming pipeline produces: warn
+    # up front instead of exiting 0 with an artifact silently missing
+    if args.report and not args.streaming:
+        print("transform: --report is only produced by the -streaming "
+              f"pipeline; {args.report} will not be written (use "
+              "--metrics-json/--trace-out + 'python -m adam_tpu_torch analyze' for "
+              "other modes)", file=sys.stderr)
+    if args.progress and not args.streaming:
+        print("transform: --progress heartbeat is emitted by the "
+              "-streaming pipeline only; no lines will be written",
+              file=sys.stderr)
     if args.resume and not args.run_dir:
         print("transform: --resume needs the journal directory; pass "
               "--run-dir DIR (the same DIR the killed run journaled into)",
@@ -533,16 +550,17 @@ def _transform_dataset(args) -> int:
     launches0 = kernels.launches()
     stats: dict = {"device": str(dev), "stages_run": []}
     t_start = time.monotonic()
-    if args.force_load_bam:
-        ds = context.load_bam(args.input)
-    elif args.force_load_fastq:
-        ds = context.load_fastq(args.input)
-    elif args.force_load_ifastq:
-        ds = context.load_interleaved_fastq(args.input, stringency=args.stringency)
-    elif args.force_load_parquet:
-        ds = context.load_parquet_alignments(args.input)
-    else:
-        ds = context.load_alignments(args.input, stringency=args.stringency)
+    with ins.TIMERS.time(ins.LOAD_ALIGNMENTS):
+        if args.force_load_bam:
+            ds = context.load_bam(args.input)
+        elif args.force_load_fastq:
+            ds = context.load_fastq(args.input)
+        elif args.force_load_ifastq:
+            ds = context.load_interleaved_fastq(args.input, stringency=args.stringency)
+        elif args.force_load_parquet:
+            ds = context.load_parquet_alignments(args.input)
+        else:
+            ds = context.load_alignments(args.input, stringency=args.stringency)
     stats["load_s"] = time.monotonic() - t_start
     stats["n_reads"] = ds.batch.n_valid()
     if args.repartition != -1 or args.coalesce != -1:
@@ -551,10 +569,14 @@ def _transform_dataset(args) -> int:
             "have no RDD partition count"
         )
 
-    def stage(name, fn):
+    def stage(name, fn, timer=None):
         def run(ds):
             t0 = time.monotonic()
-            out = fn(ds)
+            if timer is None:
+                out = fn(ds)
+            else:
+                with ins.TIMERS.time(timer):
+                    out = fn(ds)
             stats[f"{name}_s"] = time.monotonic() - t0
             stats["stages_run"].append(name)
             return out
@@ -593,20 +615,23 @@ def _transform_dataset(args) -> int:
             device=dev, stats=stats)
 
     stages = []
+    # the named timers of the JAX CLI's stages (quality trim has none)
     if args.trimReads:
-        stages.append(stage("trim", trim))
+        stages.append(stage("trim", trim, ins.TRIM_READS))
     if args.qualityBasedTrim and args.trimBeforeBQSR:
         stages.append(stage("quality_trim", quality_trim))
     if args.mark_duplicate_reads:
-        stages.append(stage("mark_duplicates", lambda ds: ds.mark_duplicates(device=dev)))
+        stages.append(stage("mark_duplicates", lambda ds: ds.mark_duplicates(device=dev),
+                            ins.MARK_DUPLICATES))
     if args.realign_indels:
-        stages.append(stage("realign_indels", realign))
+        stages.append(stage("realign_indels", realign, ins.REALIGN_INDELS))
     if args.recalibrate_base_qualities:
-        stages.append(stage("bqsr", bqsr))
+        stages.append(stage("bqsr", bqsr, ins.BQSR))
     if args.qualityBasedTrim and not args.trimBeforeBQSR:
         stages.append(stage("quality_trim", quality_trim))
     if args.sort_reads:
-        stages.append(stage("sort", lambda ds: ds.sort_by_reference_position()))
+        stages.append(stage("sort", lambda ds: ds.sort_by_reference_position(),
+                            ins.SORT_READS))
 
     fp = None
     if args.checkpoint_dir:
@@ -630,15 +655,16 @@ def _transform_dataset(args) -> int:
         })
     ds = run_stages(ds, stages, checkpoint_dir=args.checkpoint_dir, fingerprint=fp)
     t0 = time.monotonic()
-    if args.sort_fastq_output and str(args.output).endswith((".fq", ".fastq")):
-        # name-sorted FASTQ export
-        import numpy as np
+    with ins.TIMERS.time(ins.SAVE_OUTPUT):
+        if args.sort_fastq_output and str(args.output).endswith((".fq", ".fastq")):
+            # name-sorted FASTQ export
+            import numpy as np
 
-        from adam_tpu_torch.formats.strings import StringColumn
+            from adam_tpu_torch.formats.strings import StringColumn
 
-        names = StringColumn.of(ds.sidecar.names).to_fixed_bytes()
-        ds = ds.take_rows(np.argsort(names, kind="stable"))
-    ds.save(args.output, compression=args.parquet_compression_codec)
+            names = StringColumn.of(ds.sidecar.names).to_fixed_bytes()
+            ds = ds.take_rows(np.argsort(names, kind="stable"))
+        ds.save(args.output, compression=args.parquet_compression_codec)
     stats["save_s"] = time.monotonic() - t0
     stats["n_rows_out"] = ds.batch.n_valid()
     stats["total_s"] = time.monotonic() - t_start
@@ -751,6 +777,16 @@ def _depth(args) -> int:
 def _transform_streamed(args) -> int:
     from adam_tpu_torch.pipelines.streamed import transform_streamed
 
+    if args.report:
+        # pre-flight the report path before the run: a mistyped directory
+        # fails in milliseconds, not after the pipeline
+        try:
+            with open(args.report, "a"):
+                pass
+        except OSError as e:
+            print(f"transform: cannot write --report {args.report}: {e}",
+                  file=sys.stderr)
+            return 2
     known, indels = _known_sites(args)
     table = None
     if args.known_recalibration_table:
@@ -776,7 +812,23 @@ def _transform_streamed(args) -> int:
         dump_observations=args.dump_observations,
         run_dir=args.run_dir,
         resume=args.resume,
+        progress=args.progress,
         device=args.device,
     )
     print(json.dumps(stats, sort_keys=True))
+    if args.report:
+        # the analyzer view of this run, from the trace of the global
+        # tracer (main() switched recording on for --report)
+        from adam_tpu_torch.utils import analyzer
+        from adam_tpu_torch.utils import telemetry as tele
+
+        report = analyzer.analyze(tele.TRACE.to_chrome_trace())
+        try:
+            with open(args.report, "w") as fh:
+                fh.write(analyzer.render_report(report) + "\n")
+        except OSError as e:
+            # the dataset is written and valid: a failed report write
+            # must not turn the run into a failure
+            print(f"transform: report write to {args.report} failed: {e}",
+                  file=sys.stderr)
     return 0

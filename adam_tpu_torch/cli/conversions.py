@@ -159,6 +159,7 @@ def bam2adam(args) -> int:
     one ParquetWriter; an empty BAM (no window) falls through to the
     whole-file load, for its header."""
     from adam_tpu_torch.io import context, parquet
+    from adam_tpu_torch.utils import instrumentation as ins
 
     t0 = time.monotonic()
     if str(args.bam).endswith(".bam"):
@@ -168,22 +169,26 @@ def bam2adam(args) -> int:
 
         writer = None
         n = 0
-        for batch, side, header in sam_io.iter_bam_batches(args.bam):
-            table = parquet.to_arrow_alignments(batch, side, header)
-            if writer is None:
-                writer = pq.ParquetWriter(args.adam, table.schema,
-                                          compression=args.parquet_compression_codec)
-            writer.write_table(table)
-            n += table.num_rows
+        with ins.TIMERS.time(ins.SAVE_OUTPUT):
+            for batch, side, header in sam_io.iter_bam_batches(args.bam):
+                table = parquet.to_arrow_alignments(batch, side, header)
+                if writer is None:
+                    writer = pq.ParquetWriter(args.adam, table.schema,
+                                              compression=args.parquet_compression_codec)
+                writer.write_table(table)
+                n += table.num_rows
+            if writer is not None:
+                writer.close()
         if writer is not None:
-            writer.close()
             print(f"bam2adam: streamed {n} reads")
             _walls(total_s=time.monotonic() - t0, n_reads=n, streamed=True)
             return 0
-    ds = context.load_alignments(args.bam)
+    with ins.TIMERS.time(ins.LOAD_ALIGNMENTS):
+        ds = context.load_alignments(args.bam)
     t1 = time.monotonic()
-    parquet.save_alignments(args.adam, ds.batch, ds.sidecar, ds.header,
-                            compression=args.parquet_compression_codec)
+    with ins.TIMERS.time(ins.SAVE_OUTPUT):
+        parquet.save_alignments(args.adam, ds.batch, ds.sidecar, ds.header,
+                                compression=args.parquet_compression_codec)
     _walls(load_s=t1 - t0, save_s=time.monotonic() - t1, n_reads=ds.batch.n_valid(),
            streamed=False)
     return 0

@@ -16,27 +16,34 @@ verbs that read them; ``-parquet_block_size``, ``-parquet_page_size`` and
 ``-parquet_disable_dictionary`` are accepted for parity and read by no
 verb, as in JAX; ``--fault-spec`` arms ``utils/faults.py`` before the
 verb runs.  The port adds ``--device {cuda,cpu}`` (default ``cuda``,
-which raises without a card).  JAX's observability and multi-chip flags
+which raises without a card).
+
+The observability flags act as JAX's do (``utils/telemetry.py``,
+``utils/instrumentation.py``): ``-print_metrics``, ``--metrics-json``,
+``--trace-out`` and transform's ``--report`` switch recording on;
+``-print_metrics`` prints the timer table and then the counters, gauges
+and histograms; the JSON snapshot and the Chrome trace are written when
+the verb ends, failed or not; ``--progress`` is the streamed transform's
+heartbeat.  ``--xprof-dir DIR`` wraps the verb in a ``torch.profiler``
+trace and writes it to DIR as a Chrome-trace JSON file (Perfetto opens
+it), the port's counterpart of JAX's xprof trace.  The multi-chip flags
 parse, and a verb given one exits 2 naming the ROADMAP item that will
-bring it (``--devices 1`` is what the port does, and passes).
+bring them (``--devices 1`` is what the port does, and passes).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
+
+from adam_tpu_torch.utils import instrumentation as ins
+from adam_tpu_torch.utils import telemetry as tele
 
 #: JAX's shared flags the port does not serve yet -> the ROADMAP item
 #: that brings them.  Each is refused when given, never ignored.
-_TELEMETRY = "ROADMAP queue 1 item 3 (telemetry and the observability flags)"
 _MULTI_GPU = "ROADMAP queue 1 item 4 (multi-GPU)"
 UNPORTED_FLAGS = (
-    ("print_metrics", "-print_metrics", _TELEMETRY),
-    ("metrics_json", "--metrics-json", _TELEMETRY),
-    ("trace_out", "--trace-out", _TELEMETRY),
-    ("progress", "--progress", _TELEMETRY),
-    ("xprof_dir", "--xprof-dir", _TELEMETRY),
-    ("report", "--report", _TELEMETRY),
     ("devices", "--devices", _MULTI_GPU),
     ("partitioner", "--partitioner", _MULTI_GPU),
 )
@@ -67,15 +74,29 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     ``add_common_args``) and the port's ``--device``."""
     parser.add_argument(
         "-print_metrics", action="store_true",
-        help=f"not in the port yet: {_TELEMETRY}",
+        help="print metrics on completion (the timer table, then the "
+        "telemetry counters, gauges and histograms recorded under it)",
     )
-    parser.add_argument("--metrics-json", dest="metrics_json", default=None,
-                        metavar="PATH", help=f"not in the port yet: {_TELEMETRY}")
-    parser.add_argument("--trace-out", dest="trace_out", default=None, metavar="PATH",
-                        help=f"not in the port yet: {_TELEMETRY}")
-    parser.add_argument("--progress", dest="progress", nargs="?", const="stderr",
-                        default=None, metavar="PATH",
-                        help=f"not in the port yet: {_TELEMETRY}")
+    parser.add_argument(
+        "--metrics-json", dest="metrics_json", default=None, metavar="PATH",
+        help="write the telemetry snapshot (spans, counters, gauges and the "
+        "timer table as JSON) to PATH on completion",
+    )
+    parser.add_argument(
+        "--trace-out", dest="trace_out", default=None, metavar="PATH",
+        help="write the flight recorder as a Chrome-trace JSON file "
+        "(chrome://tracing or Perfetto; per-thread tracks show the "
+        "streamed tokenize/dispatch/encode/write overlap)",
+    )
+    parser.add_argument(
+        "--progress", dest="progress", nargs="?", const="stderr",
+        default=None, metavar="PATH",
+        help="emit a live NDJSON progress heartbeat every few seconds "
+        "(windows done/total, reads/s, bytes written, card memory, "
+        "in-flight depth, fault counter, ETA) to stderr, or to PATH when "
+        "given; also ADAM_TPU_PROGRESS, period ADAM_TPU_PROGRESS_INTERVAL_S "
+        "(streamed transform only)",
+    )
     parser.add_argument(
         "--devices", dest="devices", type=int, default=None, metavar="N",
         help="device count: 1 (one card, what the port runs on); more is "
@@ -89,8 +110,13 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
         help="arm fault injection at named points (testing only; e.g. "
         "'proc.kill=kill,device=pass_c,after=2,times=1'; also ADAM_TPU_FAULTS)",
     )
-    parser.add_argument("--xprof-dir", dest="xprof_dir", default=None, metavar="DIR",
-                        help=f"not in the port yet: {_TELEMETRY}")
+    parser.add_argument(
+        "--xprof-dir", dest="xprof_dir", default=None, metavar="DIR",
+        help="wrap the command in a torch.profiler trace (host calls and, "
+        "on the card, the CUDA kernels) written to DIR as a Chrome-trace "
+        "JSON file, loadable in Perfetto; a no-op if a trace is already "
+        "active",
+    )
     parser.add_argument(
         "-log_level", default="warning", choices=["debug", "info", "warning", "error"],
         help="logging verbosity",
@@ -189,6 +215,15 @@ def main(argv=None) -> int:
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
+    # any observability sink switches recording on: the timer table, the
+    # JSON snapshot, the Chrome trace and the analyzer report all read
+    # the same run (--progress manages its own through the heartbeat)
+    want_metrics = bool(
+        args.print_metrics or args.metrics_json or args.trace_out
+        or getattr(args, "report", None)
+    )
+    ins.TIMERS.recording = want_metrics
+    tele.TRACE.recording = want_metrics
     if args.fault_spec:
         from adam_tpu_torch.utils import faults
 
@@ -201,8 +236,13 @@ def main(argv=None) -> int:
         from adam_tpu_torch.device import resolve_device
 
         resolve_device(args.device)
+    xprof = (
+        ins.device_trace(args.xprof_dir) if args.xprof_dir
+        else contextlib.nullcontext()
+    )
     try:
-        rc = cmd.run(args)
+        with xprof:
+            rc = cmd.run(args)
     except BrokenPipeError:  # e.g. `view in.sam | head -1`
         # point stdout at /dev/null, so that the interpreter's last flush
         # of what is still buffered cannot fail at exit as well
@@ -212,6 +252,23 @@ def main(argv=None) -> int:
         os.dup2(devnull, sys.stdout.fileno())
         os.close(devnull)
         return 0
+    finally:
+        if args.print_metrics:
+            try:
+                print(ins.TIMERS.report())
+                print(tele.TRACE.report())
+            except BrokenPipeError:
+                pass
+        for path, dump in (
+            (args.metrics_json, tele.TRACE.dump_json),
+            (args.trace_out, tele.TRACE.dump_chrome_trace),
+        ):
+            if path:
+                try:
+                    dump(path)
+                except OSError as e:
+                    print(f"telemetry export to {path} failed: {e}",
+                          file=sys.stderr)
     return int(rc or 0)
 
 

@@ -1,7 +1,7 @@
 """The PRINT verbs of the port's command line (the counterparts of
 ``adam_tpu/cli/printers.py``): ``print``, ``print_genes``, ``flagstat``,
-``print_tags``, ``listdict``, ``allelecount``, ``buildinfo`` and
-``view``.
+``print_tags``, ``listdict``, ``allelecount``, ``buildinfo``, ``view``
+and ``analyze``.
 
 Each prints what the JAX verb prints, byte for byte, on the same input:
 
@@ -14,6 +14,7 @@ Each prints what the JAX verb prints, byte for byte, on the same input:
     python -m adam_tpu_torch buildinfo
     python -m adam_tpu_torch view INPUT [OUTPUT] [-f N] [-F N] [-g N] [-G N]
         [-c] [-o OUTPUT] [--device cuda|cpu]
+    python -m adam_tpu_torch analyze ARTIFACT [-json PATH]
 
 ``flagstat`` is the samtools-style report (a ``.adam`` or ``.parquet``
 input is read with the flag columns projected), its masked sums on the
@@ -22,7 +23,10 @@ samtools-view clone: the ``-f/-F/-g/-G`` flag-bit filters computed on the
 device, ``-c`` the count, else SAM text or a file by extension.  The
 others are host code, as in the JAX package.  ``buildinfo`` prints the
 port's version, torch's, CUDA's, Python's and the device kind (the card's
-name when there is one, else ``cpu``); it checks no device.
+name when there is one, else ``cpu``); it checks no device.  ``analyze``
+renders the run report of a ``--metrics-json`` snapshot or a
+``--trace-out`` Chrome trace of either package (``utils/analyzer.py``);
+it checks no device either.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 
 from adam_tpu_torch.cli.main import Command
 from adam_tpu_torch.formats import schema
+from adam_tpu_torch.utils import instrumentation as ins
 
 
 class PrintAdam(Command):
@@ -235,6 +240,46 @@ class View(Command):
         return _view(args)
 
 
+class Analyze(Command):
+    name = "analyze"
+    description = ("Analyze a telemetry snapshot or Chrome trace into a "
+                   "run report (device utilization, barrier stalls, "
+                   "critical path, latency quantiles)")
+    checks_device = False
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument(
+            "input", metavar="ARTIFACT",
+            help="a --metrics-json snapshot or --trace-out Chrome trace "
+            "(auto-detected; a trace additionally yields idle-gap "
+            "analysis and the critical path)",
+        )
+        p.add_argument("-json", dest="json_out", default=None, metavar="PATH",
+                       help="also write the analysis as machine-readable JSON")
+
+    @classmethod
+    def run(cls, args):
+        from adam_tpu_torch.utils import analyzer
+
+        try:
+            # incident bundles, SLO_BUDGET.json and PERF_LEDGER.ndjson
+            # beside the artifact fold into their report sections
+            report = analyzer.analyze_path(args.input)
+        except (OSError, ValueError) as e:
+            print(f"analyze: {e}", file=sys.stderr)
+            return 2
+        print(analyzer.render_report(report))
+        if args.json_out:
+            try:
+                with open(args.json_out, "w") as fh:
+                    json.dump(report, fh, indent=1, default=str)
+            except OSError as e:
+                print(f"analyze: cannot write {args.json_out}: {e}", file=sys.stderr)
+                return 2
+        return 0
+
+
 COMMANDS = [
     PrintAdam,
     PrintGenes,
@@ -244,6 +289,7 @@ COMMANDS = [
     AlleleCount,
     BuildInformation,
     View,
+    Analyze,
 ]
 
 
@@ -262,7 +308,8 @@ def _flagstat(args) -> int:
         ]
     ds = context.load_alignments(args.input, **kw)
     t1 = time.monotonic()
-    failed, passed = flagstat(ds.batch, device=args.device)
+    with ins.TIMERS.time(ins.FLAGSTAT):
+        failed, passed = flagstat(ds.batch, device=args.device)
     t2 = time.monotonic()
     print(format_flagstat(failed, passed))
     print(json.dumps({"load_s": t1 - t0, "flagstat_s": t2 - t1,

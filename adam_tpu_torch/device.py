@@ -34,3 +34,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_key(dev: torch.device) -> str:
+    """A device's telemetry key: the CUDA index (``"0"``), as the JAX
+    package keys a device by its id, so ``device=<k>`` span attributes
+    and the heartbeat's HBM samples name a card alike; ``"cpu"`` for the
+    CPU."""
+    if dev.type == "cuda":
+        return str(dev.index if dev.index is not None else torch.cuda.current_device())
+    return dev.type

@@ -214,46 +214,104 @@ def to_arrow_alignments(batch: ReadBatch, side: ReadSidecar,
     return table.replace_schema_metadata(_header_meta(header))
 
 
+def _encode_bytes_in(batch, side, packed=None) -> int:
+    """Decoded column-payload bytes entering a part encode (the
+    ``parquet.encode.bytes_in`` counter): the [N, L]/[N, C] batch
+    matrices plus the sidecar's flat string buffers, with the quals (and
+    bases) matrix replaced by the device-packed payload when pass C
+    shipped one."""
+    from adam_tpu_torch.io.arrow_pack import PackedColumns
+
+    packed_bases = None
+    if isinstance(packed, PackedColumns):
+        packed_bases = packed.bases
+        packed = packed.quals
+    total = 0
+    for name in ("bases", "quals", "cigar_ops", "cigar_lens"):
+        arr = getattr(batch, name, None)
+        if name == "quals" and packed is not None:
+            total += int(getattr(packed.buf, "nbytes", 0))
+            continue
+        if name == "bases" and packed_bases is not None:
+            total += int(getattr(packed_bases.buf, "nbytes", 0))
+            continue
+        total += int(getattr(arr, "nbytes", 0) or 0)
+    for name in ("names", "attrs", "md", "orig_quals"):
+        col = getattr(side, name, None)
+        buf = getattr(col, "buf", None)
+        total += int(getattr(buf, "nbytes", 0) or 0)
+    return total
+
+
+def _count_encode_bytes(tr, batch, side, table, packed=None) -> None:
+    from adam_tpu_torch.utils import telemetry as tele
+
+    if not tr.recording:
+        return
+    tr.count(tele.C_ENCODE_BYTES_IN, _encode_bytes_in(batch, side, packed))
+    tr.count(tele.C_ENCODE_BYTES_OUT, int(table.nbytes))
+
+
+def _count_written(tr, path: str) -> None:
+    """The part and byte counters of one published part, on ``tr``."""
+    from adam_tpu_torch.utils import telemetry as tele
+
+    if not tr.recording:
+        return
+    tr.count(tele.C_PARTS_WRITTEN)
+    try:
+        tr.count(tele.C_BYTES_WRITTEN, os.path.getsize(path))
+    except OSError:
+        pass
+
+
 def write_part(table, path: str, compression: str) -> None:
     """Write one encoded part: staging file, then the durable publish
     (fsync, atomic rename, fsync of the directory).  Fault points:
     ``parquet.write`` before the staging write, ``proc.kill`` (phase
     ``write``) once the part is published and before the caller's
     bookkeeping (the journal record), so a resume must tolerate a
-    published part the journal does not know of."""
+    published part the journal does not know of.  The write is timed
+    (``Write ADAM Record (part file)``) and spanned (``parquet.part.write``)
+    on the global tracer; the callers count the part (:func:`_count_written`)."""
     import pyarrow.parquet as pq
 
     from adam_tpu_torch.utils import faults
+    from adam_tpu_torch.utils import instrumentation as ins
+    from adam_tpu_torch.utils import telemetry as tele
     from adam_tpu_torch.utils.durability import publish_file
 
     tmp = _staging_path(path)
-    faults.point("parquet.write")
-    # claim the staging slot with an empty file first: concurrent writers
-    # share the staging directory, and a sibling's rmdir of it (once it
-    # is empty, in save_alignments) may land between the mkdir and the
-    # write; a non-empty directory survives the rmdir
-    while True:
+    with ins.TIMERS.time(ins.PARQUET_WRITE), tele.TRACE.span(
+        tele.SPAN_PART_WRITE, path=os.path.basename(path)
+    ):
+        faults.point("parquet.write")
+        # claim the staging slot with an empty file first: concurrent
+        # writers share the staging directory, and a sibling's rmdir of it
+        # (once it is empty, in save_alignments) may land between the
+        # mkdir and the write; a non-empty directory survives the rmdir
+        while True:
+            try:
+                with open(tmp, "wb"):
+                    pass
+                break
+            except FileNotFoundError:
+                tmp = _staging_path(path)
         try:
-            with open(tmp, "wb"):
+            # dictionary-encode only the low-cardinality name columns
+            pq.write_table(
+                table, tmp,
+                use_dictionary=["contig", "mateContig", "recordGroupName"],
+                **parquet_codec_kw(compression),
+            )
+            publish_file(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
                 pass
-            break
-        except FileNotFoundError:
-            tmp = _staging_path(path)
-    try:
-        # dictionary-encode only the low-cardinality name columns
-        pq.write_table(
-            table, tmp,
-            use_dictionary=["contig", "mateContig", "recordGroupName"],
-            **parquet_codec_kw(compression),
-        )
-        publish_file(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    faults.point("proc.kill", device="write")
+            raise
+        faults.point("proc.kill", device="write")
 
 
 def save_alignments(path: str, batch: ReadBatch, side: ReadSidecar,
@@ -263,8 +321,19 @@ def save_alignments(path: str, batch: ReadBatch, side: ReadSidecar,
     rename); the staging directory goes once it is empty."""
     import pyarrow as pa
 
+    from adam_tpu_torch.utils import instrumentation as ins
+    from adam_tpu_torch.utils import telemetry as tele
+
     pa.set_memory_pool(pa.system_memory_pool())  # see PartWriterPool
-    write_part(to_arrow_alignments(batch, side, header), path, compression)
+    with ins.TIMERS.time(ins.PARQUET_ENCODE), tele.TRACE.span(
+        tele.SPAN_PART_ENCODE, rows=int(batch.n_rows)
+    ):
+        table = to_arrow_alignments(batch, side, header)
+    if tele.TRACE.recording:
+        tele.TRACE.count(tele.C_BYTES_ENCODED, int(table.nbytes))
+    _count_encode_bytes(tele.TRACE, batch, side, table)
+    write_part(table, path, compression)
+    _count_written(tele.TRACE, path)
     try:
         os.rmdir(os.path.join(os.path.dirname(os.path.abspath(path)), TMP_DIR_NAME))
     except OSError:  # another writer's file is still staged there
@@ -335,11 +404,17 @@ class PartWriterPool:
     after a part's durable publish (the run journal's "window complete"
     record); a hook failure is a worker failure.  The first worker
     failure fails later submits and re-raises from :meth:`close`.
-    Which thread writes a part never changes its bytes."""
+    Which thread writes a part never changes its bytes.
+
+    Telemetry, as in the JAX pool: the encode is timed and spanned on the
+    global tracer, and the byte and part counters, the queue-depth and
+    bound gauges and the ``parquet.pool.submit_wait`` histogram go to
+    ``tracer`` (the streamed run tracer) when given, else to the global
+    one."""
 
     def __init__(self, n_encoders: int = 2, inflight_parts: int = 3,
                  compression: str = "zstd", on_published=None,
-                 n_io: Optional[int] = None,
+                 tracer=None, n_io: Optional[int] = None,
                  adaptive: Optional[bool] = None):
         import pyarrow as pa
 
@@ -370,7 +445,12 @@ class PartWriterPool:
         self._gated_recent: deque = deque(maxlen=_GATE_WINDOW)
         self._compression = compression
         self._on_published = on_published
+        self._tracer = tracer
         self._futures: list = []
+        # parts alive in the pool, sampled into the queue-depth gauge at
+        # submit and at release (kept whether or not recording is on)
+        self._depth = 0
+        self._depth_lock = threading.Lock()
         self._failed: BaseException | None = None
         self._fail_lock = threading.Lock()
         self._staging_dirs: set = set()
@@ -396,6 +476,21 @@ class PartWriterPool:
         with self._gate_lock:
             return self._bound
 
+    def _metric_tracer(self):
+        from adam_tpu_torch.utils import telemetry as tele
+
+        return self._tracer if self._tracer is not None else tele.TRACE
+
+    def _sample_depth(self, delta: int) -> None:
+        from adam_tpu_torch.utils import telemetry as tele
+
+        # the gauge is written under the depth lock, so the last sample
+        # is always the current depth
+        tr = self._metric_tracer()
+        with self._depth_lock:
+            self._depth += delta
+            tr.gauge(tele.G_POOL_DEPTH, self._depth)
+
     def _io_shard(self, path: str) -> ThreadPoolExecutor:
         idx = part_index(path)
         if idx is None:
@@ -414,11 +509,17 @@ class PartWriterPool:
                 return
             self._bound += 1
             self._gated_recent.clear()
+            bound = self._bound
         self._gate.release()
+        from adam_tpu_torch.utils import telemetry as tele
+
+        self._metric_tracer().gauge(tele.G_POOL_BOUND, bound)
 
     def submit(self, path: str, batch: ReadBatch, side: ReadSidecar,
                header: SamHeader, packed=None) -> None:
         from adam_tpu_torch.utils import faults
+        from adam_tpu_torch.utils import instrumentation as ins
+        from adam_tpu_torch.utils import telemetry as tele
 
         first = self.failed
         if first is not None:
@@ -429,36 +530,63 @@ class PartWriterPool:
             os.path.join(os.path.dirname(os.path.abspath(path)), TMP_DIR_NAME)
         )
 
+        def release():
+            # the depth drops before the gate reopens: a submitter it
+            # unblocks never sees a depth above the admission bound
+            self._sample_depth(-1)
+            self._gate.release()
+
         def write(table):
             try:
                 write_part(table, path, self._compression)
+                # the journal record first: a kill after the next publish
+                # must find it as early as it could without telemetry
                 if self._on_published is not None:
                     self._on_published(path)
+                _count_written(self._metric_tracer(), path)
             except BaseException as e:
                 self._record_failure(e)
                 raise
             finally:
-                self._gate.release()
+                release()
 
         def encode():
             try:
                 faults.point("parquet.encode")
-                table = to_arrow_alignments(batch, side, header, packed=packed)
+                # encoder threads carry no trace scope: stamp it explicitly
+                enc_attrs = {"rows": int(batch.n_rows)}
+                job_trace = getattr(self._tracer, "trace", None)
+                if job_trace:
+                    enc_attrs["trace"] = job_trace
+                with ins.TIMERS.time(ins.PARQUET_ENCODE), tele.TRACE.span(
+                    tele.SPAN_PART_ENCODE, **enc_attrs
+                ):
+                    table = to_arrow_alignments(batch, side, header, packed=packed)
+                tr = self._metric_tracer()
+                if tr.recording:
+                    tr.count(tele.C_BYTES_ENCODED, int(table.nbytes))
+                _count_encode_bytes(tr, batch, side, table, packed)
                 return self._io_shard(path).submit(write, table)
             except BaseException as e:
                 # release on the error path: the producer may be blocked
                 # in submit() on a full gate
                 self._record_failure(e)
-                self._gate.release()
+                release()
                 raise
 
+        # the time the producer blocks on the gate is the writer pool's
+        # backpressure, kept as a histogram (a p99, not only a total)
+        tr = self._metric_tracer()
         t_gate = time.monotonic()
         self._gate.acquire()
-        self._maybe_grow(time.monotonic() - t_gate > _GATED_WAIT_S)
+        wait_s = time.monotonic() - t_gate
+        tr.observe(tele.H_POOL_SUBMIT_WAIT, wait_s)
+        self._maybe_grow(wait_s > _GATED_WAIT_S)
+        self._sample_depth(+1)
         try:
             self._futures.append(self._enc.submit(encode))
         except BaseException:
-            self._gate.release()
+            release()
             raise
 
     def _discard_staging(self) -> None:

@@ -13,11 +13,16 @@ back).  A decoder returns None only for input that is not what it parses
 (malformed SAM or BAM records, data that is not BGZF), and its caller
 raises with the JAX package's message.  Only the functions this package
 calls are bound.
+
+Each codec call is timed under the JAX package's named timer and recorded
+as a telemetry span of the same name (``utils/instrumentation.py``,
+``utils/telemetry.py``), both no-ops unless recording is on.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
+import functools
 import hashlib
 import os
 import subprocess
@@ -26,6 +31,9 @@ import threading
 from typing import Sequence
 
 import numpy as np
+
+from adam_tpu_torch.utils import instrumentation as _instr
+from adam_tpu_torch.utils import telemetry as _tele
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = [os.path.join(_DIR, "adamtok.cpp"), os.path.join(_DIR, "realign.cpp")]
@@ -41,6 +49,21 @@ _LIB: ct.CDLL | None = None
 _i64p = ct.POINTER(ct.c_int64)
 _i32p = ct.POINTER(ct.c_int32)
 _u8p = ct.POINTER(ct.c_uint8)
+
+
+def _timed(timer_name: str):
+    """Record a native call under the named-timer registry and as a
+    telemetry span of the same name on the calling thread's track."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with _instr.TIMERS.time(timer_name), _tele.TRACE.span(timer_name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def _cpu_flags() -> str:
@@ -273,6 +296,7 @@ def _str_dict(names: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
     return c.buf, c.offsets
 
 
+@_timed(_instr.TOKENIZE_INPUT)
 def tokenize_sam(data, body_off: int, contig_names: Sequence[str],
                  rg_names: Sequence[str]) -> dict | None:
     """Tokenize SAM body lines into columnar arrays; None on malformed
@@ -389,6 +413,7 @@ def _bgzf_inflate(buf: np.ndarray, partial: bool):
         L_.bgzf_free(h)
 
 
+@_timed(_instr.BGZF_CODEC)
 def bgzf_decompress(data) -> bytes | None:
     """Block-parallel BGZF decode of a whole container; None if ``data``
     is not BGZF."""
@@ -396,6 +421,7 @@ def bgzf_decompress(data) -> bytes | None:
     return None if got is None else got[0]
 
 
+@_timed(_instr.BGZF_CODEC)
 def bgzf_decompress_partial(data) -> tuple[bytes, int] | None:
     """Streaming-window BGZF decode: decompress the *complete* blocks in
     ``data`` -> (decompressed bytes, input bytes consumed); a truncated
@@ -404,6 +430,7 @@ def bgzf_decompress_partial(data) -> tuple[bytes, int] | None:
     return _bgzf_inflate(_as_u8(data), partial=True)
 
 
+@_timed(_instr.BGZF_CODEC)
 def bgzf_compress(data, level: int = 6, block_size: int = 0xFF00) -> bytes:
     """Block-parallel BGZF encode, EOF block appended."""
     L_ = lib()
@@ -424,6 +451,7 @@ def bgzf_compress(data, level: int = 6, block_size: int = 0xFF00) -> bytes:
     return out[: out_len.value].tobytes()
 
 
+@_timed(_instr.TOKENIZE_INPUT)
 def tokenize_bam(raw, records_off: int, rg_names: Sequence[str],
                  partial: bool = False) -> dict | None:
     """Parse decompressed BAM records into columnar arrays; None on
@@ -588,6 +616,7 @@ def _encode_prep(batch, side, rg_names: Sequence[str]):
     return n, args, base_cap, keep
 
 
+@_timed(_instr.SAM_ENCODE)
 def bam_encode(batch, side, rg_names: Sequence[str], n_refs: int) -> bytes:
     """Encode a (ReadBatch, ReadSidecar) into the BAM record stream
     (everything after the reference list).  ``n_refs`` bounds the
@@ -610,6 +639,7 @@ def bam_encode(batch, side, rg_names: Sequence[str], n_refs: int) -> bytes:
     return out[:got].tobytes()
 
 
+@_timed(_instr.SAM_ENCODE)
 def sam_encode(batch, side, rg_names: Sequence[str],
                contig_names: Sequence[str]) -> bytes:
     """Format a (ReadBatch, ReadSidecar) as SAM text lines, without the
@@ -637,6 +667,7 @@ def sam_encode(batch, side, rg_names: Sequence[str],
     return out[:got].tobytes()
 
 
+@_timed(_instr.FASTQ_ENCODE)
 def fastq_encode(batch, side, select, add_suffix: bool) -> bytes:
     """Format the ``select``-ed rows as FASTQ text: reverse-strand reads
     reverse-complemented back to sequencer orientation (quals reversed),

@@ -45,6 +45,7 @@ from adam_tpu_torch.ops import cigar as cigar_ops
 from adam_tpu_torch.ops.colpack import pack_rows
 from adam_tpu_torch.ops.observe import observe_hist, pack_bits
 from adam_tpu_torch.ops.phred import PHRED_TO_ERROR
+from adam_tpu_torch.utils import telemetry as _tele
 
 N_QUAL = 94  # valid phred range 0..93
 N_DINUC = 17  # 16 (prev,cur) pairs + index 16 = None ("NN")
@@ -239,7 +240,7 @@ def dump_observation_csv(total, mism, rg_names, lmax, path) -> None:
 
 
 def merge_observations(parts: list[tuple], window_ids=None,
-                       on_part=None) -> tuple:
+                       on_part=None, tracer=None) -> tuple:
     """Sum per-window (total, mism, gl) histograms, in window order, into
     one host i64 (total, mism, gl).  Cycle slots are centred (index =
     cycle + gl), so a narrower window pads into the middle of the widest
@@ -249,16 +250,27 @@ def merge_observations(parts: list[tuple], window_ids=None,
     ``window_ids`` is the parallel list of each part's window index (the
     part position when None); ``on_part(window, total, mism, g)`` is
     called with each part's host histogram as it merges, which is where
-    the run journal persists its observe sidecars."""
+    the run journal persists its observe sidecars.  With ``tracer`` (the
+    streamed run's barrier 2) each device part's fetch is a
+    ``device.fetch.observe`` span on it, attributed to its window and
+    device; the dataset-level callers record none, as in JAX."""
+    from adam_tpu_torch.device import device_key
+
     gl = max(p[2] for p in parts)
     s0 = tuple(parts[0][0].shape)
     shape = (s0[0], s0[1], 2 * gl + 1, s0[3])
     total = np.zeros(shape, np.int64)
     mism = np.zeros(shape, np.int64)
     for k, (t, m, g) in enumerate(parts):
-        tt, mm = _host(t), _host(m)
+        win = window_ids[k] if window_ids is not None else k
+        if tracer is not None and isinstance(t, torch.Tensor):
+            with tracer.span(_tele.SPAN_OBS_FETCH, window=win,
+                             device=device_key(t.device)):
+                tt, mm = _host(t), _host(m)
+        else:  # a host part (a loaded sidecar) crosses no device link
+            tt, mm = _host(t), _host(m)
         if on_part is not None:
-            on_part(window_ids[k] if window_ids is not None else k, tt, mm, g)
+            on_part(win, tt, mm, g)
         off = gl - g
         total[:, :, off : off + 2 * g + 1, :] += tt
         mism[:, :, off : off + 2 * g + 1, :] += mm
@@ -477,10 +489,12 @@ def _apply_handle(ds: AlignmentDataset, b, pq, pb) -> tuple:
 def observe_window(ds: AlignmentDataset, rw, known_snps=None) -> tuple:
     """Pass B for one resident window -> (total, mism, gl): lazy i64
     histograms on the window's device and its grid width."""
-    total, mism = observe_packed_body(
-        *rw.args(), *_observe_masks(ds, rw, known_snps),
-        len(ds.read_groups) + 1, rw.gl,
-    )
+    with _tele.TRACE.span(_tele.SPAN_BQSR_OBSERVE, backend="device",
+                          reads=int(ds.batch.n_rows)):
+        total, mism = observe_packed_body(
+            *rw.args(), *_observe_masks(ds, rw, known_snps),
+            len(ds.read_groups) + 1, rw.gl,
+        )
     return total, mism, rw.gl
 
 
@@ -488,10 +502,11 @@ def apply_dispatch(ds: AlignmentDataset, rw, table_dev) -> tuple:
     """Pass C dispatch for one resident window -> handle for
     :func:`apply_finish` (the packed columns are still being computed on
     the device)."""
-    b = ds.batch.to_numpy()
-    pq, pb = apply_pack2_body(*rw.args(), *_apply_masks(b, rw), table_dev,
-                              rw.gl, rw.g * rw.gl)
-    return _apply_handle(ds, b, pq, pb)
+    with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device"):
+        b = ds.batch.to_numpy()
+        pq, pb = apply_pack2_body(*rw.args(), *_apply_masks(b, rw), table_dev,
+                                  rw.gl, rw.g * rw.gl)
+        return _apply_handle(ds, b, pq, pb)
 
 
 def apply_finish(handle) -> tuple:
@@ -500,10 +515,11 @@ def apply_finish(handle) -> tuple:
     from adam_tpu_torch.io.arrow_pack import PackedColumns, PackedQuals
 
     ds, b, pq, lens_q, pb, lens_b = handle
-    packed = PackedColumns(
-        quals=PackedQuals(pq[: int(lens_q.sum())].cpu().numpy(), lens_q),
-        bases=PackedQuals(pb[: int(lens_b.sum())].cpu().numpy(), lens_b),
-    )
+    with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_FETCH):
+        packed = PackedColumns(
+            quals=PackedQuals(pq[: int(lens_q.sum())].cpu().numpy(), lens_q),
+            bases=PackedQuals(pb[: int(lens_b.sum())].cpu().numpy(), lens_b),
+        )
     return stash_orig_quals(ds, b), packed
 
 
@@ -548,11 +564,13 @@ def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None):
     n_rg = len(ds.read_groups) + 1
     if table_dev.shape[0] != n_rg or table_dev.shape[2] < 2 * rw.gl + 1:
         return None
-    b = ds.batch.to_numpy()
-    total, mism, pq, pb = fused_bc_body(
-        *rw.args(), *_observe_masks(ds, rw, known_snps), *_apply_masks(b, rw),
-        table_dev, n_rg, rw.gl, rw.g * rw.gl,
-    )
+    with _tele.TRACE.span(_tele.SPAN_FUSED_BC, backend="device",
+                          reads=int(ds.batch.n_rows)):
+        b = ds.batch.to_numpy()
+        total, mism, pq, pb = fused_bc_body(
+            *rw.args(), *_observe_masks(ds, rw, known_snps), *_apply_masks(b, rw),
+            table_dev, n_rg, rw.gl, rw.g * rw.gl,
+        )
     return _apply_handle(ds, b, pq, pb), (total, mism, rw.gl)
 
 
@@ -603,11 +621,14 @@ def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset
     """Gather a solved table into one placed dataset's quals (reported
     quality >= Q5 only) and stash the pre-recalibration quals as OQ ->
     the recalibrated dataset."""
-    b = ds.batch.to_numpy()
-    new_q = apply_table_body(*rw.args(), *_apply_masks(b, rw), table_dev, rw.gl)
-    new_q = np.ascontiguousarray(new_q[: b.n_rows, : b.lmax].cpu().numpy())
-    out = stash_orig_quals(ds, b)
-    return out.with_batch(b.replace(quals=new_q))
+    with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_HOST, backend="device"):
+        b = ds.batch.to_numpy()
+        with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device"):
+            new_q = apply_table_body(*rw.args(), *_apply_masks(b, rw), table_dev, rw.gl)
+        with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_FETCH):
+            new_q = np.ascontiguousarray(new_q[: b.n_rows, : b.lmax].cpu().numpy())
+        out = stash_orig_quals(ds, b)
+        return out.with_batch(b.replace(quals=new_q))
 
 
 def build_observation_table(ds: AlignmentDataset, known_snps=None,

@@ -262,8 +262,9 @@ class RunJournal:
     content, flag composition, window sizing) is checked again: any
     mismatch, and a torn or foreign journal, is refused with a clean
     restart (journal, sidecars and previously published parts are
-    discarded), never mixed output.  ``stats`` (the run's stats dict)
-    counts ``resume.refused``."""
+    discarded), never mixed output.  A refusal counts ``resume.refused``
+    on ``tracer`` (the streamed run tracer; the global tracer when None)
+    and in ``stats`` (the run's stats dict) when given."""
 
     SCHEMA = "adam_tpu.run_journal/1"
     JOURNAL_NAME = "JOURNAL.json"
@@ -271,11 +272,13 @@ class RunJournal:
     TABLE_NAME = "table.npz"
 
     def __init__(self, run_dir: str, fingerprint: str, out_dir: str,
-                 resume: bool = False, stats: Optional[dict] = None):
+                 resume: bool = False, stats: Optional[dict] = None,
+                 tracer=None):
         self.dir = run_dir
         self.out_dir = out_dir
         self.fingerprint = fingerprint
         self._stats = stats
+        self._tracer = tracer
         # record_window runs on the writer pool's write shards at once
         self._lock = threading.Lock()
         self._windows: dict[int, str] = {}
@@ -328,6 +331,9 @@ class RunJournal:
 
     # ---- lifecycle -----------------------------------------------------
     def _count_refused(self) -> None:
+        from adam_tpu_torch.utils import telemetry as tele
+
+        (self._tracer or tele.TRACE).count(tele.C_RESUME_REFUSED)
         if self._stats is not None:
             self._stats["resume.refused"] = self._stats.get("resume.refused", 0) + 1
 

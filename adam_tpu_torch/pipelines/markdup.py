@@ -44,18 +44,22 @@ def markdup_columns(batch, resident):
     (quals, lengths and flags already on the device; only start, end
     and the cigar columns ship) -> lazy (five, score) device tensors for
     the window's real rows."""
-    b = batch.to_numpy()
-    n, g, dev = b.n_rows, resident.g, resident.device
+    from adam_tpu_torch.utils import telemetry as tele
 
-    def put(arr, fill):
-        return torch.from_numpy(pad_rows_np(arr, g, fill)).to(dev)
+    with tele.TRACE.span(tele.SPAN_MD_COLUMNS, backend="device",
+                         reads=int(batch.n_rows)):
+        b = batch.to_numpy()
+        n, g, dev = b.n_rows, resident.g, resident.device
 
-    five, score = markdup_columns_local(
-        put(b.start, -1), put(b.end, -1), resident.flags,
-        put(b.cigar_ops, schema.CIGAR_PAD), put(b.cigar_lens, 0),
-        put(b.cigar_n, 0), resident.quals, resident.lengths,
-    )
-    return five[:n], score[:n]
+        def put(arr, fill):
+            return torch.from_numpy(pad_rows_np(arr, g, fill)).to(dev)
+
+        five, score = markdup_columns_local(
+            put(b.start, -1), put(b.end, -1), resident.flags,
+            put(b.cigar_ops, schema.CIGAR_PAD), put(b.cigar_lens, 0),
+            put(b.cigar_n, 0), resident.quals, resident.lengths,
+        )
+        return five[:n], score[:n]
 
 
 def device_lexsort(keys, device) -> np.ndarray:

@@ -41,7 +41,9 @@ preprocessing refreshes ``ref`` from the rewritten read's new MD, as the
 upstream ``MdTag.moveAlignment(read, cigar)`` derives the reference from
 the read's current MD.  Everything else is bit-for-bit the JAX package's.
 
-Left out of this slice: the multi-device sweep fan-out and the timers.
+Left out of this slice: the multi-device sweep fan-out (and with it the
+JAX package's "Realign: overlapped host work" timer, which times the
+host work it overlaps with the sweeps).
 """
 
 from __future__ import annotations
@@ -582,7 +584,8 @@ def _sweep_gemm_P(off: int, rt: int) -> int:
     return max(2, base // (rt // 16)) if rt > 16 else base
 
 
-def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device):
+def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device,
+                 phase=None):
     """Sweep pair tiles -> one (best_q f32[n], best_o i32[n]) per tile.
 
     ``tiles`` is a list of (batch rows, consensus id): each tile sweeps
@@ -593,7 +596,9 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device):
     offset count the tile needs) and each tier runs as
     :func:`sweep_gemm` products of at most ``_sweep_gemm_P(off, rt)``
     pairs.  Every read's result depends only on its own tile, so tiers
-    and chunks change nothing but the padding."""
+    and chunks change nothing but the padding.  Every chunk is dispatched
+    before any is fetched; ``phase(label)``, when given, is called once
+    the dispatches are queued (the JAX package's sweep-dispatch timer)."""
     if not tiles:
         return []
     lengths = np.asarray(lengths).astype(np.int64)
@@ -611,6 +616,7 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device):
     # intermediate 384 tier: WGS-shaped targets need 250-330 offsets
     p_offb = np.where((p_offb == 512) & (need <= 384), 384, p_offb)
     out: list = [None] * len(tiles)
+    pending = []  # (pair indices, lazy (best_q, best_o) on the device)
     key = p_offb * 1024 + p_rt
     border = np.argsort(key, kind="stable")
     ukeys, ustarts = np.unique(key[border], return_index=True)
@@ -640,13 +646,17 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device):
                 cc = min(int(cons_lens[cid]), lc)
                 ct[j, :cc] = cons_mat[cid, :cc]
                 cl[j] = cons_lens[cid]
-            q, o = sweep_gemm(*(torch.from_numpy(a).to(device)
-                                for a in (rc, rq, rl, pm, ct, cl)), off, rt, lr)
-            q = q.cpu().numpy()
-            o = o.cpu().numpy()
-            for j, pi in enumerate(part):
-                nrt = int(p_n[pi])
-                out[pi] = (q[j, :nrt], o[j, :nrt])
+            pending.append((part, sweep_gemm(
+                *(torch.from_numpy(a).to(device) for a in (rc, rq, rl, pm, ct, cl)),
+                off, rt, lr)))
+    if phase is not None:
+        phase("Realign: sweep dispatch (host assembly)")
+    for part, (q, o) in pending:
+        q = q.cpu().numpy()
+        o = o.cpu().numpy()
+        for j, pi in enumerate(part):
+            nrt = int(p_n[pi])
+            out[pi] = (q[j, :nrt], o[j, :nrt])
     return out
 
 
@@ -1243,8 +1253,21 @@ def _realign_indels_native(
     and ``knowns`` models (the JAX package's ``_realign_indels_native``),
     with the per-read host work (MD parse / reference rebuild /
     left-normalization / consensus generation / MD rewrite) in C++
-    (``native/realign.cpp``) and the sweep tiles batched on ``device``."""
+    (``native/realign.cpp``) and the sweep tiles batched on ``device``.
+    Its phase walls go to the named-timer registry under the JAX package's
+    labels (no-ops unless recording is on)."""
+    import time
+
     from adam_tpu_torch import native
+    from adam_tpu_torch.utils import instrumentation as _ins
+
+    t_phase = time.perf_counter()
+
+    def _phase(label):
+        nonlocal t_phase
+        now = time.perf_counter()
+        _ins.TIMERS.add(label, int((now - t_phase) * 1e9))
+        t_phase = now
 
     b = ds.batch.to_numpy()
     n = b.n_rows
@@ -1275,9 +1298,11 @@ def _realign_indels_native(
     # consensuses come from the indel table under the knowns model with a
     # table; otherwise the prep generates them from the reads
     known = consensus_model == "knowns" and known_indels is not None
+    _phase("Realign: target map/group")
     prep = native.realign_prep(
         b, md_buf, md_off, md_valid.astype(np.uint8), srows, goff, not known,
     )
+    _phase("Realign: native prep")
     t_status = prep["t_status"]
     t_ref_off = prep["t_ref_off"]
     t_ref_start = prep["t_ref_start"]
@@ -1380,11 +1405,13 @@ def _realign_indels_native(
                     nrt = min(128, nr - lo)
                     tiles.append((r_row[rg_off[g] + lo: rg_off[g] + lo + nrt], cid))
                     tile_res.append(base + lo)
+        _phase("Realign: consensus + tiles")
         swept = _sweep_tiles(np.asarray(b.bases), np.asarray(b.quals), lengths,
-                             tiles, cons_mat, cons_lens, device)
+                             tiles, cons_mat, cons_lens, device, phase=_phase)
         for rb, (q, o) in zip(tile_res, swept):
             res_q[rb:rb + len(q)] = q
             res_o[rb:rb + len(o)] = o
+    _phase("Realign: sweep fetch")
 
     # ---- scoring + rewrite decisions (numpy, one pass per group) -------
     new_batch = _writable(b)
@@ -1539,6 +1566,7 @@ def _realign_indels_native(
         md=with_overrides(StringColumn.of(side.md), new_md),
         attrs=with_overrides(StringColumn.of(side.attrs), new_attrs),
     )
+    _phase("Realign: decisions + rewrite")
     return ds.with_batch(new_batch, new_side)
 
 

@@ -24,7 +24,9 @@ Arrival counters are per clause, so ``every=3`` means "the 3rd, 6th, 9th
 ... time any call reaches this site".  ``transient`` raises
 :class:`TransientFault`, ``permanent`` :class:`PermanentFault`,
 ``delay:S`` sleeps S seconds at the site, and ``kill`` SIGKILLs the
-process itself (a host death: no cleanup, no atexit).
+process itself (a host death: no cleanup, no atexit).  The ``pass=``
+selector reads the thread's ``utils/telemetry.pass_scope``, and each
+injection counts ``fault.injected`` on the global tracer, as in JAX.
 
 The port parses every site and action the JAX package knows, with the
 same messages, but arms only the sites it has (:data:`ARMED_POINTS`):
@@ -45,12 +47,13 @@ can never fire must not test nothing in silence.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import random
 import threading
 import time
+
+from adam_tpu_torch.utils import telemetry as tele
 
 log = logging.getLogger(__name__)
 
@@ -291,27 +294,6 @@ def clear() -> None:
     install(None)
 
 
-# The pass scope the ``pass=NAME`` selector matches (JAX reads it from
-# its telemetry module, which the port does not have yet).
-_PASS = threading.local()
-
-
-@contextlib.contextmanager
-def pass_scope(name: str):
-    """Attribute the fault points this thread reaches to pass ``name``."""
-    prev = getattr(_PASS, "name", None)
-    _PASS.name = name
-    try:
-        yield
-    finally:
-        _PASS.name = prev
-
-
-def current_pass():
-    """The thread's active pass scope, or None outside any."""
-    return getattr(_PASS, "name", None)
-
-
 def point(site: str, device=None, pass_name=None) -> None:
     """A named fault point.  Disabled cost: one module-global branch.
 
@@ -321,7 +303,8 @@ def point(site: str, device=None, pass_name=None) -> None:
     if not ENABLED:
         return
     if pass_name is None:
-        pass_name = current_pass()
+        # the thread's telemetry pass scope, as in the JAX package
+        pass_name = tele.current_pass()
     fire = None
     with _LOCK:
         # every same-site clause counts the arrival; the first whose
@@ -335,6 +318,7 @@ def point(site: str, device=None, pass_name=None) -> None:
             fire._fired += 1
     if fire is None:
         return
+    tele.TRACE.count(tele.C_FAULT_INJECTED)
     if fire.action == "delay":
         log.warning("fault injected at %s (device=%s): delay %.3fs",
                     site, device, fire.delay_s)

@@ -125,6 +125,19 @@ Phases, each of which fails the script on any error:
    kernel-1 launch per call, every output (quals, observe totals, 5'
    positions, dup scores, flagstat) equal to the CPU run with the plain
    version, each call timed by CUDA events;
+4n. telemetry: the main path's command with ``-print_metrics
+   --metrics-json M --trace-out T --report R --progress P --xprof-dir X``:
+   its parts byte-identical to phase 4's, kernels 1 and 2 launched as
+   often as there; ``streamed_stats_view`` of M equal to the stats line
+   and M's ``reads.ingested`` the input's reads; T loads and holds the
+   ``streamed.total`` span; R has a row for device ``"0"``, whose busy
+   share (host intervals of the device-attributed spans) is printed
+   beside the busy share of the kernel, copy and set intervals in X's
+   ``torch.profiler`` trace over the same run (neither asserted); P has
+   a line with card memory in use on device ``"0"`` and a last ``done``
+   line; X names the observe and pack kernels; then the main path 3
+   times with recording off and 3 times with every flag but
+   ``--xprof-dir``, in turns, their median reads/s printed;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -137,6 +150,9 @@ Phases, each of which fails the script on any error:
    the dataset-level transform with the trim flags, markdup, realign, BQSR
    and sort to ``.adam`` and to ``.sam``, and markdup alone to ``.bam``,
    with ``flagstat`` on each output: files and reports byte-identical;
+   the reads-model runs' ``--metrics-json`` counters that do not depend
+   on the device (reads, windows, parts and bytes written, and the rest
+   of the run's counters) equal;
    ``transform -shards 4`` (part directories byte-identical, file for
    file), and ``depth`` (both forms) and ``view`` (SAM text and ``-c``)
    on the reads-model run's parts, whose standard output must be
@@ -549,6 +565,127 @@ def run_transform(sam: str, out_dir: str, device: str, realign: bool = True,
     if rc != 0:
         raise RuntimeError(f"transform exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+#: the devices' Chrome-trace categories torch.profiler gives device work
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the CUDA functions of kernels 1 and 2, as the profiler names them
+OBSERVE_KERNEL_NAMES = ("count_kernel", "scatter_kernel", "accum_kernel")
+PACK_KERNEL_NAMES = ("pack_kernel",)
+RECORDING_TURNS = 3  # 4n: runs with recording off and on, in turns
+
+
+def _reset_telemetry() -> None:
+    from adam_tpu_torch.utils import instrumentation as ins
+    from adam_tpu_torch.utils import telemetry as tele
+
+    tele.TRACE.reset()
+    ins.TIMERS.reset()
+
+
+def _profiler_busy(xprof_dir: str, total_s: float) -> dict:
+    """The ``--xprof-dir`` trace -> the union of its device intervals
+    (kernels, copies, sets) over the run's own wall, and the device
+    names it holds."""
+    (name,) = os.listdir(xprof_dir)
+    with open(os.path.join(xprof_dir, name)) as fh:
+        evs = json.load(fh)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+                   for e in evs if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS)
+    busy, end = 0.0, float("-inf")
+    for s0, s1, _ in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+    return {"file": name, "device_events": len(spans), "device_busy_s": busy / 1e6,
+            "busy_share": busy / 1e6 / total_s,
+            "names": sorted({n for _, _, n in spans})}
+
+
+def check_observability(work: str, sam: str, main_hashes: dict, main_launched: dict) -> dict:
+    """Phase 4n: the main path with every observability flag, its
+    artifacts checked; then the cost of recording, in turns."""
+    from adam_tpu_torch.cli.main import main as cli
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.utils import analyzer
+    from adam_tpu_torch.utils import telemetry as tele
+
+    out = os.path.join(work, "tele.adam")
+    art = {k: os.path.join(work, f"tele.{k}") for k in ("m.json", "t.json", "r.txt", "p.ndjson",
+                                                       "xprof")}
+    flags = ("-print_metrics", "--metrics-json", art["m.json"], "--trace-out", art["t.json"],
+             "--report", art["r.txt"], "--progress", art["p.ndjson"])
+    _reset_telemetry()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(_transform_argv(sam, out, "cuda",
+                                 extra=(*flags, "--xprof-dir", art["xprof"])))
+    launched = kernels.launches()
+    if rc != 0:
+        raise RuntimeError(f"4n: transform exited {rc}")
+    text = buf.getvalue()
+    stats = json.loads(next(ln for ln in text.splitlines() if ln.startswith("{")))
+    if _part_hashes(out) != main_hashes:
+        raise AssertionError("4n: the parts differ from phase 4's")
+    if (launched["observe_hist"], launched["pack_rows"]) != (
+            main_launched["observe_hist"], main_launched["pack_rows"]):
+        raise AssertionError(f"4n: launches {launched}, phase 4 {main_launched}")
+    if "Timings\n=======" not in text or "Counters\n========" not in text:
+        raise AssertionError("4n: -print_metrics printed no timer or counter table")
+    with open(art["m.json"]) as fh:
+        snap = json.load(fh)
+    view = tele.streamed_stats_view(snap)
+    if not view or {k: stats[k] for k in view} != view:
+        raise AssertionError(f"4n: the stats line is not the snapshot's view: {view}")
+    if snap["counters"][tele.C_READS_INGESTED] != MAIN_READS:
+        raise AssertionError(f"4n: reads.ingested {snap['counters']}")
+    with open(art["t.json"]) as fh:
+        trace = json.load(fh)
+    if not any(e.get("name") == tele.SPAN_TOTAL for e in trace["traceEvents"]):
+        raise AssertionError("4n: the Chrome trace holds no streamed.total span")
+    with open(art["r.txt"]) as fh:
+        report_text = fh.read()
+    if not any(ln.split()[:1] == ["0"] for ln in report_text.splitlines()):
+        raise AssertionError(f"4n: the report has no device 0 row:\n{report_text[:2000]}")
+    dev0 = analyzer.analyze(trace)["devices"]["0"]
+    with open(art["p.ndjson"]) as fh:
+        beats = [json.loads(ln) for ln in fh]
+    hbm = [b["hbm_bytes_in_use"].get("0", 0) for b in beats]
+    if not beats or max(hbm) <= 0 or beats[-1]["done"] is not True:
+        raise AssertionError(f"4n: heartbeat {beats[-1:]} (card memory {hbm})")
+    prof = _profiler_busy(art["xprof"], stats["total_s"])
+    for label, names in (("observe", OBSERVE_KERNEL_NAMES), ("pack", PACK_KERNEL_NAMES)):
+        if not any(k in n for n in prof["names"] for k in names):
+            raise AssertionError(f"4n: the profiler trace names no {label} kernel: "
+                                 f"{prof['names'][:30]}")
+    res = {"stats": stats, "launches": launched, "report_device_0": dev0,
+           "report_busy_frac": dev0["busy_frac"], "profiler": {
+               k: prof[k] for k in ("device_events", "device_busy_s", "busy_share")},
+           "heartbeat_lines": len(beats), "hbm_bytes_in_use_max": max(hbm),
+           "timer_rows": text[text.index("Timings"):].split("\n\n")[0].splitlines()[3:]}
+    shutil.rmtree(out)
+    # the cost of recording: off and on in turns, reads/s of each run
+    rates = {"off": [], "on": []}
+    for turn in range(RECORDING_TURNS):
+        for leg in ("off", "on"):
+            _reset_telemetry()
+            extra = flags if leg == "on" else ()
+            for p in (art["m.json"], art["t.json"], art["r.txt"], art["p.ndjson"]):
+                if os.path.exists(p):
+                    os.unlink(p)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli(_transform_argv(sam, out, "cuda", extra=extra))
+            if rc != 0:
+                raise RuntimeError(f"4n {leg} run exited {rc}")
+            st = json.loads(next(ln for ln in buf.getvalue().splitlines()
+                                 if ln.startswith("{")))
+            rates[leg].append(st["reads_per_s"])
+            shutil.rmtree(out)
+    _reset_telemetry()
+    res["reads_per_s"] = rates
+    res["median_reads_per_s"] = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    return res
 
 
 def killed_transform(sam: str, out_dir: str, device: str, extra: tuple, spec: str) -> dict:
@@ -2082,6 +2219,28 @@ def main() -> int:
             by_name[name]["launches_resume"] = {
                 leg: durable[leg]["launches"][name] for leg in ("pass_c", "barrier2_entry")}
 
+        # ---- 4n. telemetry and the observability flags ---------------------
+        t0 = time.monotonic()
+        observ = check_observability(work, sam, main_hashes, launched)
+        observ["phase_s"] = time.monotonic() - t0
+        _log(f"4n: every flag on: parts byte-identical to phase 4's, launches "
+             f"{observ['launches']}, {observ['stats']['reads_per_s']:.0f} reads/s (profiled); "
+             f"stats line == streamed_stats_view(--metrics-json); report device 0 busy_frac "
+             f"{observ['report_busy_frac']} (host intervals of device-attributed spans) "
+             f"against the profiler's device busy share "
+             f"{observ['profiler']['busy_share']:.6f} ({observ['profiler']['device_events']} "
+             f"kernel/copy/set intervals, {observ['profiler']['device_busy_s']:.4f} s of "
+             f"{observ['stats']['total_s']:.3f} s); heartbeat {observ['heartbeat_lines']} "
+             f"lines, card memory up to {observ['hbm_bytes_in_use_max']} B")
+        _log("4n timer table: " + " | ".join(r.strip() for r in observ["timer_rows"]))
+        med = observ["median_reads_per_s"]
+        _log(f"4n recording cost ({smi}): median of {RECORDING_TURNS} in turns, "
+             f"off {med['off']:.1f} reads/s, on (every flag but --xprof-dir) "
+             f"{med['on']:.1f} reads/s; runs off {observ['reads_per_s']['off']}, on "
+             f"{observ['reads_per_s']['on']}; {observ['phase_s']:.1f} s in all")
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_observability"] = observ["launches"][name]
+
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
         if SW_READS != MAIN_READS:
@@ -2206,12 +2365,18 @@ def main() -> int:
         p_bam = os.path.join(work, "parity.bam")
         sam_io.write_bam(p_bam, *sam_io.read_sam(sam))
         parity = {}
+        metrics = {}
         for model in ("reads", "smithwaterman", "known_sites", "bam"):
             hashes = {}
             for device in ("cuda", "cpu"):
                 d = os.path.join(work, f"{model}.{device}.adam")
                 if model == "reads":
-                    run_transform(sam, d, device)
+                    m_json = os.path.join(work, f"metrics.{device}.json")
+                    _reset_telemetry()
+                    run_transform(sam, d, device, extra=("--metrics-json", m_json))
+                    _reset_telemetry()
+                    with open(m_json) as fh:
+                        metrics[device] = json.load(fh)["counters"]
                 elif model == "bam":
                     run_transform(p_bam, d, device)
                 elif model == "smithwaterman":
@@ -2229,6 +2394,13 @@ def main() -> int:
             parity[model] = len(hashes["cuda"])
             _log(f"card vs CPU ({model}): {parity[model]} parts byte-identical "
                  f"({PARITY_READS} reads)")
+        counted = ("reads.ingested", "windows.ingested", "parquet.parts.written",
+                   "parquet.bytes.written")
+        if (metrics["cuda"] != metrics["cpu"]
+                or any(not metrics["cuda"].get(k) for k in counted)):
+            raise AssertionError(f"card and CPU --metrics-json counters differ: {metrics}")
+        parity["metrics_counters"] = metrics["cuda"]
+        _log(f"card vs CPU --metrics-json counters equal: {metrics['cuda']}")
         resumes = check_cross_device_resume(work, sam)
         for leg in ("card_to_cpu", "cpu_to_card"):
             r = resumes[leg]
@@ -2304,6 +2476,7 @@ def main() -> int:
         "other_formats": other,
         "spark_executor": spark,
         "transform_step": tstep,
+        "observability": observ,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

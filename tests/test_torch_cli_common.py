@@ -1,12 +1,13 @@
 """The port's command line has the JAX CLI's shape (``adam_tpu/cli/main.py``):
-every verb takes JAX's shared flags, the observability and multi-chip
-flags the port lacks are refused naming their ROADMAP item, usage and
-exit codes match, and a closed standard output ends a verb with exit
-code 0 and no traceback.  Both packages' CLIs run on the same input."""
+every verb takes JAX's shared flags, each observability flag acts, the
+multi-chip flags the port lacks are refused naming their ROADMAP item,
+usage and exit codes match, and a closed standard output ends a verb with
+exit code 0 and no traceback.  Both packages' CLIs run on the same input."""
 
 import argparse
 import contextlib
 import io
+import json
 import os
 import pathlib
 import subprocess
@@ -70,14 +71,14 @@ def test_groups_and_order_are_jax_for_the_ported_verbs():
     jax_desc = {c.name: c.description for _, cmds in jax_groups() for c in cmds}
     assert all(c.description == jax_desc[c.name]
                for _, cmds in command_groups() for c in cmds)
-    assert len(_port_verbs()) == 22
+    assert len(_port_verbs()) == 23
 
 
 @pytest.mark.parametrize("verb", [
     "depth", "count_kmers", "count_contig_kmers", "transform", "adam2fastq", "plugin",
     "flatten", "bam2adam", "vcf2adam", "anno2adam", "adam2vcf", "fasta2adam",
     "features2adam", "wigfix2bed", "print", "print_genes", "flagstat", "print_tags",
-    "listdict", "allelecount", "buildinfo", "view"])
+    "listdict", "allelecount", "buildinfo", "view", "analyze"])
 def test_every_verb_parses_the_shared_flags_as_jax(verb):
     from adam_tpu_torch.cli.main import parser_for
 
@@ -129,12 +130,6 @@ def test_shared_flags_run_as_in_jax(sam, tmp_path, argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-print_metrics"], "item 3"),
-    (["--metrics-json", "m.json"], "item 3"),
-    (["--trace-out", "t.json"], "item 3"),
-    (["--progress"], "item 3"),
-    (["--progress", "p.ndjson"], "item 3"),
-    (["--xprof-dir", "xp"], "item 3"),
     (["--devices", "2"], "item 4"),
     (["--partitioner", "mesh"], "item 4"),
     (["--partitioner", "pool"], "item 4"),
@@ -149,13 +144,85 @@ def test_unported_flags_exit_2_naming_their_item(sam, tmp_path, flags, item):
     assert not any(tmp_path.iterdir())
 
 
-def test_transform_report_is_refused(sam, tmp_path):
-    from adam_tpu_torch.cli.main import main
+def _streamed(sam, tmp_path):
+    return ["transform", str(sam), str(tmp_path / "o.adam"), "-streaming",
+            "-mark_duplicate_reads", "-recalibrate_base_qualities",
+            "-window_reads", "8192"]
 
-    rc, _, err = _run(main, ["transform", str(sam), str(tmp_path / "o.adam"), "-streaming",
-                             "--report", str(tmp_path / "r.txt"), "--device", "cpu"])
-    assert rc == 2 and "--report" in err and "item 3" in err
-    assert not (tmp_path / "o.adam").exists()
+
+def _check_print_metrics(tmp_path, out, err):
+    assert "Timings\n=======\n" in out and "Flag Stat" in out
+    # then the tracer's table: the native tokenizer's span histogram
+    assert "Histograms (seconds)\n" in out and "Tokenize Input (native)" in out
+
+
+def _check_metrics_json(tmp_path, out, err):
+    doc = json.loads((tmp_path / "m.json").read_text())
+    assert doc["meta"]["schema"] == "adam_tpu.telemetry/1"
+    assert doc["timers"]["Flag Stat"]["count"] == 1
+
+
+def _check_trace_out(tmp_path, out, err):
+    doc = json.loads((tmp_path / "t.json").read_text())
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert "streamed.total" in names and "streamed.tokenize" in names
+
+
+def _beats(text):
+    return [json.loads(x) for x in text.splitlines() if x.startswith('{"schema"')]
+
+
+def _check_progress_stderr(tmp_path, out, err):
+    beats = _beats(err)
+    assert beats and beats[-1]["done"] is True and beats[-1]["ok"] is True
+    assert beats[-1]["reads_ingested"] == 20_000 and beats[-1]["parts_written"] == 3
+    assert beats[-1]["hbm_bytes_in_use"] == {}  # the CPU reports no card memory
+
+
+def _check_progress_path(tmp_path, out, err):
+    assert _beats(err) == []
+    beats = _beats((tmp_path / "p.ndjson").read_text())
+    assert [b["seq"] for b in beats] == list(range(len(beats)))
+    assert beats[-1]["done"] is True and beats[-1]["windows_total"] == 3
+
+
+def _check_xprof(tmp_path, out, err):
+    files = list((tmp_path / "xp").iterdir())
+    assert len(files) == 1
+    doc = json.loads(files[0].read_text())
+    assert doc["traceEvents"]
+
+
+def _check_report(tmp_path, out, err):
+    text = (tmp_path / "r.txt").read_text()
+    assert text.startswith("Run report (trace mode)")
+    assert "Stage / barrier decomposition" in text and "pass_c_apply" in text
+
+
+@pytest.mark.parametrize("case", [
+    ("flagstat", ["-print_metrics"], _check_print_metrics),
+    ("flagstat", ["--metrics-json", "{tmp}/m.json"], _check_metrics_json),
+    ("streamed", ["--trace-out", "{tmp}/t.json"], _check_trace_out),
+    ("streamed", ["--progress"], _check_progress_stderr),
+    ("streamed", ["--progress", "{tmp}/p.ndjson"], _check_progress_path),
+    ("flagstat", ["--xprof-dir", "{tmp}/xp"], _check_xprof),
+    ("streamed", ["--report", "{tmp}/r.txt"], _check_report),
+], ids=["print_metrics", "metrics_json", "trace_out", "progress_stderr",
+        "progress_path", "xprof_dir", "report"])
+def test_observability_flag_acts(sam, tmp_path, case):
+    from adam_tpu_torch.cli.main import main
+    from adam_tpu_torch.utils import instrumentation as ins
+    from adam_tpu_torch.utils import telemetry as tele
+
+    verb, flags, check = case
+    argv = _streamed(sam, tmp_path) if verb == "streamed" else ["flagstat", str(sam)]
+    tele.TRACE.reset()
+    ins.TIMERS.reset()
+    rc, out, err = _run(main, argv + [f.format(tmp=tmp_path) for f in flags]
+                        + ["--device", "cpu"])
+    tele.TRACE.recording = ins.TIMERS.recording = False
+    assert rc == 0, err
+    check(tmp_path, out, err)
 
 
 @pytest.mark.parametrize("argv", [[], ["-h"], ["--help"]])

@@ -668,3 +668,81 @@ def test_spark_serve_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     assert len(out["cuda"]) == 2
     for got, want in zip(out["cuda"], out["cpu"]):
         assert got.equals(want)
+
+
+#: Device-side names of the two main-path kernels' CUDA functions, as the
+#: profiler reports them (each name is a substring of the demangled one).
+OBSERVE_KERNEL_NAMES = ("count_kernel", "scatter_kernel", "accum_kernel")
+PACK_KERNEL_NAMES = ("pack_kernel",)
+
+
+def test_sample_hbm_is_keyed_by_the_cuda_index(cuda_device):
+    from adam_tpu_torch.utils import telemetry as tele
+
+    x = torch.ones(1 << 20, device=cuda_device)
+    got = tele.sample_hbm()
+    key = str(torch.cuda.current_device())
+    assert key == "0" or torch.cuda.device_count() > 1
+    assert got[key]["bytes_in_use"] >= x.numel() * 4
+    assert got[key]["peak_bytes_in_use"] >= got[key]["bytes_in_use"]
+    assert tele.sample_hbm([torch.device("cpu")]) == {}
+    assert tele.sample_hbm([cuda_device])[key]["bytes_in_use"] >= x.numel() * 4
+
+
+def test_device_trace_captures_a_kernel_1_launch(cuda_device, tmp_path):
+    import json
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.observe import observe_hist
+    from adam_tpu_torch.pipelines.bqsr import covariate_keys
+    from adam_tpu_torch.utils import instrumentation as ins
+
+    g, gl, n_rg = 256, 24, 3
+    w = {k: v.to(cuda_device) for k, v in _window(5, g, gl, n_rg).items()}
+    keys = covariate_keys(*(w[k] for k in _WINDOW), n_rg, gl)
+    size = n_rg * 94 * (2 * gl + 1) * 17
+    before = kernels.launches()["observe_hist"]
+    with ins.device_trace(str(tmp_path / "xp")):
+        observe_hist(keys, w["res_bits"], w["mm_bits"], w["read_ok"], size,
+                     (2 * gl + 1) * 17)
+        torch.cuda.synchronize()
+    assert kernels.launches()["observe_hist"] == before + 1
+    (f,) = list((tmp_path / "xp").iterdir())
+    names = {e.get("name", "") for e in json.loads(f.read_text())["traceEvents"]}
+    assert any(k in n for n in names for k in OBSERVE_KERNEL_NAMES), sorted(names)[:40]
+
+
+def test_streamed_run_report_has_a_device_0_row(cuda_device, tmp_path):
+    import contextlib
+    import io
+    import json
+
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.cli.main import main
+    from adam_tpu_torch.utils import instrumentation as ins
+    from adam_tpu_torch.utils import telemetry as tele
+
+    path = str(tmp_path / "in.sam")
+    make_wgs(path, 4500, 100, n_contigs=2, contig_len=30_000)
+    tele.TRACE.reset()
+    ins.TIMERS.reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["transform", path, str(tmp_path / "o.adam"), "-streaming",
+                   "-mark_duplicate_reads", "-recalibrate_base_qualities",
+                   "-window_reads", "2048", "--report", str(tmp_path / "r.txt"),
+                   "--metrics-json", str(tmp_path / "m.json"),
+                   "--progress", str(tmp_path / "p.ndjson")])
+    tele.TRACE.recording = ins.TIMERS.recording = False
+    assert rc == 0
+    key = str(torch.cuda.current_device())
+    snap = json.loads((tmp_path / "m.json").read_text())
+    assert key in snap["device_spans"][tele.SPAN_OBS_FETCH]
+    assert snap["counters"][tele.C_READS_INGESTED] == 4500
+    text = (tmp_path / "r.txt").read_text()
+    rows = [ln.split() for ln in text.splitlines()]
+    assert any(r and r[0] == key for r in rows), text
+    beats = [json.loads(x) for x in (tmp_path / "p.ndjson").read_text().splitlines()]
+    assert beats[-1]["done"] is True
+    assert any(b["hbm_bytes_in_use"].get(key, 0) > 0 for b in beats)

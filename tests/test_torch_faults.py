@@ -19,6 +19,7 @@ from adam_tpu.utils import faults as jf
 from adam_tpu.utils import telemetry as jtele
 
 from adam_tpu_torch.utils import faults as tf
+from adam_tpu_torch.utils import telemetry as ttele
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
@@ -117,7 +118,7 @@ _COUNTING = [
 @pytest.mark.parametrize("spec,calls", _COUNTING, ids=[s for s, _ in _COUNTING])
 def test_arrivals_count_as_jax(spec, calls):
     want = _arrivals(jf, spec, calls, scope=jtele.pass_scope)
-    got = _arrivals(tf, spec, calls, scope=tf.pass_scope)
+    got = _arrivals(tf, spec, calls, scope=ttele.pass_scope)
     assert got == want
     assert "T" in got or "P" in got
 
@@ -152,17 +153,17 @@ def test_delay_sleeps(monkeypatch):
 def test_pass_scope_nests_and_is_per_thread():
     import threading
 
-    assert tf.current_pass() is None
+    assert ttele.current_pass() is None
     seen = []
-    with tf.pass_scope("a"):
-        with tf.pass_scope("observe"):
-            assert tf.current_pass() == "observe"
-            t = threading.Thread(target=lambda: seen.append(tf.current_pass()))
+    with ttele.pass_scope("a"):
+        with ttele.pass_scope("observe"):
+            assert ttele.current_pass() == "observe"
+            t = threading.Thread(target=lambda: seen.append(ttele.current_pass()))
             t.start()
             t.join(10)
             assert not t.is_alive()
-        assert tf.current_pass() == "a"
-    assert tf.current_pass() is None
+        assert ttele.current_pass() == "a"
+    assert ttele.current_pass() is None
     assert seen == [None]
 
 

@@ -201,7 +201,13 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.utils.flattener",
                                     "adam_tpu_torch.ops.prefix_trie",
                                     "adam_tpu_torch.ops.phred",
-                                    "adam_tpu_torch.ops.cigar"])
+                                    "adam_tpu_torch.ops.cigar",
+                                    "adam_tpu_torch.utils.telemetry",
+                                    "adam_tpu_torch.utils.instrumentation",
+                                    "adam_tpu_torch.utils.analyzer",
+                                    "adam_tpu_torch.utils.perfledger",
+                                    "adam_tpu_torch.utils.incidents",
+                                    "adam_tpu_torch.utils.slo"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys
