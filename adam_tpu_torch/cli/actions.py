@@ -813,6 +813,8 @@ def _transform_streamed(args) -> int:
         run_dir=args.run_dir,
         resume=args.resume,
         progress=args.progress,
+        devices=args.devices,
+        partitioner=args.partitioner,
         device=args.device,
     )
     print(json.dumps(stats, sort_keys=True))

@@ -26,9 +26,11 @@ and histograms; the JSON snapshot and the Chrome trace are written when
 the verb ends, failed or not; ``--progress`` is the streamed transform's
 heartbeat.  ``--xprof-dir DIR`` wraps the verb in a ``torch.profiler``
 trace and writes it to DIR as a Chrome-trace JSON file (Perfetto opens
-it), the port's counterpart of JAX's xprof trace.  The multi-chip flags
-parse, and a verb given one exits 2 naming the ROADMAP item that will
-bring them (``--devices 1`` is what the port does, and passes).
+it), the port's counterpart of JAX's xprof trace.  The multi-device
+flags act as JAX's do: ``--devices N`` caps the streamed transform's
+device pool (at the cards attached, with a warning) and
+``--partitioner {pool,mesh}`` picks its execution mode; other verbs
+accept and ignore them, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,15 +41,6 @@ import sys
 
 from adam_tpu_torch.utils import instrumentation as ins
 from adam_tpu_torch.utils import telemetry as tele
-
-#: JAX's shared flags the port does not serve yet -> the ROADMAP item
-#: that brings them.  Each is refused when given, never ignored.
-_MULTI_GPU = "ROADMAP queue 1 item 4 (multi-GPU)"
-UNPORTED_FLAGS = (
-    ("devices", "--devices", _MULTI_GPU),
-    ("partitioner", "--partitioner", _MULTI_GPU),
-)
-
 
 class Command:
     """One verb: subclasses set ``name`` and ``description`` and implement
@@ -99,12 +92,20 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--devices", dest="devices", type=int, default=None, metavar="N",
-        help="device count: 1 (one card, what the port runs on); more is "
-        f"{_MULTI_GPU}",
+        help="fan the streamed transform's device work out over N cards "
+        "(windows round-robin over them; default: every card, or "
+        "ADAM_TPU_DEVICES; N=1 forces the single-device path; requests "
+        "beyond the attached count are capped)",
     )
-    parser.add_argument("--partitioner", dest="partitioner", default=None,
-                        choices=["pool", "mesh"],
-                        help=f"not in the port yet: {_MULTI_GPU}")
+    parser.add_argument(
+        "--partitioner", dest="partitioner", default=None,
+        choices=["pool", "mesh"],
+        help="how the streamed transform places device work over the "
+        "cards: 'pool' (default) round-robins whole windows; 'mesh' splits "
+        "every window's rows over them, sums the BQSR observe histograms "
+        "on the card (one table per grid width crosses at barrier 2) and "
+        "degrades to the pool on a failure (also ADAM_TPU_PARTITIONER)",
+    )
     parser.add_argument(
         "--fault-spec", dest="fault_spec", default=None, metavar="SPEC",
         help="arm fault injection at named points (testing only; e.g. "
@@ -181,17 +182,6 @@ def parser_for(name: str) -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args: argparse.Namespace) -> str | None:
-    """The message for the first unported shared flag that was given, or
-    None when there is none."""
-    for dest, flag, item in UNPORTED_FLAGS:
-        value = getattr(args, dest, None)
-        if value in (None, False) or (dest == "devices" and value == 1):
-            continue
-        return f"{flag}: not in adam_tpu_torch yet; it comes with {item}"
-    return None
-
-
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -211,10 +201,6 @@ def main(argv=None) -> int:
         level=getattr(logging, args.log_level.upper()),
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
-    refusal = _refuse_unported(args)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 2
     # any observability sink switches recording on: the timer table, the
     # JSON snapshot, the Chrome trace and the analyzer report all read
     # the same run (--progress manages its own through the heartbeat)

@@ -123,6 +123,6 @@ def pack_rows(mat: torch.Tensor, lens: torch.Tensor, size: int,
     kernels.launch(
         "pack_rows", mat.data_ptr(), lens.data_ptr(), n, w, rows,
         lut.ctypes.data if lut is not None else None, base.data_ptr(),
-        out.data_ptr(), size, variant=encode,
+        out.data_ptr(), size, device=mat.device, variant=encode,
     )
     return out

@@ -12,7 +12,13 @@ Every launch goes through :func:`launch`, which counts it, so a run can
 show that it went through the kernels (:func:`launches`,
 :func:`reset_launches`); a wrapper with modes (``pack_rows``' encodes,
 ``sw_fill``'s routes) names the mode, counted apart too
-(:func:`variant_launches`).
+(:func:`variant_launches`).  Each launch runs on the device that holds
+its tensors (``torch.cuda.device(<it>)``) and on that device's current
+stream, which a device-pool slot sets to its own
+(``parallel/device_pool.Slot.scope``); the counts are kept per device and
+per slot beside the totals (:func:`device_launches`,
+:func:`slot_launches`); a launch under a device pool's prewarm counts
+apart (:func:`prewarm_launches`), in none of the others.
 """
 
 from __future__ import annotations
@@ -49,6 +55,27 @@ _LOCK = threading.Lock()
 _LIBS: dict = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
 _VARIANT_LAUNCHES: dict = {}
+_DEVICE_LAUNCHES: dict = {}  # (name, "cuda:K") -> launches
+_SLOT_LAUNCHES: dict = {}    # (name, slot index) -> launches
+_PREWARM_LAUNCHES = {name: 0 for name in KERNELS}
+_SLOT_TLS = threading.local()
+
+
+class slot_scope:
+    """Attribute this thread's launches to pool slot ``index`` (reentrant;
+    ``parallel/device_pool.Slot.scope`` enters it)."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def __enter__(self):
+        self.prev = getattr(_SLOT_TLS, "index", None)
+        _SLOT_TLS.index = self.index
+        return self
+
+    def __exit__(self, *exc):
+        _SLOT_TLS.index = self.prev
+        return False
 
 
 def nvcc_path() -> str:
@@ -117,15 +144,42 @@ def library(name: str) -> ct.CDLL:
     return lib
 
 
-def launch(name: str, *args, variant: str | None = None) -> None:
-    """Call ``<name>_launch(*args, stream)`` on the current CUDA stream,
-    count the launch (and, where given, the launch of that ``variant``),
-    and raise if the launch failed."""
+def _stream_handle(device) -> int:
+    """The raw ``cudaStream_t`` to launch on for tensors on ``device``:
+    that device's current stream, read with the device made current (a
+    tensor on ``cuda:1`` must never launch on ``cuda:0``'s stream)."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(library(name), f"{name}_launch")(*args, stream)
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, *args, device, variant: str | None = None) -> None:
+    """Call ``<name>_launch(*args, stream)`` with ``device`` (the device of
+    the tensors behind ``args``) made current, on its current stream (the
+    calling slot's), count the launch (in total, per device and per slot,
+    and, where given, the launch of that ``variant``), and raise if the
+    launch failed."""
+    import torch
+
+    from adam_tpu_torch.utils.compile_ledger import in_prewarm
+
+    with torch.cuda.device(device):
+        stream = _stream_handle(device)
+        rc = getattr(library(name), f"{name}_launch")(*args, stream)
+    if in_prewarm():
+        # a device pool's prewarm: counted apart from the main path's work
+        _PREWARM_LAUNCHES[name] += 1
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+        return
     _LAUNCHES[name] += 1
+    dkey = (name, str(device))
+    _DEVICE_LAUNCHES[dkey] = _DEVICE_LAUNCHES.get(dkey, 0) + 1
+    slot = getattr(_SLOT_TLS, "index", None)
+    if slot is not None:
+        skey = (name, slot)
+        _SLOT_LAUNCHES[skey] = _SLOT_LAUNCHES.get(skey, 0) + 1
     if variant is not None:
         key = f"{name}:{variant}"
         _VARIANT_LAUNCHES[key] = _VARIANT_LAUNCHES.get(key, 0) + 1
@@ -143,7 +197,33 @@ def variant_launches() -> dict:
     return dict(_VARIANT_LAUNCHES)
 
 
+def device_launches() -> dict:
+    """Kernel name -> {device ("cuda:K") -> launches} since the last reset."""
+    out: dict = {}
+    for (name, dev), n in _DEVICE_LAUNCHES.items():
+        out.setdefault(name, {})[dev] = n
+    return out
+
+
+def slot_launches() -> dict:
+    """Kernel name -> {pool slot index -> launches} since the last reset
+    (launches made inside a slot's scope only)."""
+    out: dict = {}
+    for (name, slot), n in _SLOT_LAUNCHES.items():
+        out.setdefault(name, {})[slot] = n
+    return out
+
+
+def prewarm_launches() -> dict:
+    """Kernel name -> launches made under a device pool's prewarm since
+    the last reset (in none of the other counts)."""
+    return dict(_PREWARM_LAUNCHES)
+
+
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+        _PREWARM_LAUNCHES[name] = 0
     _VARIANT_LAUNCHES.clear()
+    _DEVICE_LAUNCHES.clear()
+    _SLOT_LAUNCHES.clear()

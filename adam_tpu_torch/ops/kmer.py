@@ -122,9 +122,11 @@ def _device_columns(batch: ReadBatch, device, names) -> list[torch.Tensor]:
 def histogram_to_dict(bases, lengths, valid, k: int) -> dict[str, int]:
     """Run the device histogram over a padded batch's columns and decode
     the (k-mer string -> count) table, in sorted key order."""
+    from adam_tpu_torch.utils.transfer import device_fetch
+
     s, run_counts, is_head = device_kmer_histogram(bases, lengths, valid, k)
-    keys = s[is_head].cpu().numpy()
-    counts = run_counts[is_head].cpu().numpy()
+    keys = device_fetch(s[is_head])
+    counts = device_fetch(run_counts[is_head])
     return dict(zip(_unpack_kmers(keys, k), counts.tolist()))
 
 
@@ -159,8 +161,10 @@ def count_qmers(batch: ReadBatch, k: int, device: str = "cuda") -> dict[str, flo
     if batch.n_rows == 0:
         return {}
     cols = _device_columns(batch, device, ("bases", "quals", "lengths", "valid"))
+    from adam_tpu_torch.utils.transfer import device_fetch
+
     keys, weights = device_qmer_weights(*cols, k)
-    keys, weights = keys.cpu().numpy(), weights.cpu().numpy()
+    keys, weights = device_fetch(keys), device_fetch(weights)
     order = np.argsort(keys, kind="stable")
     keys, weights = keys[order], weights[order]
     uniq, start_idx = np.unique(keys, return_index=True)

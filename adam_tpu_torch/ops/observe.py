@@ -105,6 +105,6 @@ def observe_hist(flat_key, res_bits, mm_bits, read_ok, size: int, slab_w: int):
     kernels.launch(
         "observe_hist", keys.data_ptr(), res.data_ptr(), mm.data_ptr(),
         rdok.data_ptr(), n, l, res.shape[1], size, slab_w, hist.data_ptr(),
-        scratch.data_ptr(), scratch_bytes,
+        scratch.data_ptr(), scratch_bytes, device=keys.device,
     )
     return hist[:size], hist[size:2 * size]

@@ -197,7 +197,7 @@ def sw_fill(x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert,
             B, lx, ly, *(ct.c_float(_f32(w)) for w in
                          (w_match, w_mismatch, w_insert, w_delete)),
             _SW_FILL_ROUTES[route], moves.data_ptr(), best_sc.data_ptr(),
-            best_d.data_ptr(), variant=route,
+            best_d.data_ptr(), device=xc.device, variant=route,
         )
     return moves, best_sc, best_d
 
@@ -333,7 +333,7 @@ def sw_best_scores(x_codes, x_len, y_codes, y_len,
             "sw_score", xc.data_ptr(), yc.data_ptr(), xl.data_ptr(), yl.data_ptr(),
             B, lx, ly, *(ct.c_float(_f32(w)) for w in
                          (w_match, w_mismatch, w_insert, w_delete)),
-            _DTYPE_CODES[dtype_name], out.data_ptr(),
+            _DTYPE_CODES[dtype_name], out.data_ptr(), device=xc.device,
         )
     return out
 
@@ -465,23 +465,27 @@ def smith_waterman_batch(
     w_insert: float = -0.5,
     w_delete: float = -0.5,
     device: str = "cuda",
+    slot=None,
 ) -> list[SWAlignment]:
     """Align each x[i] against y[i] (padded code matrices + true lengths,
-    numpy or tensors): the fill on ``device``, the trackback on the host."""
-    dev = resolve_device(device)
+    numpy or tensors): the fill on ``device`` (or on a device pool's
+    ``slot``, on its stream), the trackback on the host."""
+    from adam_tpu_torch.parallel.device_pool import as_slot
+    from adam_tpu_torch.utils.transfer import device_fetch
+
+    slot = slot if slot is not None else as_slot(resolve_device(device))
 
     def put(a):
-        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(dev)
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(slot.device)
 
-    x_codes, x_len, y_codes, y_len = (put(a) for a in (x_codes, x_len, y_codes, y_len))
-    moves, best_sc, best_d = sw_fill(
-        x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert, w_delete,
-        int(x_codes.shape[1]), int(y_codes.shape[1]),
-    )
-    moves = moves.cpu().numpy()
-    best_sc = best_sc.cpu().numpy()
-    best_d = best_d.cpu().numpy()
-    xl = x_len.cpu().numpy()
+    with slot.scope():
+        x_codes, x_len, y_codes, y_len = (put(a) for a in (x_codes, x_len, y_codes, y_len))
+        moves, best_sc, best_d = sw_fill(
+            x_codes, x_len, y_codes, y_len, w_match, w_mismatch, w_insert, w_delete,
+            int(x_codes.shape[1]), int(y_codes.shape[1]),
+        )
+    moves, best_sc, best_d, xl = (device_fetch(t, slot)
+                                  for t in (moves, best_sc, best_d, x_len))
     return [
         _trackback(moves[b], best_sc[b], best_d[b], int(xl[b]))
         for b in range(moves.shape[0])
@@ -511,14 +515,20 @@ MOVES_BYTES_PER_LAUNCH = 256 << 20
 
 def smith_waterman_many(pairs, w_match: float = 1.0, w_mismatch: float = -0.333,
                         w_insert: float = -0.5, w_delete: float = -0.5,
-                        device: str = "cuda") -> list[SWAlignment]:
+                        device: str = "cuda", sweep_devices=None) -> list[SWAlignment]:
     """Align many (x, y) pairs of base-code arrays -> one alignment per
     pair, in input order.  Pairs are grouped into padded-shape buckets
     (x to a multiple of 32, y to a multiple of 128) and each bucket runs
     as one :func:`smith_waterman_batch`, chunked so that its moves matrix
     stays within :data:`MOVES_BYTES_PER_LAUNCH`.  Every pair's cells are
     computed alone, and padding lies outside its valid region, so each
-    result equals the pair's own unpadded call."""
+    result equals the pair's own unpadded call.  With ``sweep_devices``
+    (two or more pool slots) the launches go round the slots of a
+    ``parallel/device_pool.SweepSchedule``; the results are the same."""
+    from adam_tpu_torch.parallel.device_pool import SweepSchedule
+
+    sched = (SweepSchedule(sweep_devices)
+             if sweep_devices is not None and len(sweep_devices) > 1 else None)
     buckets: dict = {}
     for k, (x, y) in enumerate(pairs):
         key = (_round_up(max(len(x), 1), 32), _round_up(max(len(y), 1), 128))
@@ -538,8 +548,9 @@ def smith_waterman_many(pairs, w_match: float = 1.0, w_mismatch: float = -0.333,
                 xc[r, :len(x)] = x
                 yc[r, :len(y)] = y
                 xl[r], yl[r] = len(x), len(y)
-            alns = smith_waterman_batch(xc, xl, yc, yl, w_match, w_mismatch,
-                                        w_insert, w_delete, device=device)
+            alns = smith_waterman_batch(
+                xc, xl, yc, yl, w_match, w_mismatch, w_insert, w_delete, device=device,
+                slot=sched.next_device() if sched is not None else None)
             for k, a in zip(part, alns):
                 out[k] = a
     return out

@@ -20,11 +20,10 @@ in memory:
    duplicate flags (kernel 1, once per row chunk of the shard), the
    candidates of all shards realign together, and the realigned part is
    observed with its new alignments (kernel 1 once more); the histograms
-   merge and the table is solved on the host.  The JAX package observes
-   the remainders inside the realign's device wait (``overlap_work``);
-   the port's realign has no such hook, so they run in turn, first — the
-   histograms are the same, since realignment never touches a remainder
-   row — and ``realign_s`` stays free of ``observe_s``.
+   merge and the table is solved on the host.  As in the JAX package the
+   remainders are observed inside the realign's device wait
+   (``overlap_work``: between the sweeps' dispatch and their fetch), and
+   ``realign_s`` stays free of ``observe_s``.
 6. **Pass C**: per shard, the table gathered into the quals on the device
    (no column pack: kernel 2 does not run here, as the JAX package's
    sharded pass C applies with ``pack=False``); a writer pool of 3
@@ -241,26 +240,35 @@ def transform_sharded(
                                                      mask=cand_masks[si])
             return ds
 
-        # ---- 5. tail: observe the remainders, realign the candidates of
-        # all shards together, observe the realigned part ----------------
+        # ---- 5. tail: realign the candidates of all shards together,
+        # observing the remainders under the sweeps, then observe the
+        # realigned part ----------------------------------------------------
         obs_parts = []
-        t = time.perf_counter()
-        t0 = time.perf_counter()
         observed = [si for si, n_valid in splits if n_valid] if recalibrate else []
-        for si in observed:
-            obs_parts += bqsr_mod.observe_dataset(remainder(si), dev, known_snps)[1]
+
+        def observe_remainders():
+            # remainder rows are untouched by realignment, so observing them
+            # on either side of it gives the same histograms
+            t0 = time.perf_counter()
+            for si in observed:
+                obs_parts.extend(
+                    bqsr_mod.observe_dataset(remainder(si), dev, known_snps)[1])
+            stats["observe_s"] = time.perf_counter() - t0
+
         stats["shards_observed"] = observed
-        stats["observe_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
         realigned = None
         if candidates:
             realigned = realign_mod.realign_indels(
                 AlignmentDataset.concat(candidates),
                 consensus_model=consensus_model, known_indels=known_indels,
                 max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
-                max_target_size=mts, device=dev,
+                max_target_size=mts, device=dev, overlap_work=observe_remainders,
             )
             if recalibrate and realigned.batch.n_rows:
                 obs_parts += bqsr_mod.observe_dataset(realigned, dev, known_snps)[1]
+        else:
+            observe_remainders()
         stats["n_observed"] = len(obs_parts)
         stats["realign_s"] = time.perf_counter() - t - stats["observe_s"]
 

@@ -240,7 +240,8 @@ def dump_observation_csv(total, mism, rg_names, lmax, path) -> None:
 
 
 def merge_observations(parts: list[tuple], window_ids=None,
-                       on_part=None, tracer=None) -> tuple:
+                       on_part=None, tracer=None, slots=None,
+                       replays=None) -> tuple:
     """Sum per-window (total, mism, gl) histograms, in window order, into
     one host i64 (total, mism, gl).  Cycle slots are centred (index =
     cycle + gl), so a narrower window pads into the middle of the widest
@@ -248,13 +249,22 @@ def merge_observations(parts: list[tuple], window_ids=None,
     barrier) or host arrays (a sidecar loaded on resume).
 
     ``window_ids`` is the parallel list of each part's window index (the
-    part position when None); ``on_part(window, total, mism, g)`` is
-    called with each part's host histogram as it merges, which is where
-    the run journal persists its observe sidecars.  With ``tracer`` (the
-    streamed run's barrier 2) each device part's fetch is a
-    ``device.fetch.observe`` span on it, attributed to its window and
+    part position when None; a None entry marks a part with no single
+    window, the mesh's fetched accumulator, which ``on_part`` skips);
+    ``on_part(window, total, mism, g)`` is called with each part's host
+    histogram as it merges, which is where the run journal persists its
+    observe sidecars.  ``slots`` is the parallel list of the pool slot
+    holding each device part (None: the single-device path): each part is
+    fetched from its slot's stream (``utils/transfer.device_fetch``).
+    ``replays`` is a parallel list of recovery hooks: when a part's fetch
+    fails past the transfer layer's retries, ``replays[k](exc)`` returns
+    its host ``(total, mism, g)`` recomputed on a surviving slot.  With
+    ``tracer`` (the streamed run's barrier 2) each device part's fetch is
+    a ``device.fetch.observe`` span on it, attributed to its window and
     device; the dataset-level callers record none, as in JAX."""
     from adam_tpu_torch.device import device_key
+    from adam_tpu_torch.parallel.device_pool import span_attrs
+    from adam_tpu_torch.utils.transfer import device_fetch
 
     gl = max(p[2] for p in parts)
     s0 = tuple(parts[0][0].shape)
@@ -263,13 +273,23 @@ def merge_observations(parts: list[tuple], window_ids=None,
     mism = np.zeros(shape, np.int64)
     for k, (t, m, g) in enumerate(parts):
         win = window_ids[k] if window_ids is not None else k
-        if tracer is not None and isinstance(t, torch.Tensor):
-            with tracer.span(_tele.SPAN_OBS_FETCH, window=win,
-                             device=device_key(t.device)):
-                tt, mm = _host(t), _host(m)
-        else:  # a host part (a loaded sidecar) crosses no device link
-            tt, mm = _host(t), _host(m)
-        if on_part is not None:
+        slot = slots[k] if slots is not None else None
+        try:
+            if tracer is not None and isinstance(t, torch.Tensor):
+                attrs = (span_attrs(slot) if slot is not None and slot.attributed
+                         else {"device": device_key(t.device)})
+                with tracer.span(_tele.SPAN_OBS_FETCH, window=win, **attrs):
+                    tt, mm = device_fetch(t, slot), device_fetch(m, slot)
+            elif isinstance(t, torch.Tensor):
+                tt, mm = device_fetch(t, slot), device_fetch(m, slot)
+            else:  # a host part (a loaded sidecar) crosses no device link
+                tt, mm = np.asarray(t), np.asarray(m)
+        except Exception as e:
+            replay = replays[k] if replays is not None else None
+            if replay is None:
+                raise
+            tt, mm, g = replay(e)
+        if on_part is not None and win is not None:
             on_part(win, tt, mm, g)
         off = gl - g
         total[:, :, off : off + 2 * g + 1, :] += tt
@@ -446,81 +466,222 @@ def stash_orig_quals(ds: AlignmentDataset, b) -> AlignmentDataset:
 # --------------------------------------------------------------------------
 # Windows: observe, apply, and the fused B->C tier
 # --------------------------------------------------------------------------
-def _put(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(arr).to(device)
-
-
-def _observe_masks(ds: AlignmentDataset, rw, known_snps) -> tuple:
-    """Host side of one resident window's observe: the MD walk, the read
-    and residue filters (known SNPs masked), bit-packed and shipped to
-    the window's device -> (res_bits, mm_bits, read_ok)."""
+def _observe_host_masks(ds: AlignmentDataset, b, g: int, gl: int,
+                        known_snps) -> tuple:
+    """Host side of one window's observe: the MD walk, the read and
+    residue filters (known SNPs masked), bit-packed and padded to the
+    ``[g, gl]`` grid -> (res_bits, mm_bits, read_ok) numpy arrays."""
     from adam_tpu_torch.formats.batch import pad_rows_np
     from adam_tpu_torch.ops.colpack import pack_mask_bits
     from adam_tpu_torch.ops.mdtag import batch_md_arrays
 
-    b = ds.batch.to_numpy()
     is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
     read_ok = observe_read_mask(b, has_md)
     residue_ok = observe_residue_mask(ds, b, known_snps)
-    g, gl, dev = rw.g, rw.gl, rw.device
-    return (
-        _put(pack_mask_bits(pad_rows_np(residue_ok, g, False, cols=gl)), dev),
-        _put(pack_mask_bits(pad_rows_np(is_mm, g, False, cols=gl)), dev),
-        _put(pad_rows_np(read_ok, g, False), dev),
-    )
+    return (pack_mask_bits(pad_rows_np(residue_ok, g, False, cols=gl)),
+            pack_mask_bits(pad_rows_np(is_mm, g, False, cols=gl)),
+            pad_rows_np(read_ok, g, False))
 
 
-def _apply_masks(b, rw) -> tuple:
+def _apply_host_masks(b, g: int) -> tuple:
     """The post-split ``has_qual`` / ``valid`` bools of pass C, padded to
-    the window's rows, on its device."""
+    ``g`` rows."""
     from adam_tpu_torch.formats.batch import pad_rows_np
 
-    return (_put(pad_rows_np(b.has_qual, rw.g, False), rw.device),
-            _put(pad_rows_np(b.valid, rw.g, False), rw.device))
+    return pad_rows_np(b.has_qual, g, False), pad_rows_np(b.valid, g, False)
 
 
-def _apply_handle(ds: AlignmentDataset, b, pq, pb) -> tuple:
-    from adam_tpu_torch.ops.colpack import pack_lengths
+def _placer(rw, mesh):
+    """Where a window's per-pass inputs go: the mesh's row blocks, or the
+    window's slot (booked in the h2d ledger either way)."""
+    if mesh is not None:
+        return mesh.put_rows
+    from adam_tpu_torch.parallel.device_pool import putter
 
-    return (ds, b, pq, pack_lengths(b.lengths, b.valid, b.has_qual),
-            pb, pack_lengths(b.lengths, b.valid))
+    return putter(rw.slot)
 
 
-def observe_window(ds: AlignmentDataset, rw, known_snps=None) -> tuple:
+def _dispatch(site_key: tuple, rw, mesh, fn):
+    """Run one window's device work ``fn()`` as the JAX dispatch sites do:
+    the ``device.dispatch`` fault point (attributed to the slot's id)
+    before any launch, the whole unit retried on a transient failure, and
+    the compile ledger's hit or miss under ``site_key``.  On a slot, ``fn``
+    runs inside its scope (device and stream)."""
+    import contextlib
+
+    from adam_tpu_torch.parallel.device_pool import _attr_id
+    from adam_tpu_torch.utils import compile_ledger, faults
+    from adam_tpu_torch.utils import retry as retry_mod
+
+    if mesh is not None:
+        def unit():
+            faults.point("device.dispatch", device="mesh")
+            return fn()
+
+        ledger = compile_ledger.track(site_key, mesh.ledger_key(), mesh.route())
+        scope = contextlib.nullcontext()
+    else:
+        slot = rw.slot
+
+        def unit():
+            faults.point("device.dispatch",
+                         device=_attr_id(slot) if slot.attributed else None)
+            return fn()
+
+        ledger = compile_ledger.track(site_key, slot)
+        scope = slot.scope()
+    with ledger, scope:
+        return retry_mod.retry_call(unit, site=str(site_key[0]))
+
+
+def _site_attrs(rw, mesh) -> dict:
+    from adam_tpu_torch.parallel.device_pool import span_attrs
+
+    return {"device": "mesh"} if mesh is not None else span_attrs(rw.slot)
+
+
+class ApplyHandle:
+    """A dispatched pass-C window: the dataset and its numpy batch, the
+    packed quals and bases (one tensor on the window's slot, or one per
+    shard under the mesh) and their per-row lengths; finished by
+    :func:`apply_finish`."""
+
+    __slots__ = ("ds", "b", "pq", "lens_q", "pb", "lens_b", "slot", "mesh", "block")
+
+    def __init__(self, ds, b, pq, pb, slot=None, mesh=None, block=0):
+        from adam_tpu_torch.ops.colpack import pack_lengths
+
+        self.ds, self.b, self.pq, self.pb = ds, b, pq, pb
+        self.lens_q = pack_lengths(b.lengths, b.valid, b.has_qual)
+        self.lens_b = pack_lengths(b.lengths, b.valid)
+        self.slot, self.mesh = slot, mesh
+        self.block = block  # rows per shard under the mesh
+
+
+def apply_handle_dataset(handle: ApplyHandle) -> AlignmentDataset:
+    """The pre-apply dataset of a dispatched window (its replay source)."""
+    return handle.ds
+
+
+def observe_window(ds: AlignmentDataset, rw, known_snps=None, mesh=None) -> tuple:
     """Pass B for one resident window -> (total, mism, gl): lazy i64
-    histograms on the window's device and its grid width."""
+    histograms on the window's slot and its grid width.  Under ``mesh`` (a
+    ``parallel/partitioner.MeshPartitioner``, ``rw`` its
+    ``mesh_resident_window``) each shard observes its row block on its
+    slot and ``total``/``mism`` are the per-shard lists, for
+    ``MeshPartitioner.accumulate``."""
     with _tele.TRACE.span(_tele.SPAN_BQSR_OBSERVE, backend="device",
-                          reads=int(ds.batch.n_rows)):
-        total, mism = observe_packed_body(
-            *rw.args(), *_observe_masks(ds, rw, known_snps),
-            len(ds.read_groups) + 1, rw.gl,
-        )
+                          reads=int(ds.batch.n_rows), **_site_attrs(rw, mesh)):
+        b = ds.batch.to_numpy()
+        n_rg = len(ds.read_groups) + 1
+        host = _observe_host_masks(ds, b, rw.g, rw.gl, known_snps)
+        put = _placer(rw, mesh)
+
+        def run():
+            res, mm, rdok = (put(a) for a in host)
+            if mesh is None:
+                return observe_packed_body(*rw.args(), res, mm, rdok, n_rg, rw.gl)
+            outs = mesh.shard_map(
+                lambda k, *a: observe_packed_body(*a, n_rg, rw.gl),
+                *rw.args(), res, mm, rdok)
+            return [o[0] for o in outs], [o[1] for o in outs]
+
+        name = "mesh.observe_packed" if mesh is not None else "bqsr.observe_packed"
+        total, mism = _dispatch((name, rw.g, rw.gl, n_rg), rw, mesh, run)
     return total, mism, rw.gl
 
 
-def apply_dispatch(ds: AlignmentDataset, rw, table_dev) -> tuple:
+def _apply_sizes(mesh, rw) -> int:
+    """The packed buffer of one launch: the whole window's grid, or one
+    shard's block under the mesh."""
+    return (mesh.block(rw.g) if mesh is not None else rw.g) * rw.gl
+
+
+def apply_dispatch(ds: AlignmentDataset, rw, table_dev, mesh=None) -> ApplyHandle:
     """Pass C dispatch for one resident window -> handle for
     :func:`apply_finish` (the packed columns are still being computed on
-    the device)."""
-    with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device"):
+    the slot).  ``table_dev`` is the table on the window's slot, or one
+    copy per shard under ``mesh``."""
+    with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device",
+                          **_site_attrs(rw, mesh)):
         b = ds.batch.to_numpy()
-        pq, pb = apply_pack2_body(*rw.args(), *_apply_masks(b, rw), table_dev,
-                                  rw.gl, rw.g * rw.gl)
-        return _apply_handle(ds, b, pq, pb)
+        host = _apply_host_masks(b, rw.g)
+        put = _placer(rw, mesh)
+        size = _apply_sizes(mesh, rw)
+        n_rg, _, n_cyc, _ = (table_dev[0] if mesh is not None else table_dev).shape
+
+        def run():
+            hq, v = (put(a) for a in host)
+            if mesh is None:
+                return apply_pack2_body(*rw.args(), hq, v, table_dev, rw.gl, size)
+            outs = mesh.shard_map(
+                lambda k, *a: apply_pack2_body(*a, rw.gl, size),
+                *rw.args(), hq, v, table_dev)
+            return [o[0] for o in outs], [o[1] for o in outs]
+
+        name = "mesh.apply_pack2" if mesh is not None else "bqsr.apply_pack2"
+        pq, pb = _dispatch((name, rw.g, rw.gl, n_rg, n_cyc), rw, mesh, run)
+        return ApplyHandle(ds, b, pq, pb, slot=None if mesh is not None else rw.slot,
+                           mesh=mesh, block=mesh.block(rw.g) if mesh is not None else 0)
 
 
-def apply_finish(handle) -> tuple:
-    """Fetch a dispatched window's packed columns (exactly
-    ``sum(lengths)`` bytes each) and stash OQ -> (dataset, packed)."""
+def _fetch_packed(h: ApplyHandle, packed, lens: np.ndarray) -> np.ndarray:
+    """One packed column home: exactly ``sum(lens)`` bytes, or under the
+    mesh each shard's real bytes concatenated in shard order."""
+    from adam_tpu_torch.utils.transfer import device_fetch
+
+    if h.mesh is None:
+        return device_fetch(packed[: int(lens.sum())], h.slot)
+    rows = h.block
+    parts = []
+    for k, (p, s) in enumerate(zip(packed, h.mesh.devices)):
+        t_k = int(lens[k * rows:(k + 1) * rows].sum())
+        if t_k:
+            parts.append(device_fetch(p[:t_k], s))
+    return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+
+
+def apply_finish(handle: ApplyHandle) -> tuple:
+    """Fetch a dispatched window's packed columns and stash OQ ->
+    (dataset, packed)."""
     from adam_tpu_torch.io.arrow_pack import PackedColumns, PackedQuals
 
-    ds, b, pq, lens_q, pb, lens_b = handle
+    h = handle
     with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_FETCH):
         packed = PackedColumns(
-            quals=PackedQuals(pq[: int(lens_q.sum())].cpu().numpy(), lens_q),
-            bases=PackedQuals(pb[: int(lens_b.sum())].cpu().numpy(), lens_b),
+            quals=PackedQuals(_fetch_packed(h, h.pq, h.lens_q), h.lens_q),
+            bases=PackedQuals(_fetch_packed(h, h.pb, h.lens_b), h.lens_b),
         )
-    return stash_orig_quals(ds, b), packed
+    return stash_orig_quals(h.ds, h.b), packed
+
+
+def apply_reference(ds: AlignmentDataset, table: np.ndarray):
+    """The SDC audit's reference: one window's pass C (the table gather and
+    both packs) by the plain PyTorch versions on the CPU, from the host
+    copy of the window -> its ``PackedColumns``.  Used only to compare
+    with the card's result; it is never published."""
+    from adam_tpu_torch.formats.batch import grid_cols, grid_rows
+    from adam_tpu_torch.io.arrow_pack import PackedColumns, PackedQuals
+    from adam_tpu_torch.ops.colpack import pack_lengths
+    from adam_tpu_torch.parallel.device_pool import ResidentWindow
+
+    b = ds.batch.to_numpy()
+    g, gl = grid_rows(b.n_rows), grid_cols(b.lmax)
+    res = [torch.from_numpy(a) for a in ResidentWindow.host_arrays(b, g, gl).values()]
+    hq, v = (torch.from_numpy(a) for a in _apply_host_masks(b, g))
+    pq, pb = apply_pack2_body(*res, hq, v, torch.from_numpy(np.ascontiguousarray(table)),
+                              gl, g * gl)
+    lens_q = pack_lengths(b.lengths, b.valid, b.has_qual)
+    lens_b = pack_lengths(b.lengths, b.valid)
+    return PackedColumns(quals=PackedQuals(pq[: int(lens_q.sum())].numpy(), lens_q),
+                         bases=PackedQuals(pb[: int(lens_b.sum())].numpy(), lens_b))
+
+
+def packed_equal(a, b) -> bool:
+    """Whether two windows' packed columns are the same bytes (the SDC
+    audit's verdict)."""
+    return all(np.array_equal(x.buf, y.buf) and np.array_equal(x.lens, y.lens)
+               for x, y in ((a.quals, b.quals), (a.bases, b.bases)))
 
 
 def fused_bc_enabled(default: bool = True) -> bool:
@@ -553,25 +714,44 @@ def fused_bc_body(bases, quals, lengths, flags, read_group_idx,
     return total, mism, pq, pb
 
 
-def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None):
+def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None,
+                      mesh=None):
     """One fused B->C dispatch for a resident window whose recalibration
     table is already known -> ``(handle, (total, mism, gl))`` — the
     handle is :func:`apply_dispatch`'s, finished by :func:`apply_finish`
     without a second dispatch — or None when the window is not eligible:
     the table must have the window's read-group bins and a cycle axis at
     least as wide as the window's grid (``n_cyc >= 2*gl + 1``).  An
-    ineligible window takes the separate passes, as in the JAX package."""
+    ineligible window takes the separate passes, as in the JAX package.
+    Under ``mesh`` the histograms are per-shard lists (for
+    ``MeshPartitioner.accumulate``) and ``table_dev`` one copy per shard."""
     n_rg = len(ds.read_groups) + 1
-    if table_dev.shape[0] != n_rg or table_dev.shape[2] < 2 * rw.gl + 1:
+    tshape = (table_dev[0] if mesh is not None else table_dev).shape
+    if tshape[0] != n_rg or tshape[2] < 2 * rw.gl + 1:
         return None
     with _tele.TRACE.span(_tele.SPAN_FUSED_BC, backend="device",
-                          reads=int(ds.batch.n_rows)):
+                          reads=int(ds.batch.n_rows), **_site_attrs(rw, mesh)):
         b = ds.batch.to_numpy()
-        total, mism, pq, pb = fused_bc_body(
-            *rw.args(), *_observe_masks(ds, rw, known_snps), *_apply_masks(b, rw),
-            table_dev, n_rg, rw.gl, rw.g * rw.gl,
-        )
-    return _apply_handle(ds, b, pq, pb), (total, mism, rw.gl)
+        host = (_observe_host_masks(ds, b, rw.g, rw.gl, known_snps)
+                + _apply_host_masks(b, rw.g))
+        put = _placer(rw, mesh)
+        size = _apply_sizes(mesh, rw)
+
+        def run():
+            placed = [put(a) for a in host]
+            if mesh is None:
+                return fused_bc_body(*rw.args(), *placed, table_dev, n_rg, rw.gl, size)
+            outs = mesh.shard_map(
+                lambda k, *a: fused_bc_body(*a, n_rg, rw.gl, size),
+                *rw.args(), *placed, table_dev)
+            return tuple([o[i] for o in outs] for i in range(4))
+
+        name = "mesh.fused_bc" if mesh is not None else "bqsr.fused_bc"
+        total, mism, pq, pb = _dispatch((name, rw.g, rw.gl, n_rg, tshape[2]),
+                                        rw, mesh, run)
+    handle = ApplyHandle(ds, b, pq, pb, slot=None if mesh is not None else rw.slot,
+                         mesh=mesh, block=mesh.block(rw.g) if mesh is not None else 0)
+    return handle, (total, mism, rw.gl)
 
 
 # --------------------------------------------------------------------------
@@ -623,10 +803,18 @@ def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset
     the recalibrated dataset."""
     with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_HOST, backend="device"):
         b = ds.batch.to_numpy()
+        from adam_tpu_torch.utils.transfer import device_fetch
+
+        n_rg, _, n_cyc, _ = table_dev.shape
         with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device"):
-            new_q = apply_table_body(*rw.args(), *_apply_masks(b, rw), table_dev, rw.gl)
+            new_q = _dispatch(
+                ("bqsr.apply", rw.g, rw.gl, n_rg, n_cyc), rw, None,
+                lambda: apply_table_body(
+                    *rw.args(), *(_placer(rw, None)(a) for a in _apply_host_masks(b, rw.g)),
+                    table_dev, rw.gl))
         with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_FETCH):
-            new_q = np.ascontiguousarray(new_q[: b.n_rows, : b.lmax].cpu().numpy())
+            new_q = np.ascontiguousarray(
+                device_fetch(new_q[: b.n_rows, : b.lmax], rw.slot))
         out = stash_orig_quals(ds, b)
         return out.with_batch(b.replace(quals=new_q))
 

@@ -39,42 +39,90 @@ def markdup_columns_local(start, end, flags, ops, lens, n_ops, quals,
     return five, score
 
 
-def markdup_columns(batch, resident):
+def markdup_columns(batch, resident, mesh=None):
     """Dispatch one window's reductions against its resident window
-    (quals, lengths and flags already on the device; only start, end
-    and the cigar columns ship) -> lazy (five, score) device tensors for
-    the window's real rows."""
+    (quals, lengths and flags already on the slot; only start, end and the
+    cigar columns ship, padded to the ``[g, gc]`` grid) -> lazy (five,
+    score) tensors on the window's slot for its real rows.  Under ``mesh``
+    (``rw`` its ``mesh_resident_window``) each shard reduces its row block
+    on its slot and (five, score) are the per-shard lists of the padded
+    rows, for :func:`fetch_columns`."""
+    from adam_tpu_torch.formats.batch import grid_cigar_cols
+    from adam_tpu_torch.pipelines.bqsr import _dispatch, _placer, _site_attrs
     from adam_tpu_torch.utils import telemetry as tele
 
+    rw = resident
     with tele.TRACE.span(tele.SPAN_MD_COLUMNS, backend="device",
-                         reads=int(batch.n_rows)):
+                         reads=int(batch.n_rows), **_site_attrs(rw, mesh)):
         b = batch.to_numpy()
-        n, g, dev = b.n_rows, resident.g, resident.device
+        n, g, gl = b.n_rows, rw.g, rw.gl
+        gc = grid_cigar_cols(b.cigar_ops.shape[1] if b.cigar_ops.ndim == 2 else 1)
+        host = (pad_rows_np(b.start, g, -1), pad_rows_np(b.end, g, -1),
+                pad_rows_np(b.cigar_ops, g, schema.CIGAR_PAD, cols=gc),
+                pad_rows_np(b.cigar_lens, g, 0, cols=gc),
+                pad_rows_np(b.cigar_n, g, 0))
+        put = _placer(rw, mesh)
 
-        def put(arr, fill):
-            return torch.from_numpy(pad_rows_np(arr, g, fill)).to(dev)
+        def run():
+            start, end, ops, lens, n_ops = (put(a) for a in host)
+            if mesh is None:
+                five, score = markdup_columns_local(
+                    start, end, rw.get("flags"), ops, lens, n_ops, rw.get("quals"),
+                    rw.get("lengths"))
+                return five[:n], score[:n]
+            outs = mesh.shard_map(
+                lambda k, *a: markdup_columns_local(*a),
+                start, end, rw.get("flags"), ops, lens, n_ops, rw.get("quals"),
+                rw.get("lengths"))
+            return [o[0] for o in outs], [o[1] for o in outs]
 
-        five, score = markdup_columns_local(
-            put(b.start, -1), put(b.end, -1), resident.flags,
-            put(b.cigar_ops, schema.CIGAR_PAD), put(b.cigar_lens, 0),
-            put(b.cigar_n, 0), resident.quals, resident.lengths,
-        )
-        return five[:n], score[:n]
+        name = "mesh.markdup" if mesh is not None else "markdup.columns"
+        return _dispatch((name, g, gc, gl), rw, mesh, run)
+
+
+def fetch_columns(cols, n: int, slot=None, mesh=None) -> tuple:
+    """A window's dispatched (five, score) home -> host (five i64[n],
+    score i32[n]), through ``utils/transfer.device_fetch`` (from the slot
+    that holds them; under ``mesh``, each shard's block, in row order)."""
+    from adam_tpu_torch.utils.transfer import device_fetch
+
+    five, score = cols
+    if mesh is not None:
+        return mesh.fetch_rows(five, n), mesh.fetch_rows(score, n)
+    return device_fetch(five, slot), device_fetch(score, slot)
 
 
 def device_lexsort(keys, device) -> np.ndarray:
-    """``np.lexsort(keys)`` on ``device`` -> i64[n] permutation.
+    """``np.lexsort(keys)`` on ``device`` (a device or a pool slot) -> i64[n]
+    permutation.
 
-    ``keys`` follows the np.lexsort convention (last key primary).  A
-    cascade of stable sorts from the least significant key up,
-    ``perm = perm[sort(k[perm], stable=True)]``, reproduces THE unique
-    stable permutation, so the result is bitwise ``np.lexsort``'s."""
-    ks = [torch.from_numpy(np.ascontiguousarray(k, np.int64)).to(device)
-          for k in keys]
-    perm = torch.arange(ks[0].numel(), device=device)
-    for k in ks:
-        perm = perm[torch.sort(k[perm], stable=True).indices]
-    return perm.cpu().numpy()
+    ``keys`` follows the np.lexsort convention (last key primary).  The
+    keys ship as one i64 stack padded to the row grid, with a last,
+    most significant validity key that sorts the padding after every real
+    row (JAX's layout).  A cascade of stable sorts from the least
+    significant key up, ``perm = perm[sort(k[perm], stable=True)]``,
+    reproduces THE unique stable permutation, so ``perm[:n]`` is bitwise
+    ``np.lexsort``'s."""
+    from adam_tpu_torch.formats.batch import grid_rows
+    from adam_tpu_torch.parallel.device_pool import as_slot, putter
+    from adam_tpu_torch.utils.transfer import device_fetch
+
+    keys = [np.ascontiguousarray(k, np.int64) for k in keys]
+    n = keys[0].shape[0]
+    if n == 0:
+        return np.zeros(0, np.int64)
+    g = grid_rows(n)
+    stack = np.zeros((len(keys) + 1, g), np.int64)
+    for i, k in enumerate(keys):
+        stack[i, :n] = k
+    stack[len(keys), n:] = 1
+    slot = as_slot(device)
+    ks = putter(slot)(stack)
+    with slot.scope():
+        perm = torch.arange(g, device=slot.device)
+        for i in range(len(keys) + 1):
+            perm = perm[torch.sort(ks[i][perm], stable=True).indices]
+    return np.asarray(device_fetch(perm[:n], slot), np.int64)
 
 
 def _sequence_hashes(bases: np.ndarray, lengths: np.ndarray) -> np.ndarray:

@@ -41,9 +41,12 @@ preprocessing refreshes ``ref`` from the rewritten read's new MD, as the
 upstream ``MdTag.moveAlignment(read, cigar)`` derives the reference from
 the read's current MD.  Everything else is bit-for-bit the JAX package's.
 
-Left out of this slice: the multi-device sweep fan-out (and with it the
-JAX package's "Realign: overlapped host work" timer, which times the
-host work it overlaps with the sweeps).
+``realign_indels(overlap_work=)`` runs the caller's host work (the
+streamed run's observe pass) between the sweeps' dispatch and their
+fetch, timed as "Realign: overlapped host work"; ``sweep_devices=`` fans
+the sweep chunks over pool slots (``parallel/device_pool.SweepSchedule``),
+each chunk on its slot's stream, fetched once per slot.  Neither changes a
+result.
 """
 
 from __future__ import annotations
@@ -585,7 +588,7 @@ def _sweep_gemm_P(off: int, rt: int) -> int:
 
 
 def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device,
-                 phase=None):
+                 phase=None, overlap=None, sweep_devices=None):
     """Sweep pair tiles -> one (best_q f32[n], best_o i32[n]) per tile.
 
     ``tiles`` is a list of (batch rows, consensus id): each tile sweeps
@@ -598,9 +601,19 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device,
     pairs.  Every read's result depends only on its own tile, so tiers
     and chunks change nothing but the padding.  Every chunk is dispatched
     before any is fetched; ``phase(label)``, when given, is called once
-    the dispatches are queued (the JAX package's sweep-dispatch timer)."""
+    the dispatches are queued (the JAX package's sweep-dispatch timer),
+    then ``overlap(in_dispatch)`` runs the caller's host work under the
+    queued sweeps, timed as "Realign: overlapped host work".  With
+    ``sweep_devices`` (two or more pool slots) each chunk goes to the next
+    slot of a :class:`~adam_tpu_torch.parallel.device_pool.SweepSchedule`
+    and each slot's results come home in one fetch per output."""
+    from adam_tpu_torch.parallel.device_pool import SweepSchedule, as_slot, putter
+    from adam_tpu_torch.utils.transfer import device_fetch
     if not tiles:
         return []
+    sched = (SweepSchedule(sweep_devices)
+             if sweep_devices is not None and len(sweep_devices) > 1 else None)
+    solo = as_slot(device)
     lengths = np.asarray(lengths).astype(np.int64)
     L = bases.shape[1]
     lr = _pow2(max(int(lengths.max()), 1), 32)
@@ -616,7 +629,7 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device,
     # intermediate 384 tier: WGS-shaped targets need 250-330 offsets
     p_offb = np.where((p_offb == 512) & (need <= 384), 384, p_offb)
     out: list = [None] * len(tiles)
-    pending = []  # (pair indices, lazy (best_q, best_o) on the device)
+    pending = []  # (pair indices, slot, lazy (best_q, best_o) on the slot)
     key = p_offb * 1024 + p_rt
     border = np.argsort(key, kind="stable")
     ukeys, ustarts = np.unique(key[border], return_index=True)
@@ -646,14 +659,35 @@ def _sweep_tiles(bases, quals, lengths, tiles, cons_mat, cons_lens, device,
                 cc = min(int(cons_lens[cid]), lc)
                 ct[j, :cc] = cons_mat[cid, :cc]
                 cl[j] = cons_lens[cid]
-            pending.append((part, sweep_gemm(
-                *(torch.from_numpy(a).to(device) for a in (rc, rq, rl, pm, ct, cl)),
-                off, rt, lr)))
+            slot = sched.next_device() if sched is not None else solo
+            put = putter(slot)
+            args = [put(a) for a in (rc, rq, rl, pm, ct, cl)]
+            with slot.scope():
+                pending.append((part, slot, sweep_gemm(*args, off, rt, lr)))
     if phase is not None:
         phase("Realign: sweep dispatch (host assembly)")
-    for part, (q, o) in pending:
-        q = q.cpu().numpy()
-        o = o.cpu().numpy()
+    if overlap is not None:
+        overlap(bool(pending))
+        if phase is not None:
+            phase("Realign: overlapped host work")
+    # one fetch per slot and output: each slot's chunks concatenated there
+    by_slot: dict = {}
+    for k, (_part, slot, _out) in enumerate(pending):
+        by_slot.setdefault(id(slot), (slot, []))[1].append(k)
+    fetched: dict = {}
+    for slot, idxs in by_slot.values():
+        with slot.scope():
+            cat_q = torch.cat([pending[k][2][0].reshape(-1) for k in idxs])
+            cat_o = torch.cat([pending[k][2][1].reshape(-1) for k in idxs])
+        gq, go = device_fetch(cat_q, slot), device_fetch(cat_o, slot)
+        pos = 0
+        for k in idxs:
+            pc, rtc = pending[k][2][0].shape
+            fetched[k] = (gq[pos:pos + pc * rtc].reshape(pc, rtc),
+                          go[pos:pos + pc * rtc].reshape(pc, rtc))
+            pos += pc * rtc
+    for k, (part, _slot, _out) in enumerate(pending):
+        q, o = fetched[k]
         for j, pi in enumerate(part):
             nrt = int(p_n[pi])
             out[pi] = (q[j, :nrt], o[j, :nrt])
@@ -832,6 +866,8 @@ def realign_indels(
     rng: Optional[random.Random] = None,
     target_mapping: str = "overlap",
     device: str = "cuda",
+    overlap_work=None,
+    sweep_devices=None,
 ) -> AlignmentDataset:
     """GATK-style local realignment (RealignIndels.realignTargetGroup).
 
@@ -844,23 +880,46 @@ def realign_indels(
     Smith-Waterman-aligns every read to its target's reference.  The
     sweeps and the Smith-Waterman fill run on ``device`` (default: the
     card).  ``target_mapping`` is :func:`map_batch_to_targets`' mode:
-    ``"overlap"`` (default) or the reference's ``"faithful"`` search."""
+    ``"overlap"`` (default) or the reference's ``"faithful"`` search.
+
+    ``overlap_work``: a zero-argument callable run once, after the sweeps
+    are dispatched and before their results are fetched (the streamed
+    run's observe pass hides there); whether it really ran under queued
+    sweeps is set on it as ``overlap_ran_in_dispatch`` (on the
+    ``smithwaterman`` path and the early outs it runs alone).
+    ``sweep_devices``: pool slots to fan the sweep chunks over (the
+    streamed run's pool or mesh slots); the output is the same."""
+    if overlap_work is not None:
+        orig_overlap = overlap_work
+        state = {"done": False}
+
+        def overlap_work(in_dispatch: bool = False):
+            if not state["done"]:
+                state["done"] = True
+                orig_overlap.overlap_ran_in_dispatch = bool(in_dispatch)
+                orig_overlap()
+
     if target_mapping not in TARGET_MAPPINGS:
         raise ValueError(f"target mapping {target_mapping!r}: one of {TARGET_MAPPINGS}")
     if consensus_model not in CONSENSUS_MODELS:
         raise ValueError(f"consensus_model {consensus_model!r}: one of {CONSENSUS_MODELS}")
     dev = resolve_device(device)
     if consensus_model == "smithwaterman":
+        if overlap_work is not None:
+            overlap_work()  # no queued sweeps to hide it under on this path
         return _realign_indels_py(
             ds, consensus_model, known_indels, max_indel_size,
             max_consensus_number, lod_threshold, max_target_size, sw_weights,
-            rng, target_mapping, device=dev,
+            rng, target_mapping, device=dev, sweep_devices=sweep_devices,
         )
-    return _realign_indels_native(
+    out = _realign_indels_native(
         ds, consensus_model, known_indels, max_indel_size,
         max_consensus_number, lod_threshold, max_target_size, rng, target_mapping,
-        device=dev,
+        device=dev, overlap_work=overlap_work, sweep_devices=sweep_devices,
     )
+    if overlap_work is not None:
+        overlap_work()  # a no-op unless an early out returned before it ran
+    return out
 
 
 def _known_consensuses(known_indels, name: str, ref_start: int, ref_end: int) -> list:
@@ -901,6 +960,7 @@ def _realign_indels_py(
     target_mapping: str = "overlap",
     *,
     device: torch.device,
+    sweep_devices=None,
 ) -> AlignmentDataset:
     """The Python realignment path (the JAX package's
     ``_realign_indels_py``), in three phases: (1) per target, rebuild the
@@ -1018,7 +1078,8 @@ def _realign_indels_py(
         for _t, to_clean, reference, _s, _e in prepared:
             ref_codes_t = schema.encode_bases(reference)
             pairs.extend((schema.encode_bases(r.seq), ref_codes_t) for r in to_clean)
-        alns = smith_waterman_many(pairs, *sw_weights, device=device)
+        alns = smith_waterman_many(pairs, *sw_weights, device=device,
+                                   sweep_devices=sweep_devices)
         k = 0
         for g, (_t, to_clean, _r, _s, _e) in enumerate(prepared):
             sw_alns[g] = alns[k:k + len(to_clean)]
@@ -1091,7 +1152,8 @@ def _realign_indels_py(
     # ---- phase 2: the sweeps -------------------------------------------
     cons_mat, cons_lens = _encode_consensuses(cons_strs)
     swept = _sweep_tiles(np.asarray(b.bases), np.asarray(b.quals), b.lengths,
-                         tiles, cons_mat, cons_lens, device)
+                         tiles, cons_mat, cons_lens, device,
+                         sweep_devices=sweep_devices)
     for (t, ci, lo), (q, o) in zip(tile_dst, swept):
         res_q, res_o = group_ctx[t][5], group_ctx[t][6]
         res_q[lo:lo + len(q), ci] = q
@@ -1248,6 +1310,8 @@ def _realign_indels_native(
     target_mapping: str = "overlap",
     *,
     device: torch.device,
+    overlap_work=None,
+    sweep_devices=None,
 ):
     """Same decisions as :func:`_realign_indels_py` under the ``reads``
     and ``knowns`` models (the JAX package's ``_realign_indels_native``),
@@ -1407,7 +1471,8 @@ def _realign_indels_native(
                     tile_res.append(base + lo)
         _phase("Realign: consensus + tiles")
         swept = _sweep_tiles(np.asarray(b.bases), np.asarray(b.quals), lengths,
-                             tiles, cons_mat, cons_lens, device, phase=_phase)
+                             tiles, cons_mat, cons_lens, device, phase=_phase,
+                             overlap=overlap_work, sweep_devices=sweep_devices)
         for rb, (q, o) in zip(tile_res, swept):
             res_q[rb:rb + len(q)] = q
             res_o[rb:rb + len(o)] = o

@@ -1,5 +1,6 @@
-"""The streamed markdup + realign + BQSR transform on one device — a
-lean counterpart of ``adam_tpu/pipelines/streamed.transform_streamed``.
+"""The streamed markdup + realign + BQSR transform on one device, a
+device pool or a mesh — the counterpart of
+``adam_tpu/pipelines/streamed.transform_streamed``.
 
 The input is tokenized in windows by an ingest thread while the main
 thread runs three passes with two global barriers:
@@ -22,9 +23,11 @@ thread runs three passes with two global barriers:
              window's apply + pack follows from the same dispatch.
   tail       realign the concatenated candidates (the sweeps, and under
              ``consensus_model="smithwaterman"`` the Smith-Waterman fill
-             ``sw_fill``, on the device), then observe the realigned part
-             as window ``n_windows`` with its post-realignment alignments
-             (markdup -> realign -> BQSR, the reference's composition).
+             ``sw_fill``, on the device), with pass B running between the
+             sweeps' dispatch and their fetch (``overlap_work``), then
+             observe the realigned part as window ``n_windows`` with its
+             post-realignment alignments (markdup -> realign -> BQSR, the
+             reference's composition).
   barrier 2  fetch and merge the histograms in window order, solve the
              recalibration table on the host (f64 numpy) unless a known
              table was given.
@@ -212,6 +215,9 @@ def transform_streamed(
     run_dir: Optional[str] = None,
     resume: bool = False,
     progress: Optional[str] = None,
+    devices: Optional[int] = None,
+    partitioner: Optional[str] = None,
+    device_pool=None,
     device: str = "cuda",
 ) -> dict:
     """Run the streamed markdup + realign + BQSR transform -> stats (stage
@@ -264,7 +270,26 @@ def transform_streamed(
     (``"stderr"`` or a file path; default ``ADAM_TPU_PROGRESS``, off when
     unset): one NDJSON line (``telemetry.HEARTBEAT_FIELDS``) every
     ``ADAM_TPU_PROGRESS_INTERVAL_S`` seconds and a last ``done`` line.
-    Telemetry changes no output byte and no kernel launch."""
+    Telemetry changes no output byte and no kernel launch.
+
+    Several devices, as in the JAX package: ``devices`` caps the device
+    pool (default every card, or ``ADAM_TPU_DEVICES``; capped at
+    ``torch.cuda.device_count()`` with a warning, so one card runs one
+    device); ``partitioner`` (``--partitioner`` / ``ADAM_TPU_PARTITIONER``)
+    is ``"pool"`` (default: window ``i`` on slot ``i % n``) or ``"mesh"``
+    (every window's rows split over the slots, the observe histograms
+    summed on the card, one table per grid width fetched at barrier 2).
+    ``device_pool`` (a ``parallel/device_pool.DevicePool`` or
+    ``PoolLease``) substitutes a pool of the caller's: the only way to run
+    two slots on one card, or CPU slots.  A slot that fails past its
+    retries is evicted and its windows replay on the others
+    (``device.pool.replay``); a mesh failure degrades to the pool
+    (``device.mesh.degraded``); losing every slot raises
+    ``AllDevicesEvicted``.  ``ADAM_TPU_AUDIT_RATE`` audits a sample of
+    pass-C windows against the plain version on the CPU (a mismatch
+    quarantines the slot and replays the window on another), and
+    ``ADAM_TPU_HEDGE_FACTOR`` hedges late ones.  The parts are the same
+    bytes on every device set."""
     tr = tele.Tracer(recording=True)
     trace = tele.mint_trace_id()
     tr.set_trace(trace)
@@ -281,7 +306,8 @@ def transform_streamed(
             max_consensus_number=max_consensus_number,
             lod_threshold=lod_threshold, max_target_size=max_target_size,
             dump_observations=dump_observations, known_table=known_table,
-            run_dir=run_dir, resume=resume, device=device,
+            run_dir=run_dir, resume=resume, devices=devices,
+            partitioner=partitioner, device_pool=device_pool, device=device,
         )
     except BaseException:
         # a crashed run's last heartbeat line carries ok=false
@@ -292,26 +318,91 @@ def transform_streamed(
         tele.deactivate_trace(trace)
 
 
+def _inflight_per_device(queues: list, solo_key: str) -> dict:
+    """Heartbeat provider body: in-flight depth per slot id (the solo
+    path's one device under its key), sampled from the live deques whose
+    items carry the slot at index 1."""
+    from adam_tpu_torch.parallel.device_pool import Slot
+
+    per: dict = {}
+    for dq in queues:
+        try:
+            items = list(dq)
+        except RuntimeError:
+            continue
+        for item in items:
+            slot = item[1]
+            if isinstance(slot, Slot):
+                key = str(slot.id) if slot.attributed else solo_key
+            else:  # the mesh partitioner
+                key = "mesh"
+            per[key] = per.get(key, 0) + 1
+    return per
+
+
+def _where_attrs(where) -> dict:
+    """Span attrs of a dispatch on a pool slot, or on the mesh."""
+    from adam_tpu_torch.parallel import device_pool as dp
+
+    return dp.span_attrs(where) if isinstance(where, dp.Slot) else {"device": "mesh"}
+
+
 def _transform_streamed_impl(
     path, out_path, tr: tele.Tracer, hb, *, mark_duplicates, recalibrate,
     realign, known_snps, known_indels, consensus_model, window_reads,
     compression, n_writers, max_indel_size, max_consensus_number,
     lod_threshold, max_target_size, dump_observations, known_table, run_dir,
-    resume, device,
+    resume, devices, partitioner, device_pool, device,
 ) -> dict:
-    from adam_tpu_torch.convert import table_from_numpy
     from adam_tpu_torch.io.parquet import (
         PartWriterPool, part_index, part_path, purge_stale_staging,
     )
+    from adam_tpu_torch.parallel import device_pool as dp
+    from adam_tpu_torch.parallel import partitioner as part_mod
     from adam_tpu_torch.parallel.device_pool import ResidentWindow
     from adam_tpu_torch.pipelines import bqsr
     from adam_tpu_torch.pipelines import markdup as md
     from adam_tpu_torch.pipelines import realign as ra
     from adam_tpu_torch.pipelines.checkpoint import RunJournal
+    from adam_tpu_torch.utils import health as health_mod
 
     t_start_ns = time.monotonic_ns()
-    dev = resolve_device(device)
+    # ---- the device set: one device, a pool of slots, or a mesh --------
+    # a shared pool (the library seam; a two-slot pool on one card is
+    # built only here) substitutes for the run's own
+    if device_pool is not None:
+        dpool = device_pool
+        dev = dpool.devices[0].device
+    else:
+        dev = resolve_device(device)
+        dpool = dp.make_pool(devices, dev)
     dkey = device_key(dev)
+    solo = dp.solo_slot(dev)
+    stats: dict = {"device": str(dev), "resume.refused": 0,
+                   "resume.windows_skipped": 0, "resume.histograms_loaded": 0}
+    stats["n_devices"] = dpool.n if dpool is not None else 1
+    # the card's kernels, or their plain versions on the CPU (the port has
+    # no switch that would put a plain version on the card)
+    stats["kernel_backend"] = "cuda" if dev.type == "cuda" else "plain"
+    tr.gauge(tele.G_KERNEL_BACKEND, 1 if dev.type == "cuda" else 0)
+    tr.gauge(tele.G_POOL_DEVICES, stats["n_devices"])
+    # health, hedging and the SDC audit (utils/health.py): placement skips
+    # probation slots; pass C hedges a late window past
+    # ADAM_TPU_HEDGE_FACTOR x the apply's p99 and audits a deterministic
+    # ADAM_TPU_AUDIT_RATE of windows against the plain version on the CPU
+    health_board = health_mod.BOARD
+    sdc_audit_rate = health_mod.audit_rate()
+    stats["audit_rate"] = sdc_audit_rate
+    exec_mode = part_mod.resolve_execution_mode(partitioner)
+    mesh_part = None
+    if exec_mode == "mesh":
+        mesh_slots = (list(dpool.devices) if dpool is not None
+                      else dp.make_slots([dev] * dp.resolve_device_count(devices, dev)))
+        mesh_part = part_mod.MeshPartitioner(
+            part_mod.healthy_subset(mesh_slots, health_board))
+    exec_state = {"mesh": mesh_part, "mode": "mesh" if mesh_part is not None else "pool"}
+    stats["partitioner"] = exec_state["mode"]
+
     if known_indels is not None and consensus_model == "reads":
         # known indels imply the knowns consensus model (the reference's
         # -known_indels semantics)
@@ -320,16 +411,17 @@ def _transform_streamed_impl(
         max_indel_size, max_consensus_number, lod_threshold, max_target_size
     )
     launches0 = kernels.launches()
-    stats: dict = {"device": str(dev), "resume.refused": 0,
-                   "resume.windows_skipped": 0, "resume.histograms_loaded": 0}
     # the in-flight deques of pass A and pass C, sampled by the heartbeat
     inflight: list = []
     if hb is not None:
         # the HBM keys match the device= attribution of the spans
-        hb.set_devices([dev])
+        hb.set_devices(sorted({s.device for s in (
+            mesh_part.devices if mesh_part is not None
+            else dpool.devices if dpool is not None else [solo])}, key=str))
         hb.set_provider(lambda: {
-            "inflight_per_device": {dkey: sum(len(q) for q in inflight)},
-            "partitioner": "pool",
+            "inflight_per_device": _inflight_per_device(inflight, dkey),
+            # the live mode: a degraded mesh run reports "pool" from then on
+            "partitioner": exec_state["mode"],
         })
     os.makedirs(out_path, exist_ok=True)
     # a killed run leaves its torn files only in the staging directory
@@ -344,24 +436,235 @@ def _transform_streamed_impl(
             max_target_size=mts, known_snps=known_snps,
             known_indels=known_indels, known_table=known_table,
         ), out_path, resume=resume, stats=stats, tracer=tr)
-    known_dev = None
+    known_np = None
     if recalibrate and known_table is not None:
-        known_dev = table_from_numpy(known_table[0]).to(dev)
+        known_np = np.ascontiguousarray(known_table[0], np.uint8)
     # the fused B->C tier: with the applied table known before pass B (a
     # known table, or the journaled table of a -dump_observations resume,
     # which observes again only for the CSV), each eligible window's
     # observe and apply + pack run back to back
-    fused_dev = None
+    fused_np = None
     if recalibrate and bqsr.fused_bc_enabled():
-        if known_dev is not None:
-            fused_dev = known_dev
+        if known_np is not None:
+            fused_np = known_np
         elif journal is not None and journal.resumed and dump_observations:
             lt = journal.load_table()
             if lt is not None:
-                fused_dev = table_from_numpy(lt[0]).to(dev)
+                fused_np = np.ascontiguousarray(lt[0], np.uint8)
+    fused_tables: dict = {}  # slot key or "mesh" -> the fused table placed there
+
+    def placed(table_np, where, cache):
+        """``table_np`` on a slot (or one copy per shard of the mesh),
+        placed once per run and cached under its key in ``cache``."""
+        key = "mesh" if where == "mesh" else where.key
+        t = cache.get(key)
+        if t is None:
+            with tele.pass_scope("table"):
+                t = (exec_state["mesh"].put_replicated(table_np) if where == "mesh"
+                     else dp.putter(where)(table_np))
+            cache[key] = t
+        return t
+
+    def fused_table_on(where):
+        return placed(fused_np, where, fused_tables)
+
+    # window idx -> (slot | "mesh", apply handle) of a fused dispatch
     fused_handles: dict = {}
-    stats["fused_bc"] = fused_dev is not None
-    tr.gauge(tele.G_FUSED_BC, 1 if fused_dev is not None else 0)
+    stats["fused_bc"] = fused_np is not None
+    tr.gauge(tele.G_FUSED_BC, 1 if fused_np is not None else 0)
+
+    # ---- resident windows: registry and lifecycle ----------------------
+    resident_map: dict = {}
+    resident_live = {"bytes": 0, "made": 0}
+
+    def pick_slot(win):
+        """Window ``win``'s slot (raises AllDevicesEvicted when none is
+        left)."""
+        return dpool.device(win) if dpool is not None else solo
+
+    def make_resident(win, ds):
+        """Place window ``win``'s payload once (on its slot, or as the
+        mesh's row blocks) and register it."""
+        b = ds.batch.to_numpy()
+        mp = exec_state["mesh"]
+        with tele.pass_scope("ingest"):
+            if mp is not None:
+                rw = part_mod.mesh_resident_window(b, win, mp)
+            else:
+                rw = ResidentWindow.place(b, pick_slot(win), window=win)
+        resident_map[win] = rw
+        resident_live["bytes"] += rw.nbytes
+        resident_live["made"] += 1
+        tr.count(tele.C_RESIDENT_WINDOWS)
+        tr.count(tele.C_RESIDENT_BYTES, rw.nbytes)
+        tr.gauge(tele.G_RESIDENT_LIVE, resident_live["bytes"])
+
+    def release_resident(win, drop=False):
+        rw = resident_map.pop(win, None)
+        if rw is None:
+            return
+        rw.release()
+        resident_live["bytes"] -= rw.nbytes
+        tr.count(tele.C_RESIDENT_EVICTED if drop else tele.C_RESIDENT_RELEASED)
+        tr.gauge(tele.G_RESIDENT_LIVE, resident_live["bytes"])
+
+    def drop_resident_on(where):
+        for win, rw in list(resident_map.items()):
+            if rw.slot is where:
+                release_resident(win, drop=True)
+
+    def resident_on(win, ds, slot):
+        """Window ``win``'s resident payload on ``slot``: the registered
+        one when it lives there, else a fresh placement from the host copy
+        (a replay or a degrade re-ships)."""
+        rw = resident_map.get(win)
+        if rw is not None and rw.alive and rw.slot is slot:
+            return rw
+        return ResidentWindow.place(ds.batch.to_numpy(), slot, window=win)
+
+    def evict_or_raise(slot, exc):
+        """A slot failed past its retries: evict it (its resident windows go
+        with it).  Raises when it was the last one: the port does not carry
+        on on the CPU (``AllDevicesEvicted``; without a pool, the error)."""
+        drop_resident_on(slot)
+        if dpool is None:
+            raise exc
+        dpool.evict(slot, reason=str(exc), tracer=tr)
+        if not dpool.alive_devices():
+            raise dp.AllDevicesEvicted(
+                f"all {dpool.n} pool slots evicted (last: {exc})") from exc
+
+    def on_survivors(win, fn):
+        """THE recovery loop of every dispatch and replay site: ``fn(slot)``
+        on window ``win``'s slot; on a failure (transient ones were retried
+        inside) the slot is evicted and the window replays on the next
+        survivor, under a ``device.pool.replay`` span attributed to the
+        failed slot."""
+        slot = pick_slot(win)
+        try:
+            return fn(slot)
+        except dp.AllDevicesEvicted:
+            raise
+        except Exception as e:
+            failed, exc = slot, e
+        while True:
+            with tr.span(tele.SPAN_POOL_REPLAY, window=win, **dp.span_attrs(failed)), \
+                    dp.replay_scope():
+                evict_or_raise(failed, exc)
+                slot = pick_slot(win)
+                try:
+                    return fn(slot)
+                except dp.AllDevicesEvicted:
+                    raise
+                except Exception as e:
+                    failed, exc = slot, e
+
+    # windows folded into the mesh's accumulator (replayed on a degrade)
+    mesh_obs: list = []
+    obs_parts: list = []
+    obs_replays: list = []
+    obs_windows: list = []
+    obs_slots: list = []
+
+    def add_part(win, got):
+        (t, m, g), replay, slot = got
+        obs_parts.append((t, m, g))
+        obs_replays.append(replay)
+        obs_windows.append(win)
+        obs_slots.append(slot)
+
+    def mesh_degrade(exc, where=""):
+        """The mesh failed past its retries: run the rest of the run on the
+        pool (or the one device), byte-identically; the windows already in
+        the accumulator replay through the pool's observe."""
+        mp = exec_state["mesh"]
+        if mp is None:
+            return
+        exec_state["mesh"] = None
+        exec_state["mode"] = "pool"
+        stats["partitioner"] = "pool"
+        for win, rw in list(resident_map.items()):
+            if rw.slot == "mesh":
+                release_resident(win, drop=True)
+        for i in [i for i, (tag, _h) in fused_handles.items() if tag is mp]:
+            del fused_handles[i]
+        fused_tables.pop("mesh", None)
+        tr.count(tele.C_MESH_DEGRADED)
+        log.error("mesh partitioner failed%s (%s); degrading to the pool path%s",
+                  f" at {where}" if where else "", exc,
+                  f" and replaying {len(mesh_obs)} accumulated window(s)"
+                  if mesh_obs else "")
+        mp.reset_accumulator()
+        if mesh_obs:
+            with tr.span(tele.SPAN_POOL_REPLAY, device="mesh"), dp.replay_scope():
+                for i, w in list(mesh_obs):
+                    got = observe_window(i, w)
+                    if got is not None:
+                        add_part(i, got)
+            mesh_obs.clear()
+
+    # ---- prewarm: the kernel set on every slot before its first window --
+    seen_shapes: set = set()
+
+    def prewarm_window_shapes(ds):
+        """First sight of a grid shape: run its kernel set on every slot (or
+        the mesh) outside the timed windows.  Nothing on one device."""
+        mp = exec_state["mesh"]
+        if mp is None and dpool is None:
+            return
+        b = ds.batch.to_numpy()
+        from adam_tpu_torch.formats.batch import grid_cigar_cols, grid_cols, grid_rows
+
+        key = (grid_rows(b.n_rows), grid_cols(b.lmax),
+               grid_cigar_cols(b.cigar_ops.shape[1] if b.cigar_ops.ndim == 2 else 1),
+               exec_state["mode"])
+        if key in seen_shapes:
+            return
+        seen_shapes.add(key)
+        n_rg = len(ds.read_groups) + 1
+        fused_cyc = fused_np.shape[2] if fused_np is not None else None
+        t_pw = time.monotonic_ns()
+        try:
+            if mp is not None:
+                entries = []
+                if mark_duplicates:
+                    entries.append(part_mod.mesh_markdup_prewarm_entry(b, mp))
+                if recalibrate:
+                    entries.append(part_mod.mesh_observe_prewarm_entry(b, n_rg, mp))
+                    if fused_cyc is not None:
+                        entries.append(part_mod.mesh_fused_bc_prewarm_entry(
+                            b, n_rg, fused_cyc, mp))
+                mp.prewarm(entries, tracer=tr)
+            else:
+                dpool.prewarm(dp.streamed_prewarm_entries(
+                    b, n_rg, mark_duplicates=mark_duplicates,
+                    recalibrate=recalibrate, fused_n_cyc=fused_cyc), tracer=tr)
+        finally:
+            tr.add_span(tele.SPAN_POOL_PREWARM, t_pw, time.monotonic_ns() - t_pw)
+
+    def prewarm_observe_shape(ds):
+        """The realigned part's grid, before its observe."""
+        mp = exec_state["mesh"]
+        if not recalibrate or (mp is None and dpool is None):
+            return
+        b = ds.batch.to_numpy()
+        n_rg = len(ds.read_groups) + 1
+        fused_cyc = fused_np.shape[2] if fused_np is not None else None
+        t_pw = time.monotonic_ns()
+        try:
+            if mp is not None:
+                entries = [part_mod.mesh_observe_prewarm_entry(b, n_rg, mp)]
+                if fused_cyc is not None:
+                    entries.append(part_mod.mesh_fused_bc_prewarm_entry(
+                        b, n_rg, fused_cyc, mp))
+                mp.prewarm(entries, tracer=tr)
+            else:
+                entries = [dp.observe_prewarm_entry(b, n_rg)]
+                if fused_cyc is not None:
+                    entries.append(dp.fused_bc_prewarm_entry(b, n_rg, fused_cyc))
+                dpool.prewarm(entries, tracer=tr)
+        finally:
+            tr.add_span(tele.SPAN_POOL_PREWARM, t_pw, time.monotonic_ns() - t_pw)
 
     # ---- pass A: ingest || resident placement + markdup columns --------
     in_q: queue.Queue = queue.Queue(maxsize=3)
@@ -372,19 +675,58 @@ def _transform_streamed_impl(
     )
     ingest.start()
     windows: list[AlignmentDataset] = []
-    resident: list = []
     summaries: list[dict] = []
     events: list = []
-    pend_cols: deque = deque()
+    # a double buffer per slot (2n): round-robin keeps the drain order the
+    # window order, so the summaries stay window-ordered
+    md_depth = 2 if dpool is None else 2 * dpool.n
+    pend_cols: deque = deque()  # (win, slot | "mesh", lazy cols)
     inflight.append(pend_cols)
     header = None
     n_reads = 0
 
-    def summarize(win, cols):
-        five, score = cols
-        with tr.span(tele.SPAN_MD_FETCH):
-            five = five.cpu().numpy()
-            score = score.cpu().numpy()
+    def md_dispatch(win, batch):
+        """Dispatch window ``win``'s markdup reductions -> (slot | "mesh",
+        lazy cols), the mesh degrading to the pool on a failure."""
+        mp = exec_state["mesh"]
+        if mp is not None:
+            try:
+                cols = md.markdup_columns(batch, resident_map[win], mesh=mp)
+                tr.count(tele.C_DEVICE_DISPATCHED)
+                tr.count(tele.C_MESH_DISPATCHED)
+                return mp, cols
+            except Exception as e:
+                mesh_degrade(e, "pass-A markdup")
+
+        def on_slot(slot):
+            cols = md.markdup_columns(batch, resident_on(win, windows[win], slot))
+            tr.count(tele.C_DEVICE_DISPATCHED)
+            return slot, cols
+
+        return on_survivors(win, on_slot)
+
+    def summarize(win, where, cols):
+        n = windows[win].batch.n_rows
+        while True:
+            on_mesh = not isinstance(where, dp.Slot)
+            try:
+                with tr.span(tele.SPAN_MD_FETCH):
+                    five, score = md.fetch_columns(
+                        cols, n, slot=None if on_mesh else where,
+                        mesh=where if on_mesh else None)
+                break
+            except dp.AllDevicesEvicted:
+                raise
+            except Exception as e:
+                # the fetch failed past the transfer layer's retries: evict
+                # the slot (or abandon the mesh) and replay the reductions
+                with tr.span(tele.SPAN_POOL_REPLAY, window=win,
+                             **_where_attrs(where)), dp.replay_scope():
+                    if on_mesh:
+                        mesh_degrade(e, "pass-A markdup fetch")
+                    else:
+                        evict_or_raise(where, e)
+                    where, cols = md_dispatch(win, windows[win].batch)
         tr.count(tele.C_DEVICE_FETCHED)
         summaries.append(md.row_summary(windows[win], five, score))
 
@@ -408,14 +750,14 @@ def _transform_streamed_impl(
                 # one arrival per pass-A window, before its device work
                 # (where the JAX package arrives)
                 faults.point("proc.kill", device="pass_a")
-                resident.append(ResidentWindow.place(batch, dev))
+                prewarm_window_shapes(windows[win])
+                make_resident(win, windows[win])
                 if mark_duplicates:
-                    # double buffer: window i's reductions run on the device
-                    # while window i-1's columns are fetched and summarized
-                    pend_cols.append((win, md.markdup_columns(batch, resident[win])))
-                    tr.count(tele.C_DEVICE_DISPATCHED)
+                    # window i's reductions run on its slot while earlier
+                    # windows' columns are fetched and summarized
+                    pend_cols.append((win,) + md_dispatch(win, batch))
                     tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend_cols))
-                    if len(pend_cols) >= 2:
+                    if len(pend_cols) >= md_depth:
                         summarize(*pend_cols.popleft())
                 if realign:
                     events.append(ra.extract_indel_event_arrays(batch, max_indel_size=mis))
@@ -446,9 +788,13 @@ def _transform_streamed_impl(
     # ---- barrier 1: resolve duplicates, merge realignment targets -----
     with tr.span(tele.SPAN_RESOLVE), tele.pass_scope("resolve"):
         if mark_duplicates and summaries:
-            # the lexsort of the packed summary keys runs on the device
+            # the lexsort of the packed summary keys runs on the device: the
+            # mesh's first slot, the pool's first placeable one, or the one
+            mp = exec_state["mesh"]
+            sort_slot = (mp.devices[0] if mp is not None
+                         else dpool.alive_devices()[0] if dpool is not None else solo)
             tr.gauge(tele.G_RESOLVE_DEVICE_SORT, 1)
-            dup = md.resolve_duplicates(md.concat_summaries(summaries), device=dev)
+            dup = md.resolve_duplicates(md.concat_summaries(summaries), device=sort_slot)
             off = 0
             for i, w in enumerate(windows):
                 b = w.batch.to_numpy()
@@ -487,39 +833,96 @@ def _transform_streamed_impl(
         resume_table = journal.load_table()
 
     # ---- pass B: observe every window (histograms stay on the device) --
-    def observe(i, w):
-        """Observe window ``i`` -> its histograms: a journaled sidecar's
-        host arrays, else lazy device tensors (fused with the window's
-        apply + pack when the tier is armed, the window eligible and its
-        part still to write)."""
+    def obs_replay(i, w, slot):
+        """Recovery hook for window i's barrier fetch: evict the slot that
+        held its histograms and observe again on a survivor -> host parts."""
+        from adam_tpu_torch.utils.transfer import device_fetch
+
+        def on_slot(nd):
+            t, m, g = bqsr.observe_window(w, resident_on(i, w, nd), known_snps)
+            return device_fetch(t, nd), device_fetch(m, nd), g
+
+        def replay(exc):
+            with tr.span(tele.SPAN_POOL_REPLAY, window=i, **dp.span_attrs(slot)), \
+                    dp.replay_scope():
+                evict_or_raise(slot, exc)
+                return on_survivors(i, on_slot)
+
+        return replay
+
+    def observe_window(i, w):
+        """Observe window ``i`` -> ((total, mism, g), replay hook, slot), or
+        None when its histograms went into the mesh's accumulator.  A
+        journaled sidecar loads instead; with the fused tier armed (and the
+        window's part still to write) the window's apply + pack follows from
+        the same dispatch."""
         if journal is not None and journal.resumed:
             got = journal.load_observation(i)
             if got is not None:
                 stats["resume.histograms_loaded"] += 1
                 tr.count(tele.C_RESUME_HISTOGRAMS_LOADED)
-                return got
-        tr.count(tele.C_DEVICE_DISPATCHED)
-        if fused_dev is not None and i not in done_parts:
-            faults.point("proc.kill", device="fused_bc")
-            got = bqsr.fused_bc_dispatch(w, fused_dev, resident[i], known_snps)
+                return got, None, None
+        fused_ok = fused_np is not None and i not in done_parts
+        mp = exec_state["mesh"]
+        if mp is not None:
+            rw = resident_map.get(i)
+            if rw is None or not rw.alive or rw.slot != "mesh":
+                make_resident(i, w)
+                rw = resident_map[i]
+            try:
+                with tele.pass_scope("observe"):
+                    got = None
+                    if fused_ok:
+                        faults.point("proc.kill", device="fused_bc")
+                        got = bqsr.fused_bc_dispatch(w, fused_table_on("mesh"), rw,
+                                                     known_snps, mesh=mp)
+                    if got is not None:
+                        handle, (t, m, g) = got
+                    else:
+                        t, m, g = bqsr.observe_window(w, rw, known_snps, mesh=mp)
+                    mp.accumulate(t, m, g)
+            except Exception as e:
+                mesh_degrade(e, "pass-B observe")
+            else:
+                mesh_obs.append((i, w))
+                tr.count(tele.C_DEVICE_DISPATCHED)
+                tr.count(tele.C_MESH_DISPATCHED)
+                if got is not None:
+                    tr.count(tele.C_FUSED_DISPATCHED)
+                    fused_handles[i] = (mp, handle)
+                return None
+
+        def on_slot(slot):
+            rw = resident_on(i, w, slot)
+            got = None
+            if fused_ok:
+                faults.point("proc.kill", device="fused_bc")
+                got = bqsr.fused_bc_dispatch(w, fused_table_on(slot), rw, known_snps)
+            tr.count(tele.C_DEVICE_DISPATCHED)
             if got is not None:
                 tr.count(tele.C_FUSED_DISPATCHED)
-                fused_handles[i] = got[0]
-                return got[1]
-        return bqsr.observe_window(w, resident[i], known_snps)
+                fused_handles[i] = (slot, got[0])
+                return got[1], obs_replay(i, w, slot), slot
+            return bqsr.observe_window(w, rw, known_snps), obs_replay(i, w, slot), slot
 
-    obs_parts: list = []
-    obs_windows: list = []
-    with tr.span(tele.SPAN_OBSERVE):
-        if recalibrate and resume_table is None:
-            with tele.pass_scope("observe"):
-                for i, w in enumerate(windows):
-                    if window_valid[i]:
-                        faults.point("proc.kill", device="pass_b")
-                        obs_parts.append(observe(i, w))
-                        obs_windows.append(i)
+        with tele.pass_scope("observe"):
+            return on_survivors(i, on_slot)
 
-    # ---- tail: realign the candidates, observe the realigned part ------
+    def observe_remainders():
+        """Pass B over every window with rows left: the realign's overlap
+        work, run between its sweeps' dispatch and their fetch."""
+        if not recalibrate or resume_table is not None:
+            return
+        with tr.span(tele.SPAN_OBSERVE):
+            for i, w in enumerate(windows):
+                if window_valid[i]:
+                    faults.point("proc.kill", device="pass_b")
+                    got = observe_window(i, w)
+                    if got is not None:
+                        add_part(i, got)
+
+    # ---- tail: realign the candidates (observing under the sweeps), then
+    # observe the realigned part ----------------------------------------
     # resume fast path: a journaled realigned part whose contribution to
     # the table is recoverable (the table itself, or its sidecar) skips
     # the candidate realign; the sidecar is loaded, not only probed, so
@@ -529,6 +932,7 @@ def _transform_streamed_impl(
     realigned = None
     r_obs = None
     skip_realign = False
+    hidden = False
     if candidates and journal is not None and journal.resumed and n_win in done_parts:
         if not recalibrate or resume_table is not None:
             skip_realign = True
@@ -540,46 +944,65 @@ def _transform_streamed_impl(
         cand = AlignmentDataset.concat(candidates)
         del candidates
         tr.count(tele.C_CANDIDATE_ROWS, int(cand.batch.n_rows))
+        mp = exec_state["mesh"]
+        sweep_slots = (mp.devices if mp is not None
+                       else dpool.alive_devices() if dpool is not None else None)
+        if sweep_slots is not None and len(sweep_slots) < 2:
+            sweep_slots = None
         with tele.pass_scope("sweep"):
             realigned = ra.realign_indels(
                 cand, consensus_model=consensus_model, known_indels=known_indels,
                 max_indel_size=mis, max_consensus_number=mcn, lod_threshold=lod,
-                max_target_size=mts, device=dev,
+                max_target_size=mts, device=dev, overlap_work=observe_remainders,
+                sweep_devices=sweep_slots,
             )
+        hidden = bool(getattr(observe_remainders, "overlap_ran_in_dispatch", False))
         stats["n_realigned"] = _n_moved(cand.batch, realigned.batch)
         del cand
+        if recalibrate and realigned.batch.n_rows and resume_table is None:
+            prewarm_observe_shape(realigned)
+            make_resident(n_win, realigned)
+            got = observe_window(n_win, realigned)
+            if got is not None:
+                add_part(n_win, got)
     else:
         del candidates  # none, or their journaled part needs no realign
-    if realigned is not None:
-        # the realigned part is a window too: placed once, it serves both
-        # its observe and its pass-C apply
-        resident.append(ResidentWindow.place(realigned.batch, dev))
-        if recalibrate and resume_table is None:
-            with tele.pass_scope("observe"):
-                obs_parts.append(observe(n_win, realigned))
-            obs_windows.append(n_win)
-    elif r_obs is not None:
-        # spliced in at its window-plan position: the same merge order as
-        # the uninterrupted run
-        stats["resume.histograms_loaded"] += 1
-        tr.count(tele.C_RESUME_HISTOGRAMS_LOADED)
-        obs_parts.append(r_obs)
-        obs_windows.append(n_win)
+        observe_remainders()
+        if r_obs is not None:
+            # spliced in at its window-plan position: the same merge order
+            # as the uninterrupted run
+            stats["resume.histograms_loaded"] += 1
+            tr.count(tele.C_RESUME_HISTOGRAMS_LOADED)
+            add_part(n_win, (r_obs, None, None))
     tr.add_span(tele.SPAN_TAIL, t_tail_ns, time.monotonic_ns() - t_tail_ns)
-    # the port observes the windows before the realign, never under its
-    # sweeps: realign_s is the whole tail
-    tr.gauge(tele.G_OBSERVE_HIDDEN, 0)
+    tr.gauge(tele.G_OBSERVE_HIDDEN, 1 if hidden else 0)
+    stats["observe_overlap_hidden"] = hidden
     stats["n_fused_windows"] = len(fused_handles)
 
     # ---- barrier 2: merge histograms, solve the table ------------------
     # (a known table is applied as it is, with its own gl: the merge still
     # runs for the sidecars and the observation dump, the solve does not)
-    table_dev = known_dev
+    table = None
+    gl = 0
+    mp_b2 = exec_state["mesh"]
+    have_acc = mp_b2 is not None and mp_b2.has_accumulated()
     if resume_table is not None:
-        table_dev = table_from_numpy(resume_table[0]).to(dev)
+        table = np.ascontiguousarray(resume_table[0], np.uint8)
+        gl = int(resume_table[1])
         tr.add_span(tele.SPAN_SOLVE, time.monotonic_ns(), 0)
-    elif obs_parts:
+    elif recalibrate and (obs_parts or have_acc):
         faults.point("proc.kill", device="barrier2")
+        if have_acc:
+            # the mesh's payoff: one merged table per grid width comes home
+            try:
+                with tele.pass_scope("observe"):
+                    acc_parts = mp_b2.fetch_accumulated(tr)
+                tr.count(tele.C_DEVICE_FETCHED, len(acc_parts))
+                mesh_obs.clear()
+                for tt, mm, g_acc in acc_parts:
+                    add_part(None, ((tt, mm, int(g_acc)), None, None))
+            except Exception as e:
+                mesh_degrade(e, "barrier-2 accumulator fetch")
 
         def persist(win, tt, mm, g):
             # best-effort: the sidecars only speed a resume up, and a
@@ -595,21 +1018,22 @@ def _transform_streamed_impl(
             total, mism, gl = bqsr.merge_observations(
                 obs_parts, window_ids=obs_windows,
                 on_part=persist if journal is not None else None, tracer=tr,
+                slots=obs_slots, replays=obs_replays,
             )
         if n_dev_parts:
             tr.count(tele.C_DEVICE_FETCHED, n_dev_parts)
         obs_parts.clear()
+        obs_replays.clear()
         with tr.span(tele.SPAN_SOLVE):
             if dump_observations:
                 bqsr.dump_observation_csv(
                     total, mism, header.read_groups.names + ["null"], gl,
                     dump_observations,
                 )
-            if known_dev is None:
+            if known_np is None:
                 table = bqsr.solve_recalibration_table(total, mism)
-                table_dev = torch.from_numpy(table).to(dev)
             else:
-                table, gl = known_dev.cpu().numpy(), int(known_table[1])
+                table, gl = known_np, int(known_table[1])
         if journal is not None:
             try:
                 journal.save_table(table, gl)
@@ -618,6 +1042,8 @@ def _transform_streamed_impl(
         # the table is journaled: a resume from here goes into pass C
         faults.point("proc.kill", device="barrier2")
     else:
+        if known_np is not None:
+            table, gl = known_np, int(known_table[1])
         tr.add_span(tele.SPAN_SOLVE, time.monotonic_ns(), 0)
 
     # ---- pass C: apply + pack || encode || part writes -----------------
@@ -636,8 +1062,7 @@ def _transform_streamed_impl(
     for i in range(len(windows)):
         if i not in keep:
             windows[i] = None
-            if i < len(resident):
-                resident[i] = None
+            release_resident(i)
             fused_handles.pop(i, None)
     stats["windows_fresh"] = len(parts)
     if hb is not None:
@@ -657,51 +1082,241 @@ def _transform_streamed_impl(
         tracer=tr,
     )
 
-    def submit(i, *args):
+    def submit(i, done):
         faults.point("proc.kill", device="pass_c")
-        pool.submit(part_path(out_path, i), *args)
+        pool.submit(part_path(out_path, i), *_submit_args(done))
+        release_resident(i)
+        windows[i] = None  # free as we go
 
-    pend: deque = deque()
+    dev_tables: dict = {}  # slot key -> the table placed on that slot
+
+    def table_on(slot):
+        return placed(table, slot, dev_tables)
+
+    def apply_on(i, w, slot):
+        """Dispatch + fetch window ``i``'s apply on ``slot`` synchronously
+        (a replay, a hedge, an audit's second opinion)."""
+        with tr.span(tele.SPAN_APPLY_DISPATCH, window=i, **dp.span_attrs(slot)):
+            h = bqsr.apply_dispatch(w, resident_on(i, w, slot), table_on(slot))
+        tr.count(tele.C_DEVICE_DISPATCHED)
+        return bqsr.apply_finish(h)
+
+    def replay_apply(i, where, w, exc):
+        """Window ``i``'s apply died on ``where``: evict it (or abandon the
+        mesh) and run the window again on a survivor."""
+        with tr.span(tele.SPAN_POOL_REPLAY, window=i, **_where_attrs(where)), \
+                dp.replay_scope():
+            if not isinstance(where, dp.Slot):
+                mesh_degrade(exc, "pass-C apply")
+            else:
+                evict_or_raise(where, exc)
+            return on_survivors(i, lambda nd: apply_on(i, w, nd))
+
+    def audit(i, prod, w, done):
+        """The SDC audit of a sampled window: its published bytes against
+        the plain PyTorch version on the CPU (used for the comparison only,
+        never published).  A mismatch quarantines the producing slot (its
+        resident windows drop) and replays the window on another slot of
+        the card, audited again; with no healthy slot left the run raises."""
+        tr.count(tele.C_AUDIT_SAMPLED)
+        attrs = _where_attrs(prod)
+        with tr.span(tele.SPAN_AUDIT_CHECK, window=i, **attrs):
+            ref = bqsr.apply_reference(w, table)
+            ok = bqsr.packed_equal(done[1], ref)
+        if ok:
+            return done
+        tr.count(tele.C_AUDIT_MISMATCH)
+        log.error("SDC audit: window %d's card result does not match the CPU "
+                  "recompute; quarantining %s and replaying the window", i,
+                  f"slot {prod.key}" if isinstance(prod, dp.Slot) else "the mesh")
+        if not isinstance(prod, dp.Slot):
+            mesh_degrade(RuntimeError(f"sdc audit mismatch on window {i}"),
+                         "pass-C audit")
+        else:
+            health_board.quarantine(prod, reason=f"sdc audit mismatch on window {i}",
+                                    tracer=tr)
+            drop_resident_on(prod)
+        others = ([s for s in dpool.alive_devices()
+                   if s is not prod and not health_board.blocked(s)]
+                  if dpool is not None else [])
+        if not others:
+            raise dp.AllDevicesEvicted(
+                f"SDC audit mismatch on window {i} and no healthy slot left "
+                "to replay it on")
+        nd = others[i % len(others)]
+        with tr.span(tele.SPAN_POOL_REPLAY, window=i, **attrs), dp.replay_scope():
+            again = apply_on(i, w, nd)
+        return audit(i, nd, w, again)
+
+    def finish_checked(i, where, h):
+        """Fetch a dispatched window (hedged on a pool with a hedge
+        threshold), replay it on a failure, audit it when due."""
+        w = bqsr.apply_handle_dataset(h)
+        thr = None
+        on_slot = isinstance(where, dp.Slot)
+        if dpool is not None and on_slot and len(dpool.alive_devices()) > 1:
+            thr = health_board.hedge_threshold("bqsr.apply")
+        prod = where
+        try:
+            t_fetch = time.monotonic()
+            hedged = False
+            attrs = _where_attrs(where)
+            # the fetch span holds the wait for the window's device work
+            with tr.span(tele.SPAN_APPLY_FETCH, window=i, **attrs):
+                if thr is None:
+                    done = bqsr.apply_finish(h)
+                else:
+                    box: list = []
+
+                    def hedge_fn():
+                        others = [s for s in dpool.alive_devices() if s is not where]
+                        if not others:
+                            raise RuntimeError("no other slot to hedge on")
+                        nd = others[i % len(others)]
+                        box.append(nd)
+                        return apply_on(i, w, nd)
+
+                    done, winner, hedged = dp.hedged_call(
+                        lambda: bqsr.apply_finish(h), hedge_fn, thr, tracer=tr)
+                    if winner == "hedge":
+                        prod = box[0]
+                        health_board.note_hedge_lost(where, "bqsr.apply", tracer=tr)
+            tr.count(tele.C_DEVICE_FETCHED)
+            if not hedged and on_slot and where.attributed:
+                health_board.observe_latency("bqsr.apply", where,
+                                             time.monotonic() - t_fetch, tracer=tr)
+        except dp.AllDevicesEvicted:
+            raise
+        except Exception as e:
+            done = replay_apply(i, where, w, e)
+            prod = None
+        if sdc_audit_rate > 0 and health_mod.audit_due(i, sdc_audit_rate):
+            done = audit(i, prod if prod is not None else pick_slot(i), w, done)
+        return done
+
+    pend: deque = deque()  # (window, slot | "mesh", handle)
     inflight.append(pend)
 
     def fetch_one():
-        j, h = pend[0]
-        # the fetch span holds the wait for the window's device work
-        with tr.span(tele.SPAN_APPLY_FETCH, window=j):
-            done = bqsr.apply_finish(h)
+        i, where, h = pend[0]
+        done = finish_checked(i, where, h)
         pend.popleft()
-        tr.count(tele.C_DEVICE_FETCHED)
-        submit(j, *_submit_args(done))
+        submit(i, done)
+
+    def apply_parts_mesh(plist):
+        """Mesh pass C: the table placed once per shard; every window's
+        apply + packs run per shard, double-buffered.  Returns the parts
+        still to do: none, or (after a mesh failure) the rest, for the
+        pool path."""
+        mp = exec_state["mesh"]
+        try:
+            with tele.pass_scope("table"):
+                tbl = mp.put_replicated(table)
+            t_pwc = time.monotonic_ns()
+            seen = {}
+            for i in plist:
+                bw = windows[i].batch
+                seen.setdefault((bw.n_rows, bw.lmax), windows[i])
+            mp.prewarm([part_mod.mesh_apply_prewarm_entry(
+                w.batch.to_numpy(), table.shape[0], table.shape[2], mp)
+                for w in seen.values()], tracer=tr)
+            tr.add_span(tele.SPAN_POOL_PREWARM_C, t_pwc, time.monotonic_ns() - t_pwc)
+        except Exception as e:
+            mesh_degrade(e, "pass-C table placement")
+            return list(plist)
+        k = 0
+        while k < len(plist) or pend:
+            if k < len(plist) and len(pend) < 2:
+                i = plist[k]
+                fh = fused_handles.pop(i, None)
+                if fh is not None:
+                    pend.append((i, mp, fh[1]))
+                else:
+                    rw = resident_map.get(i)
+                    try:
+                        if rw is None or not rw.alive or rw.slot != "mesh":
+                            make_resident(i, windows[i])
+                            rw = resident_map[i]
+                        with tr.span(tele.SPAN_APPLY_DISPATCH, window=i, device="mesh"):
+                            h = bqsr.apply_dispatch(windows[i], rw, tbl, mesh=mp)
+                    except Exception as e:
+                        mesh_degrade(e, "pass-C apply dispatch")
+                        rest = [j for j, _w, _h in pend] + list(plist[k:])
+                        pend.clear()
+                        return rest
+                    tr.count(tele.C_DEVICE_DISPATCHED)
+                    tr.count(tele.C_MESH_DISPATCHED)
+                    pend.append((i, mp, h))
+                tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
+                k += 1
+                continue
+            fetch_one()
+            if exec_state["mesh"] is not mp:
+                # a replay degraded the mesh: the pool finishes the rest
+                rest = [j for j, _w, _h in pend] + list(plist[k:])
+                pend.clear()
+                return rest
+        return []
+
+    def apply_parts_pool(plist):
+        if dpool is not None:
+            t_pwc = time.monotonic_ns()
+            seen = {}
+            for i in plist:
+                bw = windows[i].batch
+                seen.setdefault((bw.n_rows, bw.lmax), windows[i])
+            dpool.prewarm([dp.apply_prewarm_entry(
+                w.batch.to_numpy(), table.shape[0], table.shape[2])
+                for w in seen.values()], tracer=tr)
+            tr.add_span(tele.SPAN_POOL_PREWARM_C, t_pwc, time.monotonic_ns() - t_pwc)
+        apply_depth = 2 if dpool is None else 2 * dpool.n
+        for i in plist:
+            # a fused window's columns are already computed: fetch only
+            fh = fused_handles.pop(i, None)
+            if fh is not None and isinstance(fh[0], dp.Slot):
+                pend.append((i, fh[0], fh[1]))
+            else:
+                def dispatch(slot, i=i):
+                    with tr.span(tele.SPAN_APPLY_DISPATCH, window=i,
+                                 **dp.span_attrs(slot)):
+                        h = bqsr.apply_dispatch(windows[i], resident_on(i, windows[i], slot),
+                                                table_on(slot))
+                    tr.count(tele.C_DEVICE_DISPATCHED)
+                    return slot, h
+
+                pend.append((i,) + on_survivors(i, dispatch))
+            tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
+            if len(pend) >= apply_depth:
+                fetch_one()
+        while pend:
+            fetch_one()
 
     try:
         # the pass-C span wraps apply + submit; the device dispatch and
         # fetch walls are its disjoint child spans
         with tr.span(tele.SPAN_PASS_C), tele.pass_scope("apply"):
-            if table_dev is not None:
-                for i in parts:
-                    # a fused window's columns are already computed: fetch only
-                    h = fused_handles.pop(i, None)
-                    if h is None:
-                        with tr.span(tele.SPAN_APPLY_DISPATCH, window=i):
-                            h = bqsr.apply_dispatch(windows[i], resident[i], table_dev)
-                        tr.count(tele.C_DEVICE_DISPATCHED)
-                    pend.append((i, h))
-                    tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
-                    windows[i] = resident[i] = None  # free as we go
-                    if len(pend) >= 2:
-                        fetch_one()
-                while pend:
-                    fetch_one()
+            if table is not None:
+                todo = parts
+                if exec_state["mesh"] is not None:
+                    todo = apply_parts_mesh(parts)
+                if todo:
+                    apply_parts_pool(todo)
             else:
                 for i in parts:
                     w = windows[i]
-                    windows[i] = resident[i] = None
-                    submit(i, w.batch, w.sidecar, w.header)
+                    faults.point("proc.kill", device="pass_c")
+                    pool.submit(part_path(out_path, i), w.batch, w.sidecar, w.header)
+                    release_resident(i)
+                    windows[i] = None
         with tr.span(tele.SPAN_WRITE_WAIT):
             pool.close()
     except BaseException:
         pool.close(abort=True)
         raise
+    for win in list(resident_map):
+        release_resident(win)
+    stats["resident_windows"] = resident_live["made"]
+    health_board.publish(tr)
     stats["writer_shards"] = pool.n_io
     stats["writer_inflight_bound"] = pool.inflight_bound
     stats["n_parts"] = len(parts)

@@ -38,11 +38,16 @@ same messages, but arms only the sites it has (:data:`ARMED_POINTS`):
   journaled), ``pass_c`` (per fresh part submit) and ``write`` (after
   each part's durable publish);
 * ``parquet.encode`` (the writer pool's encoder) and ``parquet.write``
-  (before a part's staging write).
+  (before a part's staging write);
+* ``device.dispatch`` (before each window's device work, attributed to
+  the pool slot's id: ``device=1`` is slot 1), ``device.fetch`` (each
+  ``utils/transfer.device_fetch``; its ``corrupt`` action flips one bit
+  of the fetched array through :func:`corrupt_array`, which the SDC audit
+  catches) and ``pool.prewarm`` (each prewarm launch of a slot).
 
-:func:`install` refuses a spec naming any other site, or a ``corrupt``
-clause, naming the ROADMAP queue 1 item that will arm it: a clause that
-can never fire must not test nothing in silence.
+:func:`install` refuses a spec naming any other site, naming the ROADMAP
+queue 1 item that will arm it: a clause that can never fire must not test
+nothing in silence.
 """
 
 from __future__ import annotations
@@ -77,20 +82,16 @@ KNOWN_POINTS = frozenset({
 })
 
 #: The sites the port arms.
-ARMED_POINTS = frozenset({"proc.kill", "parquet.write", "parquet.encode"})
+ARMED_POINTS = frozenset({"proc.kill", "parquet.write", "parquet.encode",
+                          "device.dispatch", "device.fetch", "pool.prewarm"})
 
 #: Sites whose call path can flip result bits (JAX's; the parse refuses a
 #: ``corrupt`` clause anywhere else, as JAX does).
 CORRUPT_POINTS = frozenset({"device.fetch"})
 
 #: What arms each site the port does not arm yet.
-_MULTI_GPU = ("ROADMAP queue 1 item 4 (multi-GPU: the device pool with its "
-           "retry, deadline and eviction layers)")
 _SERVICE = "ROADMAP queue 1 item 5 (the service and operations layers)"
 _UNARMED_BY = {
-    "device.dispatch": _MULTI_GPU,
-    "device.fetch": _MULTI_GPU,
-    "pool.prewarm": _MULTI_GPU,
     "sched.admit": _SERVICE,
     "sched.batch": _SERVICE,
     "sched.dispatch": _SERVICE,
@@ -248,12 +249,6 @@ def parse_spec(spec: str) -> list:
 
 def _check_armed(clause: _Clause) -> None:
     """Refuse a clause the port cannot fire yet, naming what arms it."""
-    if clause.action == "corrupt":
-        raise ValueError(
-            f"fault clause at {clause.site!r}: 'corrupt' needs the fetch "
-            "boundary and the SDC audit, which adam_tpu_torch does not "
-            f"have yet ({_SERVICE})"
-        )
     if clause.site not in ARMED_POINTS:
         raise ValueError(
             f"fault clause at {clause.site!r}: adam_tpu_torch does not arm "
@@ -271,16 +266,22 @@ _LOCK = threading.Lock()
 def install(spec: str | None) -> None:
     """Arm (or, with None/empty, disarm) a fault spec process-wide.
     Raises ``ValueError`` for a malformed spec, and for a clause the
-    port does not arm (see :func:`_check_armed`).  (JAX's ``install``
-    also resets its device-health scoreboard, ``utils/health.py``; the
-    port has none yet, ROADMAP queue 1 item 5.)"""
+    port does not arm (see :func:`_check_armed`).  Arming or disarming
+    also resets the slot-health scoreboard (``utils/health.py``), as in
+    JAX: the signals an injected spec manufactures must not leak into
+    later runs in the process."""
     global ENABLED, _CLAUSES
     clauses = parse_spec(spec) if spec else []
     for clause in clauses:
         _check_armed(clause)
     with _LOCK:
+        was = ENABLED
         _CLAUSES = clauses
         ENABLED = bool(clauses)
+    if was or clauses:
+        from adam_tpu_torch.utils import health as health_mod
+
+        health_mod.reset_board()
     if clauses:
         log.warning(
             "fault injection ARMED: %d clause(s) from %r (this is a "
@@ -299,7 +300,9 @@ def point(site: str, device=None, pass_name=None) -> None:
 
     ``device`` is what the arrival is attributed to (the phase name at
     ``proc.kill``), matched against a clause's ``device=K``;
-    ``pass_name`` overrides the thread's pass scope for ``pass=``."""
+    ``pass_name`` overrides the thread's pass scope for ``pass=``.
+    ``corrupt`` clauses never fire here: they live on the data channel
+    (:func:`corrupt_array`), whose arrivals count apart."""
     if not ENABLED:
         return
     if pass_name is None:
@@ -310,7 +313,7 @@ def point(site: str, device=None, pass_name=None) -> None:
         # every same-site clause counts the arrival; the first whose
         # predicate matches fires
         for clause in _CLAUSES:
-            if clause.site != site:
+            if clause.site != site or clause.action == "corrupt":
                 continue
             if clause.arrive(device, pass_name) and fire is None:
                 fire = clause
@@ -338,6 +341,45 @@ def point(site: str, device=None, pass_name=None) -> None:
                              f" (device={device})")
     raise TransientFault(f"injected transient fault at {site}"
                          f" (device={device})")
+
+
+def corrupt_array(site: str, arr, device=None, pass_name=None):
+    """The data channel of the fault grammar: ``arr`` (a just-fetched
+    numpy result) through the ``corrupt`` clauses armed at ``site`` —
+    a copy with one bit flipped when a clause fires, the very same object
+    otherwise.  The flipped bit is a pure function of the clause's seed
+    and its injection count (JAX's draw), so a run reproduces its
+    corruption from the spec.  Disabled cost: one module-global branch."""
+    if not ENABLED:
+        return arr
+    if pass_name is None:
+        pass_name = tele.current_pass()
+    fire = None
+    with _LOCK:
+        for clause in _CLAUSES:
+            if clause.site != site or clause.action != "corrupt":
+                continue
+            if clause.arrive(device, pass_name) and fire is None:
+                fire = clause
+        if fire is not None:
+            fire._fired += 1
+            draw = fire._rng.random()
+    if fire is None:
+        return arr
+    import numpy as np
+
+    a = np.asarray(arr)
+    if a.size == 0 or a.dtype == object:
+        return arr
+    out = np.array(a, copy=True)
+    flat = out.reshape(-1).view(np.uint8).reshape(-1)
+    pos = int(draw * flat.size * 8) % (flat.size * 8)
+    flat[pos // 8] ^= np.uint8(1 << (pos % 8))
+    tele.TRACE.count(tele.C_FAULT_INJECTED)
+    log.warning("fault injected at %s (device=%s, pass=%s): corrupt — flipped "
+                "bit %d of a %d-byte result", site, device, pass_name, pos,
+                flat.size)
+    return out
 
 
 # Arm from the environment at import: child processes (the SIGKILL

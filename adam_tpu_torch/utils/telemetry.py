@@ -1846,9 +1846,12 @@ HEARTBEAT_FIELDS = (
 )
 
 def _health_states_for_heartbeat():
-    """The /5 ``device_health`` field: None in the port — the device
-    health scoreboard that arms it comes with ROADMAP queue 1 item 5."""
-    return None
+    """The /5 ``device_health`` field: the process-wide slot-health
+    board's states, or None while it tracks nothing (a lazy import:
+    ``utils/health.py`` imports this module)."""
+    from adam_tpu_torch.utils import health as health_mod
+
+    return health_mod.BOARD.states() or None
 
 
 def _slo_for_heartbeat():

@@ -138,6 +138,23 @@ Phases, each of which fails the script on any error:
    line; X names the observe and pack kernels; then the main path 3
    times with recording off and 3 times with every flag but
    ``--xprof-dir``, in turns, their median reads/s printed;
+4o. several devices, over two slots (two streams) of the one card, each
+   leg through ``transform_streamed(..., device_pool=)`` on the main
+   path's SAM with the counts reset before it, its parts byte-identical
+   to phase 4's, its wall, launches per kernel, per device and per slot
+   and part hashes printed: (i) the pool (kernel 1 five times and kernel
+   2 ten times between the slots, the prewarm spans once per slot, no
+   first launch inside a window); (ii) the mesh (kernel 1 shards x
+   windows times, stated before the run; ``device.mesh.dispatched`` > 0);
+   (iii) ``device.dispatch`` failing for good on slot 1 (evicted, its
+   window replayed on slot 0 under ``device.pool.replay``); (iv) a mesh
+   dispatch failing mid-run (``device.mesh.degraded`` 1, the pool takes
+   over); (v) ``ADAM_TPU_AUDIT_RATE=1`` with one fetched pass-C column
+   corrupted at ``device.fetch`` (the slot on probation, the window
+   replayed, ``device.audit.check`` recorded); (vi) each
+   ``parallel/dist.py`` function over a two-slot ``LocalMesh`` on 65,536
+   reads equal to its one-slot result, then ``distributed_observe`` over
+   a one-rank NCCL ``ProcessMesh`` equal to the local histograms;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -163,7 +180,9 @@ Phases, each of which fails the script on any error:
    interleaved: output files byte-identical; ``transform -backend spark``
    on 4 partitions of 16,384 reads with the known SNPs (every output batch
    equal), ``plugin`` with a plugin and access control this script writes
-   (the same lines), and ``buildinfo`` printed once.
+   (the same lines), and ``buildinfo`` printed once; the pool and the
+   mesh over two slots of the card and over two CPU slots, windows of
+   16,384 reads, each equal to the one-device CPU run.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -2058,6 +2077,276 @@ def check_parity_plugin(work: str, parts: str) -> dict:
     return {"lines": n}
 
 
+# ---------------------------------------------------------------------------
+# 4o. multi-device execution: the device pool, the mesh, their fault paths
+# and the distributed collectives, over two slots of the one card
+# ---------------------------------------------------------------------------
+POOL_SLOTS = ("cuda:0", "cuda:0")  # 4o / 5: two slots (two streams) on one card
+COLLECTIVE_READS = 65_536          # 4o (vi): the dist.py functions' batch
+PARITY_POOL_WINDOW = 16_384        # phase 5's pool and mesh legs: 4 windows + 1
+
+
+def _pool(devices=None):
+    from adam_tpu_torch.parallel import device_pool as dp
+
+    return dp.DevicePool(dp.make_slots(list(devices or POOL_SLOTS)))
+
+
+def _leg(name: str, sam: str, out_dir: str, main_hashes: dict, spec: str | None = None,
+         env: dict | None = None, **kw) -> dict:
+    """One 4o leg: the streamed transform through the library call with
+    ``kw`` (a device pool, a partitioner), under fault spec ``spec`` and
+    ``env``, recording on; its parts must be phase 4's bytes.  -> its wall,
+    stats, launches per kernel, per device and per slot, prewarm launches
+    and the run's counters and per-slot span counts."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.parallel import device_pool as dp
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+    from adam_tpu_torch.utils import faults
+    from adam_tpu_torch.utils import telemetry as tele
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    dp.reset_prewarm_cache()
+    _reset_telemetry()
+    tele.TRACE.recording = True
+    kernels.reset_launches()
+    if spec:
+        faults.install(spec)
+    t0 = time.monotonic()
+    try:
+        stats = transform_streamed(sam, out_dir, window_reads=WINDOW_READS, **kw)
+        wall = time.monotonic() - t0
+        snap = tele.TRACE.snapshot()
+    finally:
+        faults.clear()
+        tele.TRACE.recording = False
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {
+        "wall_s": wall, "stats": stats, "launches": kernels.launches(),
+        "device_launches": kernels.device_launches(),
+        "slot_launches": {k: {str(s): n for s, n in v.items()}
+                          for k, v in kernels.slot_launches().items()},
+        "prewarm_launches": kernels.prewarm_launches(),
+        "counters": snap["counters"],
+        "device_spans": {name: {k: v["count"] for k, v in per.items()}
+                         for name, per in snap["device_spans"].items()
+                         if name in (tele.SPAN_POOL_PREWARM_COMPILE, tele.SPAN_POOL_REPLAY,
+                                     tele.SPAN_AUDIT_CHECK, tele.SPAN_APPLY_DISPATCH)},
+        "spans": {name: snap["spans"][name]["count"] for name in (
+            tele.SPAN_POOL_PREWARM, tele.SPAN_POOL_PREWARM_C, tele.SPAN_POOL_REPLAY,
+            tele.SPAN_AUDIT_CHECK) if name in snap["spans"]},
+        "hashes": _part_hashes(out_dir),
+    }
+    _reset_telemetry()
+    if out["hashes"] != main_hashes:
+        raise AssertionError(f"4o ({name}): the parts differ from phase 4's")
+    _log(f"4o ({name}): {out['wall_s']:.3f} s, {stats['reads_per_s']:.0f} reads/s, "
+         f"partitioner {stats['partitioner']}, launches {out['launches']} per slot "
+         f"{out['slot_launches']} per device {out['device_launches']} (prewarm "
+         f"{out['prewarm_launches']}); spans {out['spans']}; parts byte-identical to "
+         f"phase 4's: {sorted(out['hashes'].values())[:2]}...")
+    shutil.rmtree(out_dir)
+    return out
+
+
+def check_multi_device(work: str, sam: str, main_hashes: dict, n_win: int) -> dict:
+    """Phase 4o (i)-(v): the main path over two slots of the card as a pool
+    and as a mesh, then slot 1's eviction and replay, the mesh's degrade to
+    the pool and the SDC audit catching a corrupted fetch: every leg's
+    parts phase 4's bytes."""
+    from adam_tpu_torch.utils import health as health_mod
+    from adam_tpu_torch.utils import telemetry as tele
+
+    out_dir = os.path.join(work, "multi.adam")
+    parts = n_win + 1
+    res = {}
+    # (i) the pool: each window on one slot, its prewarm on both
+    leg = res["pool"] = _leg("pool", sam, out_dir, main_hashes, device_pool=_pool())
+    k1, k2 = leg["slot_launches"]["observe_hist"], leg["slot_launches"]["pack_rows"]
+    if (leg["launches"]["observe_hist"] != parts or leg["launches"]["pack_rows"] != 2 * parts
+            or set(k1) != {"0", "1"} or set(k2) != {"0", "1"}):
+        raise AssertionError(f"4o (pool): launches {leg['launches']} per slot "
+                             f"{leg['slot_launches']} for {parts} parts")
+    pw = leg["device_spans"].get(tele.SPAN_POOL_PREWARM_COMPILE, {})
+    if set(pw) != {"0", "1"} or len(set(pw.values())) != 1:
+        raise AssertionError(f"4o (pool): prewarm spans per slot {pw}")
+    if leg["counters"].get(tele.C_COMPILE_IN_WINDOW, 0) != 0:
+        raise AssertionError(f"4o (pool): first launches inside a window: {leg['counters']}")
+    # (ii) the mesh: every window's rows split over the two slots
+    shards = len(POOL_SLOTS)
+    expect_k1 = shards * parts
+    _log(f"4o (mesh): expecting kernel 1 launched shards x windows = {shards} x {parts} "
+         f"= {expect_k1} times, kernel 2 {2 * expect_k1}")
+    leg = res["mesh"] = _leg("mesh", sam, out_dir, main_hashes, device_pool=_pool(),
+                             partitioner="mesh")
+    if (leg["counters"].get(tele.C_MESH_DISPATCHED, 0) <= 0
+            or leg["stats"]["partitioner"] != "mesh"
+            or leg["launches"]["observe_hist"] != expect_k1
+            or leg["launches"]["pack_rows"] != 2 * expect_k1):
+        raise AssertionError(f"4o (mesh): {leg['counters']}, launches {leg['launches']}")
+    res["mesh"]["expected_observe_hist"] = expect_k1
+    # (iii) slot 1's dispatch fails for good: evicted, its window replayed
+    spec = "device.dispatch=permanent,device=1,times=1"
+    leg = res["evict"] = _leg("evict", sam, out_dir, main_hashes, spec=spec,
+                              device_pool=_pool())
+    if (leg["counters"].get(tele.C_DEVICE_EVICTED) != 1
+            or not leg["spans"].get(tele.SPAN_POOL_REPLAY)):
+        raise AssertionError(f"4o (evict): {leg['counters']}, spans {leg['spans']}")
+    res["evict"]["spec"] = spec
+    # (iv) a mesh dispatch fails for good mid-run: the pool takes over
+    spec = "device.dispatch=permanent,device=mesh,after=6,times=1"
+    leg = res["degrade"] = _leg("degrade", sam, out_dir, main_hashes, spec=spec,
+                                device_pool=_pool(), partitioner="mesh")
+    if (leg["counters"].get(tele.C_MESH_DEGRADED) != 1
+            or leg["stats"]["partitioner"] != "pool"):
+        raise AssertionError(f"4o (degrade): {leg['counters']}, {leg['stats']['partitioner']}")
+    res["degrade"]["spec"] = spec
+    # (v) the SDC audit: every window checked against the CPU, one fetched
+    # column corrupted -> its slot on probation, the window replayed
+    spec = "device.fetch=corrupt,pass=apply,times=1,seed=3"
+    leg = res["audit"] = _leg("audit", sam, out_dir, main_hashes, spec=spec,
+                              env={"ADAM_TPU_AUDIT_RATE": "1"}, device_pool=_pool())
+    c = leg["counters"]
+    if (c.get(tele.C_AUDIT_MISMATCH) != 1 or c.get(tele.C_HEALTH_PROBATION) != 1
+            or not leg["spans"].get(tele.SPAN_AUDIT_CHECK)
+            or not leg["spans"].get(tele.SPAN_POOL_REPLAY)):
+        raise AssertionError(f"4o (audit): {c}, spans {leg['spans']}")
+    res["audit"]["spec"] = spec
+    health_mod.reset_board()
+    return res
+
+
+def _one_device_slot():
+    from adam_tpu_torch.parallel import device_pool as dp
+
+    return dp.make_slots(["cuda:0"])
+
+
+def check_collectives(work: str) -> dict:
+    """Phase 4o (vi): each ``parallel/dist.py`` function over a two-slot
+    ``LocalMesh`` on the card, on 65,536 reads, equal to its one-slot
+    result; then ``distributed_observe`` over a one-rank NCCL
+    ``ProcessMesh`` (its i64 all-reduce), equal to the local one."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from adam_tpu_torch.io import context
+    from adam_tpu_torch.ops.mdtag import batch_md_arrays
+    from adam_tpu_torch.parallel import dist as d
+    from adam_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh, initialize_distributed
+    from adam_tpu_torch.pipelines import bqsr
+    from make_wgs_sam import make_wgs
+
+    sam = os.path.join(work, "collectives.sam")
+    make_wgs(sam, COLLECTIVE_READS, 100, seed=SEED + 2)
+    ds = context.load_alignments(sam)
+    b = ds.batch.to_numpy()
+    is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
+    read_ok = bqsr.observe_read_mask(b, has_md)
+    res_ok = bqsr.observe_residue_mask(ds, b)
+    n_rg = len(ds.read_groups) + 1
+    rng = np.random.default_rng(SEED)
+    keys = rng.integers(0, 2**40, 2 * (COLLECTIVE_READS // 2)).astype(np.int64)
+    payload = {"row": np.arange(keys.size, dtype=np.int64)}
+    chunks = np.asarray(b.bases[:2, :64])
+    two, one = LocalMesh(_pool().devices), LocalMesh(_one_device_slot())
+
+    def sorted_rows(k, rows, v):
+        return k[v], rows["row"][v]
+
+    def real(keys_out):
+        flat = keys_out.ravel()
+        return flat[flat != np.iinfo(np.int64).max]
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return bool(np.array_equal(a, b))
+        return a == b
+
+    calls = {
+        "flagstat": lambda m: tuple(str(x) for x in d.distributed_flagstat(ds.batch, m)),
+        "count_kmers": lambda m: d.distributed_count_kmers(ds.batch, 21, m),
+        "markdup": lambda m: np.asarray(d.distributed_markdup(ds, m).batch.to_numpy().flags),
+        "observe": lambda m: d.distributed_observe(ds.batch, res_ok, is_mm, read_ok, n_rg, m),
+        "sort_keys": lambda m: real(d.distributed_sort_keys(keys, m)),
+        "sort_rows": lambda m: sorted_rows(*d.distributed_sort_rows(keys, payload, m)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        t0 = time.monotonic()
+        got = fn(two)
+        wall = time.monotonic() - t0
+        if not equal(got, fn(one)):
+            raise AssertionError(f"4o (vi) {name}: two slots and one slot differ")
+        out[name] = {"wall_s": wall, "equal": True}
+    t0 = time.monotonic()
+    halo = d.halo_exchange_right(chunks, two, 8)
+    out["halo"] = {"wall_s": time.monotonic() - t0,
+                   "equal": bool(np.array_equal(halo[0, 64:], chunks[1, :8])
+                                 and np.array_equal(halo[:, :64], chunks))}
+    if not out["halo"]["equal"]:
+        raise AssertionError("4o (vi) halo: shard 0 did not get shard 1's head")
+    t_one, m_one = calls["observe"](one)
+    if t_one.dtype != np.int64 or int(t_one.sum()) <= 0:
+        raise AssertionError(f"4o (vi) observe: {t_one.dtype} {t_one.sum()}")
+    # one NCCL rank: the all-reduce of the observe histograms in i64 (a
+    # file store in the work directory: no port to pick)
+    initialize_distributed(f"file://{os.path.join(work, 'nccl.store')}", world_size=1,
+                           rank=0, backend="nccl")
+    try:
+        torch.cuda.set_device(0)
+        t0 = time.monotonic()
+        t_p, m_p = d.distributed_observe(ds.batch, res_ok, is_mm, read_ok, n_rg,
+                                         ProcessMesh())
+        out["observe_nccl"] = {"wall_s": time.monotonic() - t0, "backend": "nccl",
+                               "equal": bool(np.array_equal(t_p, t_one)
+                                             and np.array_equal(m_p, m_one))}
+    finally:
+        tdist.destroy_process_group()
+    if not out["observe_nccl"]["equal"]:
+        raise AssertionError("4o (vi) observe over one NCCL rank differs from the local one")
+    os.unlink(sam)
+    _log("4o (vi) collectives over two slots of the card equal to one slot "
+         f"({COLLECTIVE_READS} reads): " + ", ".join(
+             f"{k} {v['wall_s']:.3f} s" for k, v in out.items()))
+    return out
+
+
+def check_parity_pool_mesh(work: str, sam: str) -> dict:
+    """Phase 5's pool and mesh legs: two slots on the card against two CPU
+    slots, 65,536 reads in windows of 16,384, each equal to the one-device
+    CPU run."""
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    ref_dir = os.path.join(work, "pm.one.cpu")
+    transform_streamed(sam, ref_dir, window_reads=PARITY_POOL_WINDOW, device="cpu")
+    ref = _part_hashes(ref_dir)
+    shutil.rmtree(ref_dir)
+    out = {}
+    for mode in ("pool", "mesh"):
+        for dev, slots in (("cuda", POOL_SLOTS), ("cpu", ("cpu", "cpu"))):
+            d = os.path.join(work, f"pm.{mode}.{dev}")
+            st = transform_streamed(sam, d, window_reads=PARITY_POOL_WINDOW,
+                                    partitioner=mode, device_pool=_pool(slots))
+            got = _part_hashes(d)
+            shutil.rmtree(d)
+            if not got or got != ref or st["partitioner"] != mode:
+                raise AssertionError(f"phase 5 {mode} on {dev}: parts differ from the "
+                                     f"one-device CPU run ({st['partitioner']})")
+        out[mode] = len(ref)
+        _log(f"card vs CPU ({mode}, two slots each): {len(ref)} parts byte-identical, "
+             f"and to the one-device CPU run ({PARITY_READS} reads)")
+    return out
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -2240,6 +2529,22 @@ def main() -> int:
              f"{observ['reads_per_s']['on']}; {observ['phase_s']:.1f} s in all")
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_observability"] = observ["launches"][name]
+
+        # ---- 4o. multi-device: pool, mesh, eviction, degrade, audit --------
+        t0 = time.monotonic()
+        multi = check_multi_device(work, sam, main_hashes, n_win)
+        multi["collectives"] = check_collectives(work)
+        multi["phase_s"] = time.monotonic() - t0
+        main_rate = stats["reads_per_s"]
+        _log(f"4o: {multi['phase_s']:.1f} s in all ({smi}); reads/s pool "
+             f"{multi['pool']['stats']['reads_per_s']:.0f}, mesh "
+             f"{multi['mesh']['stats']['reads_per_s']:.0f}, beside phase 4's one device "
+             f"{main_rate:.0f} (its first run) and 4h's journaled run "
+             f"{durable['journaled']['stats']['reads_per_s']:.0f}; two slots share one "
+             f"card, so this is no measure of scaling across cards")
+        for name in ("observe_hist", "pack_rows"):
+            for leg in ("pool", "mesh", "evict", "degrade", "audit"):
+                by_name[name][f"launches_{leg}"] = multi[leg]["launches"][name]
 
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
@@ -2431,6 +2736,7 @@ def main() -> int:
         t0 = time.monotonic()
         parity["spark_executor"] = check_parity_spark(work, sam, p_snps)
         parity["plugin"] = check_parity_plugin(work, os.path.join(work, "reads.cuda.adam"))
+        parity["pool_mesh"] = check_parity_pool_mesh(work, sam)
         _log("buildinfo: " + " | ".join(_cli(["buildinfo"])[0].splitlines()))
         parity["spark_plugin_buildinfo_s"] = time.monotonic() - t0
         _log(f"card vs CPU executor, plugin and buildinfo legs: "
@@ -2477,6 +2783,7 @@ def main() -> int:
         "spark_executor": spark,
         "transform_step": tstep,
         "observability": observ,
+        "multi_device": multi,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

@@ -1,7 +1,7 @@
 """The port's command line has the JAX CLI's shape (``adam_tpu/cli/main.py``):
 every verb takes JAX's shared flags, each observability flag acts, the
-multi-chip flags the port lacks are refused naming their ROADMAP item,
-usage and exit codes match, and a closed standard output ends a verb with
+multi-device flags act (``--devices`` caps the streamed transform's pool,
+``--partitioner`` picks its mode), usage and exit codes match, and a closed standard output ends a verb with
 exit code 0 and no traceback.  Both packages' CLIs run on the same input."""
 
 import argparse
@@ -129,19 +129,53 @@ def test_shared_flags_run_as_in_jax(sam, tmp_path, argv):
         assert (tmp_path / name).read_bytes() == data, name
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--devices", "2"], "item 4"),
-    (["--partitioner", "mesh"], "item 4"),
-    (["--partitioner", "pool"], "item 4"),
+@pytest.mark.parametrize("flags,expect", [
+    (["--devices", "2"], {"n_devices": 1, "partitioner": "pool"}),
+    (["--partitioner", "mesh"], {"n_devices": 1, "partitioner": "mesh"}),
+    (["--partitioner", "pool"], {"n_devices": 1, "partitioner": "pool"}),
 ])
-def test_unported_flags_exit_2_naming_their_item(sam, tmp_path, flags, item):
+def test_unported_flags_exit_2_naming_their_item(sam, tmp_path, flags, expect):
+    """The multi-device flags act, as JAX's do: the
+    streamed transform runs with them (``--devices 2`` on one CPU device is
+    capped to one, with JAX's warning; ``--partitioner`` sets the mode the
+    stats line reports) and writes the parts of the run without them; a
+    verb that places no device work accepts and ignores them."""
+    import logging
+
     from adam_tpu_torch.cli.main import main
 
-    rc, out, err = _run(main, ["flagstat", str(sam), *flags, "--device", "cpu"])
-    assert rc == 2 and out == ""
-    assert err.startswith(flags[0] + ": not in adam_tpu_torch yet")
-    assert f"ROADMAP queue 1 {item}" in err
-    assert not any(tmp_path.iterdir())
+    rc, out, _ = _run(main, ["flagstat", str(sam), *flags, "--device", "cpu"])
+    rc0, out0, _ = _run(main, ["flagstat", str(sam), "--device", "cpu"])
+    assert rc == rc0 == 0 and out == out0
+    with_flags = tmp_path / "with"
+    with_flags.mkdir()
+    without = tmp_path / "without"
+    without.mkdir()
+    warnings = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    grab = Grab(logging.WARNING)
+    logging.getLogger().addHandler(grab)
+    try:
+        rc, out, _ = _run(main, _streamed(sam, with_flags) + [*flags, "--device", "cpu"])
+    finally:
+        logging.getLogger().removeHandler(grab)
+    assert rc == 0
+    stats = json.loads(out.splitlines()[0])
+    assert {k: stats[k] for k in expect} == expect
+    if flags[0] == "--devices":
+        assert any("--devices 2 requested but only 1 attached" in w for w in warnings)
+    rc, _out, _ = _run(main, _streamed(sam, without) + ["--device", "cpu"])
+    assert rc == 0
+
+    def parts(d):
+        return {f: (d / "o.adam" / f).read_bytes()
+                for f in sorted(os.listdir(d / "o.adam")) if f.startswith("part-")}
+
+    assert parts(with_flags) == parts(without) and parts(without)
 
 
 def _streamed(sam, tmp_path):

@@ -746,3 +746,71 @@ def test_streamed_run_report_has_a_device_0_row(cuda_device, tmp_path):
     beats = [json.loads(x) for x in (tmp_path / "p.ndjson").read_text().splitlines()]
     assert beats[-1]["done"] is True
     assert any(b["hbm_bytes_in_use"].get(key, 0) > 0 for b in beats)
+
+
+def test_launch_runs_on_the_tensors_device_and_stream(cuda_device):
+    """Kernel 1 launched inside ``torch.cuda.device(0)`` with a second
+    stream current (a pool slot's scope): it queues on that stream and
+    equals its plain version."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.observe import observe_hist, observe_hist_plain
+    from adam_tpu_torch.pipelines.bqsr import covariate_keys
+
+    gl = 128
+    w = _window(31, 4096, gl)
+    keys = covariate_keys(*(w[n] for n in _WINDOW), 3, gl)
+    args = (keys, w["res_bits"], w["mm_bits"], w["read_ok"])
+    size, slab_w = 3 * 94 * (2 * gl + 1) * 17, (2 * gl + 1) * 17
+    want = observe_hist_plain(*args, size)
+    side = torch.cuda.Stream(torch.device("cuda", 0))
+    kernels.reset_launches()
+    with torch.cuda.device(0), torch.cuda.stream(side), kernels.slot_scope(1):
+        on = [a.to("cuda:0") for a in args]
+        got = observe_hist(*on, size, slab_w)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert kernels.device_launches()["observe_hist"] == {"cuda:0": 1}
+    assert kernels.slot_launches()["observe_hist"] == {1: 1}
+
+
+@pytest.fixture(scope="module")
+def pool_sam(tmp_path_factory):
+    from make_wgs_sam import make_wgs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    d = tmp_path_factory.mktemp("pool_card")
+    path = str(d / "in.sam")
+    make_wgs(path, 65_536, 100, n_contigs=2, contig_len=2_000_000)
+    return d, path
+
+
+@pytest.mark.parametrize("partitioner", ["pool", "mesh"])
+def test_two_slots_on_the_card_equal_one_device(pool_sam, partitioner):
+    """A two-slot pool and a two-shard mesh over ``cuda:0``, 65,536 reads:
+    the parts of the one-device run, with kernel 1 and kernel 2 launched
+    from both slots."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.parallel import device_pool as dp
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+
+    d, path = pool_sam
+    one = d / "one"
+    if not one.exists():
+        transform_streamed(path, str(one), window_reads=16_384, device="cuda")
+    out = d / partitioner
+    kernels.reset_launches()
+    stats = transform_streamed(path, str(out), window_reads=16_384,
+                               partitioner=partitioner,
+                               device_pool=dp.DevicePool(dp.make_slots(["cuda:0", "cuda:0"])))
+    assert stats["partitioner"] == partitioner and stats["n_devices"] == 2
+    per_slot = kernels.slot_launches()
+    assert set(per_slot["observe_hist"]) == {0, 1}
+    assert set(per_slot["pack_rows"]) == {0, 1}
+    parts = sorted(f for f in os.listdir(one) if f.startswith("part-"))
+    assert parts and parts == sorted(f for f in os.listdir(out) if f.startswith("part-"))
+    for f in parts:
+        assert (out / f).read_bytes() == (one / f).read_bytes(), f

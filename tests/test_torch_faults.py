@@ -203,8 +203,7 @@ def test_kill_sigkills_a_child(how):
 
 
 _UNARMED = {
-    "device.dispatch": "queue 1 item 4", "device.fetch": "queue 1 item 4",
-    "pool.prewarm": "queue 1 item 4", "sched.admit": "queue 1 item 5",
+    "sched.admit": "queue 1 item 5",
     "sched.batch": "queue 1 item 5", "sched.dispatch": "queue 1 item 5",
     "sched.drain": "queue 1 item 5", "sched.job_crash": "queue 1 item 5",
     "gateway.accept": "queue 1 item 5", "gateway.stream": "queue 1 item 5",
@@ -216,7 +215,8 @@ def test_every_known_point_is_armed_or_names_its_item():
     assert tf.KNOWN_POINTS == jf.KNOWN_POINTS
     assert tf.CORRUPT_POINTS == jf.CORRUPT_POINTS
     assert set(_UNARMED) == tf.KNOWN_POINTS - tf.ARMED_POINTS
-    assert tf.ARMED_POINTS == {"proc.kill", "parquet.write", "parquet.encode"}
+    assert tf.ARMED_POINTS == {"proc.kill", "parquet.write", "parquet.encode",
+                               "device.dispatch", "device.fetch", "pool.prewarm"}
 
 
 @pytest.mark.parametrize("site", sorted(_UNARMED))
@@ -234,15 +234,30 @@ def test_install_refuses_unarmed_sites(site):
 
 
 def test_install_refuses_corrupt():
+    """``corrupt`` at ``device.fetch`` is armed now (the SDC audit catches
+    it): both packages flip the same bit of the same array for a seed, and
+    the control channel (``point``) never fires a ``corrupt`` clause."""
+    import numpy as np
+
+    arr = np.arange(64, dtype=np.int64)
     jf.install("device.fetch=corrupt,seed=1")
-    with pytest.raises(ValueError, match="queue 1 item 5") as e:
-        tf.install("device.fetch=corrupt,seed=1")
-    assert "'corrupt'" in str(e.value) and "SDC audit" in str(e.value)
-    assert not tf.ENABLED
+    tf.install("device.fetch=corrupt,seed=1")
+    try:
+        assert tf.ENABLED
+        tf.point("device.fetch")  # no raise: corrupt lives on the data channel
+        got_t = tf.corrupt_array("device.fetch", arr)
+        got_j = jf.corrupt_array("device.fetch", arr)
+        np.testing.assert_array_equal(got_t, got_j)
+        assert (got_t != arr).sum() == 1
+        assert bin(int(got_t[got_t != arr][0] ^ arr[got_t != arr][0])).count("1") == 1
+    finally:
+        jf.clear()
+        tf.clear()
+    assert tf.corrupt_array("device.fetch", arr) is arr
 
 
 @pytest.mark.parametrize("spec", ["nope.site=transient", "proc.kill=kill,every=0",
-                                  "device.dispatch=transient"])
+                                  "sched.admit=transient"])
 def test_cli_refuses_a_bad_fault_spec_as_jax(spec, tmp_path):
     from adam_tpu.cli.main import main as jax_main
 
@@ -264,4 +279,52 @@ def test_cli_refuses_a_bad_fault_spec_as_jax(spec, tmp_path):
             assert jax_main(argv[:-2]) == 2
         assert line == jerr.getvalue().strip() == f"--fault-spec: {e}"
     else:
-        assert "queue 1 item 4" in line
+        assert "queue 1 item 5" in line
+
+
+@pytest.mark.parametrize("site,where", [
+    ("device.dispatch", "the dispatch of pass B"),
+    ("device.fetch", "the fetch of the observe histograms"),
+    ("pool.prewarm", "a slot's prewarm"),
+])
+def test_armed_device_sites_fire(site, where, tmp_path):
+    """The three multi-device sites fire in the port's code: an injected
+    transient fault is retried (``retry.attempts``) and the run's parts are
+    the same bytes as a clean run's."""
+    sys.path.insert(0, os.path.join(str(REPO), "tools"))
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.parallel import device_pool as dp
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+    from adam_tpu_torch.utils import telemetry as tele
+
+    sam = str(tmp_path / "in.sam")
+    make_wgs(sam, 1500, 100, n_contigs=1, contig_len=20_000)
+    kw = dict(window_reads=1024, device="cpu")
+    transform_streamed(sam, str(tmp_path / "clean"), **kw)
+    dp.reset_prewarm_cache()
+    old = os.environ.get("ADAM_TPU_RETRY_BACKOFF_S")
+    os.environ["ADAM_TPU_RETRY_BACKOFF_S"] = "0.001"
+    tf.install(f"{site}=transient,times=1")
+    tele.TRACE.reset()
+    tele.TRACE.recording = True
+    try:
+        transform_streamed(sam, str(tmp_path / "faulted"),
+                           device_pool=dp.DevicePool(dp.make_slots(["cpu", "cpu"])), **kw)
+        counters = tele.TRACE.snapshot()["counters"]
+    finally:
+        tele.TRACE.recording = False
+        tf.clear()
+        dp.reset_prewarm_cache()
+        if old is None:
+            os.environ.pop("ADAM_TPU_RETRY_BACKOFF_S", None)
+        else:
+            os.environ["ADAM_TPU_RETRY_BACKOFF_S"] = old
+    assert counters[tele.C_FAULT_INJECTED] == 1, where
+    assert counters[tele.C_RETRY_ATTEMPTS] == 1, where
+
+    def parts(d):
+        return {f: (tmp_path / d / f).read_bytes()
+                for f in sorted(os.listdir(tmp_path / d)) if f.startswith("part-")}
+
+    assert parts("faulted") == parts("clean")

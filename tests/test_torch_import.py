@@ -207,7 +207,13 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.utils.analyzer",
                                     "adam_tpu_torch.utils.perfledger",
                                     "adam_tpu_torch.utils.incidents",
-                                    "adam_tpu_torch.utils.slo"])
+                                    "adam_tpu_torch.utils.slo",
+                                    "adam_tpu_torch.parallel.device_pool",
+                                    "adam_tpu_torch.parallel.mesh",
+                                    "adam_tpu_torch.parallel.dist",
+                                    "adam_tpu_torch.utils.health",
+                                    "adam_tpu_torch.utils.transfer",
+                                    "adam_tpu_torch.utils.compile_ledger"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys

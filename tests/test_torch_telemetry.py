@@ -224,7 +224,8 @@ def test_heartbeat_sample_keys_equal_jax(both):
         hb.set_total(4)
         lines.append(hb.sample(done=True))
     assert list(lines[1]) == list(lines[0]) == list(tt.HEARTBEAT_FIELDS)
-    # the three judgment/health fields are None until ROADMAP queue 1 item 5
+    # nothing tracked on the health board: None, as JAX's; the judgment
+    # fields are None until ROADMAP queue 1 item 5
     assert lines[1]["device_health"] is None
     assert lines[1]["last_incident"] is None and lines[1]["slo_worst_burn"] is None
     for k in ("windows_total", "reads_ingested", "parts_written", "done", "eta_s"):
@@ -394,28 +395,26 @@ def test_prometheus_names_are_valid_and_distinct():
 # the streamed run, port against JAX
 # --------------------------------------------------------------------------
 #: What the JAX run records and the port does not, each with the ROADMAP
-#: queue 1 item that brings it.  Spans: none on this path (the pool,
-#: mesh, prewarm and audit spans never fire on one device without a
-#: prewarm).  Counters and gauges: the device ledger and the pool.
+#: queue 1 item that brings it: only the service layers' spans (item 5).
+#: Every name of the device pool, the mesh, the device ledger and the
+#: compile ledger is recorded (item 4).
 NOT_RECORDED = {
     "spans": {
-        "device.pool.prewarm": 4, "device.pool.prewarm.pass_c": 4,
-        "device.pool.prewarm.compile": 4, "device.pool.replay": 4,
-        "device.audit.check": 4, "sched.job.run": 5, "gateway.job.submit": 5,
-        "sched.batch.fused": 5,
+        "sched.job.run": 5, "gateway.job.submit": 5, "sched.batch.fused": 5,
     },
-    "counters": {
-        "device.h2d.bytes": 4, "device.d2h.bytes": 4,
-        "device.compile.cache_hits": 4, "device.compile.cache_misses": 4,
-        "device.compile.in_window": 4, "device.resident.windows": 4,
-        "device.resident.bytes": 4, "device.resident.released": 4,
-        "device.mesh.dispatched": 4, "device.mesh.degraded": 4,
-    },
-    "gauges": {
-        "device.pool.devices": 4, "device.resident.live_bytes": 4,
-        "kernel.backend": 4,
-    },
+    "counters": {},
+    "gauges": {},
 }
+
+#: The device ledger's byte counters move other bytes in the port, for
+#: three deliberate reasons, each held per pass by
+#: ``test_streamed_transfer_ledger_equals_jax_per_pass``: the table is
+#: placed once per slot (pass ``table``) where JAX's single-device path
+#: ships it with every window's apply; a packed column comes home at its
+#: exact size where JAX fetches a bucket-quantized slice (``fetch_grid``,
+#: its guard against one XLA compile per slice size); and a realign sweep
+#: chunk holds its real pairs where JAX pads it to a fixed compiled shape.
+LEDGER_BYTES = {"device.h2d.bytes", "device.d2h.bytes"}
 
 WINDOW = 2048
 
@@ -443,6 +442,14 @@ def _cli(main, tele, ins, argv):
     import contextlib
     import io
 
+    from adam_tpu.utils import compile_ledger as jcl
+
+    from adam_tpu_torch.utils import compile_ledger as tcl
+
+    # each run's first launches are its own: forget what earlier tests in
+    # this worker launched (both ledgers are process-wide)
+    jcl.reset()
+    tcl.reset()
     tele.TRACE.reset()
     ins.TIMERS.reset()
     out, err = io.StringIO(), io.StringIO()
@@ -501,22 +508,58 @@ def test_streamed_counters_equal_jax(streamed):
     j, t = runs["jax"]["counters"], runs["on"]["counters"]
     assert set(j) - set(t) == set(NOT_RECORDED["counters"]) & set(j)
     assert set(t) <= set(j)
-    assert {k: t[k] for k in t} == {k: j[k] for k in t}
+    assert LEDGER_BYTES <= set(t)
+    assert ({k: t[k] for k in t if k not in LEDGER_BYTES}
+            == {k: j[k] for k in t if k not in LEDGER_BYTES})
     assert t["reads.ingested"] == 4500 and t["windows.ingested"] == 3
 
 
 def test_streamed_gauges_equal_jax_but_the_overlap(streamed):
+    """Every gauge equals JAX's, the overlap among them: both observe the
+    windows under the realign sweeps (``overlap_work``)."""
     _, runs = streamed
     j, t = runs["jax"]["gauges"], runs["on"]["gauges"]
     assert set(j) - set(t) == set(NOT_RECORDED["gauges"]) & set(j)
-    # JAX observes the windows under the realign sweeps; the port before them
-    assert j.pop("streamed.observe_overlap_hidden")["last"] == 1
-    assert t.pop("streamed.observe_overlap_hidden")["last"] == 0
+    assert set(t) == set(j)
+    assert j["streamed.observe_overlap_hidden"]["last"] == 1
     for k in t:  # the samples are the same; a depth's min/max follow the threads
         assert t[k]["n"] == j[k]["n"], k
     for k in ("device.dispatch.in_flight", "streamed.fused_bc",
-              "streamed.resolve.device_sort"):
+              "streamed.resolve.device_sort", "streamed.observe_overlap_hidden",
+              "device.pool.devices", "device.resident.live_bytes", "kernel.backend"):
         assert t[k] == j[k], k
+
+
+def test_streamed_transfer_ledger_equals_jax_per_pass(streamed):
+    """The device ledger per direction and pass: the passes that move the
+    same tensors carry the same bytes as JAX's (the resident placement,
+    pass A's columns, pass B's masks and histograms, the resolve's
+    lexsort), and the three that differ differ as ``LEDGER_BYTES`` says."""
+    _, runs = streamed
+
+    def per_pass(snap, direction):
+        out = {}
+        for per in snap["transfers"][direction].values():
+            for name, e in per.items():
+                out[name] = out.get(name, 0) + e["bytes"]
+        return out
+
+    jh, th = per_pass(runs["jax"], "h2d"), per_pass(runs["on"], "h2d")
+    jd, td = per_pass(runs["jax"], "d2h"), per_pass(runs["on"], "d2h")
+    for name in ("ingest", "a", "observe", "resolve"):
+        assert th[name] == jh[name], name
+    for name in ("a", "observe", "resolve"):
+        assert td[name] == jd[name], name
+    # the table: once (pass "table") against once per applied window
+    n_parts = runs["jax"]["counters"]["parquet.parts.written"]
+    table = th["table"]
+    assert jh["apply"] == th["apply"] + n_parts * table
+    # the packed columns: their exact bytes, within JAX's buckets
+    assert 0 < td["apply"] <= jd["apply"]
+    # the sweep chunks: the real pairs only
+    assert 0 < td["sweep"] <= jd["sweep"] and 0 < th["sweep"] <= jh["sweep"]
+    assert runs["on"]["counters"]["device.h2d.bytes"] == sum(th.values())
+    assert runs["on"]["counters"]["device.d2h.bytes"] == sum(td.values())
 
 
 def test_streamed_span_names_are_jax_minus_the_listed(streamed):
