@@ -286,6 +286,444 @@ class Transform(Command):
         return _transform(args)
 
 
+class Serve(Command):
+    """Multi-job transform service (``serve/``, JAX's ``serve`` verb): N
+    concurrent streamed transform jobs on ``--device`` (the card by
+    default, ``cpu`` for the plain versions) with admission control,
+    per-tenant weighted fairness, job quarantine, graceful SIGTERM drain
+    and whole-process crash recovery from the run root."""
+
+    name = "serve"
+    description = ("Run concurrent streamed transform jobs on a shared "
+                   "device pool (bounded slots, per-tenant fairness, "
+                   "quarantine, graceful drain, crash recovery)")
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument(
+            "run_root", metavar="RUN_ROOT",
+            help="durable service state root: one subdirectory per job "
+            "(JOB.json + run/ journal + heartbeat.ndjson); on startup "
+            "every incomplete job found here resumes bit-identically "
+            "from its journal",
+        )
+        p.add_argument(
+            "--jobs", dest="jobs", default=None, metavar="FILE",
+            help="JSON manifest of jobs to submit (see "
+            "adam_tpu_torch/api/transform_service.py for the format); jobs "
+            "already tracked in RUN_ROOT are skipped, so re-running "
+            "the same command after a crash only resumes",
+        )
+        p.add_argument(
+            "--max-jobs", dest="max_jobs", type=int, default=2,
+            metavar="N",
+            help="bounded job slots: submissions beyond N receive a "
+            "typed Busy rejection (the CLI's own manifest loop polls "
+            "until a slot frees; default 2)",
+        )
+        p.add_argument(
+            "--job-retries", dest="job_retries", type=int, default=None,
+            metavar="N",
+            help="resume a failing job from its journal N times before "
+            "quarantining it (default ADAM_TPU_SCHED_JOB_RETRIES or 1; "
+            "quarantine frees the job's slot and devices, its journal "
+            "stays resumable, surviving jobs are untouched)",
+        )
+        p.add_argument(
+            "--batch", dest="batch", action="store_true", default=None,
+            help="continuous cross-job window batching "
+            "(serve/batching.py, docs/SERVING.md): concurrent jobs' "
+            "windows merge into one fused device dispatch per pass, "
+            "WFQ-ordered, with a bounded coalescing delay "
+            "(ADAM_TPU_BATCH_WAIT_MS, default 25 ms); every job's "
+            "output stays byte-identical to its solo run.  Default: "
+            "ADAM_TPU_BATCH, off",
+        )
+        p.add_argument(
+            "--quota", dest="quota", default=None, metavar="SPEC",
+            help="per-tenant rolling-window budgets, e.g. "
+            "'tenantA:bytes=512M,compute=10s;*:bytes=1G' (window "
+            "ADAM_TPU_QUOTA_WINDOW_S, default 60 s): an over-budget "
+            "tenant's submissions are refused with a typed quota "
+            "rejection (HTTP 429 on the gateway) carrying a "
+            "budget-derived Retry-After; other tenants are untouched.  "
+            "Default: ADAM_TPU_QUOTA, none",
+        )
+        p.add_argument(
+            "--slo", dest="slo", default=None, metavar="SPEC",
+            help="declarative service-level objectives, e.g. "
+            "'tenantA:p99(sched.job.run)<30s;*:avail>=0.99' "
+            "(utils/slo.py, docs/OBSERVABILITY.md): per-tenant or "
+            "service-wide (*) latency/availability/throughput "
+            "objectives judged over rolling windows "
+            "(ADAM_TPU_SLO_WINDOW_S, default 300 s short / 12x long); "
+            "error-budget state persists in RUN_ROOT/SLO_BUDGET.json, "
+            "a corroborated fast burn fires an slo.burn incident "
+            "bundle, and GET /slo + /metrics expose compliance and "
+            "burn.  Default: ADAM_TPU_SLO, none",
+        )
+        p.add_argument(
+            "--listen", dest="listen", default=None, metavar="HOST:PORT",
+            help="serve the HTTP gateway on HOST:PORT (port 0 = OS-"
+            "assigned; the bound address publishes durably to "
+            "RUN_ROOT/gateway.json): idempotency-keyed PUT submission, "
+            "typed 429/503 back-pressure with Retry-After, NDJSON "
+            "heartbeat streaming, Range-resumable part fetch "
+            "(docs/SERVING.md).  The process then runs until SIGTERM, "
+            "which drains gracefully: stop accepting -> 503 -> "
+            "scheduler drain -> every journal settled -> exit 0",
+        )
+
+    @classmethod
+    def run(cls, args):
+        import signal
+        import threading
+        import time as time_mod
+        from collections import deque
+
+        from adam_tpu_torch.api.transform_service import (
+            TransformService,
+            load_jobs_manifest,
+        )
+        from adam_tpu_torch.serve.job import Admitted
+
+        specs = []
+        if args.jobs:
+            try:
+                specs = load_jobs_manifest(args.jobs)
+            except (OSError, ValueError) as e:
+                print(f"serve: {e}", file=sys.stderr)
+                return 2
+        listen = None
+        if args.listen:
+            from adam_tpu_torch.gateway.protocol import parse_listen
+
+            try:
+                listen = parse_listen(args.listen)
+            except ValueError as e:
+                print(f"serve: {e}", file=sys.stderr)
+                return 2
+        svc = TransformService(
+            args.run_root,
+            max_jobs=args.max_jobs,
+            devices=getattr(args, "devices", None),
+            partitioner=getattr(args, "partitioner", None),
+            job_retries=args.job_retries,
+            batching=args.batch,
+            quota=args.quota,
+            slo=args.slo,
+            device=args.device,
+        )
+        gw = None
+        if listen is not None:
+            from adam_tpu_torch.gateway.server import GatewayServer
+
+            gw = GatewayServer(svc, *listen)
+            gw.start()
+            print(f"serve: gateway listening on {gw.url} "
+                  f"(discovery: {args.run_root}/gateway.json)")
+        # SIGTERM/SIGINT = graceful drain: the handler only flips an
+        # event (signal-safe); the submission loop below performs the
+        # actual drain — admissions stop, every job finishes its
+        # in-flight windows, fsyncs its journal, and we exit 0
+        drain_req = threading.Event()
+        prev_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(
+                    sig, lambda _s, _f: drain_req.set()
+                )
+            except (ValueError, OSError):  # non-main thread / platform
+                pass
+        drained = False
+        try:
+            recovered = svc.recover()
+            if recovered:
+                print(f"serve: resumed {len(recovered)} incomplete "
+                      f"job(s) from {args.run_root}: "
+                      f"{', '.join(recovered)}")
+            tracked = set(svc.status()["jobs"])
+            pending = deque(s for s in specs if s.job_id not in tracked)
+            skipped = len(specs) - len(pending)
+            if skipped:
+                print(f"serve: {skipped} manifest job(s) already "
+                      "tracked in the run root; not resubmitting")
+            while True:
+                if drain_req.is_set() and not drained:
+                    # drain ordering (docs/SERVING.md): the gateway
+                    # stops accepting FIRST (new submissions bounce
+                    # with a typed 503 while live event streams and
+                    # part fetches keep flowing), then the scheduler
+                    # drains every lane to a window boundary
+                    if gw is not None:
+                        gw.stop_accepting()
+                    svc.request_drain()
+                    drained = True
+                    pending.clear()
+                # has_capacity gates the poll so waiting for a slot
+                # doesn't count one sched.jobs.rejected per tick
+                if pending and svc.scheduler.has_capacity():
+                    got = svc.submit(pending[0])
+                    if isinstance(got, Admitted):
+                        print(f"serve: admitted {got.job_id}")
+                        pending.popleft()
+                        continue
+                    if got.kind != "capacity":
+                        print(f"serve: {pending[0].job_id} refused "
+                              f"({got.reason})", file=sys.stderr)
+                        pending.popleft()
+                        continue
+                    # lost a capacity race: poll for a freed slot below
+                if not pending and svc.wait(timeout=0.25):
+                    # a gateway keeps the service alive for remote
+                    # submissions until a drain is requested — idle is
+                    # the steady state, not the exit condition, and it
+                    # must BLOCK (on the drain signal, for a prompt
+                    # SIGTERM response), not spin through instant
+                    # wait() returns
+                    if gw is None or drained:
+                        break
+                    drain_req.wait(timeout=0.25)
+                if pending:
+                    time_mod.sleep(0.1)
+        finally:
+            for sig, h in prev_handlers.items():
+                try:
+                    signal.signal(sig, h)
+                except (ValueError, OSError):
+                    pass
+            # settled before the listener dies: close() ends event
+            # streams only after every JOB.json above is durable
+            if gw is not None:
+                gw.close()
+            svc.close()
+        status = svc.status()
+        bad = 0
+        for jid, view in sorted(status["jobs"].items()):
+            line = f"serve: job {jid}: {view['state']}"
+            if view.get("windows_durable"):
+                # parts, not windows: the realign tail part rides past
+                # the window plan, so the count can exceed n_windows
+                line += f" ({view['windows_durable']} durable part(s))"
+            if view.get("error"):
+                line += f" — {view['error']}"
+            print(line)
+            if view["state"] == "quarantined":
+                bad += 1
+        if drained:
+            print("serve: drained cleanly (journals durable; rerun "
+                  "this command to resume)")
+            return 0
+        return 1 if bad else 0
+
+
+class _GatewayCommand(Command):
+    checks_device = False  # a client of a gateway: the server's card does the work
+
+    """Shared plumbing for the remote-client verbs: URL resolution
+    (a gateway URL or a serve run-root with gateway.json) and the
+    connection-error -> exit-2 convention."""
+
+    @staticmethod
+    def client(args):
+        from adam_tpu_torch.gateway.client import GatewayClient, resolve_url
+
+        return GatewayClient(resolve_url(args.url))
+
+    @staticmethod
+    def add_url(p):
+        p.add_argument(
+            "url", metavar="URL|RUN_ROOT",
+            help="gateway address (http://host:port) or a serve "
+            "run-root directory carrying gateway.json (written by "
+            "'serve --listen')",
+        )
+
+
+class Submit(_GatewayCommand):
+    """Remote job submission over the HTTP gateway (``gateway/``;
+    docs/SERVING.md): idempotency-keyed PUTs, duplicate-safe across
+    client retries and gateway restarts, honoring 429/503 Retry-After
+    with the retry policy's seeded-jitter backoff."""
+
+    name = "submit"
+    description = ("Submit transform jobs to a running adam-tpu "
+                   "gateway over HTTP (idempotent, back-pressure "
+                   "aware)")
+
+    @classmethod
+    def configure(cls, p):
+        cls.add_url(p)
+        p.add_argument(
+            "--jobs", dest="jobs", required=True, metavar="FILE",
+            help="JSON jobs manifest (the 'serve --jobs' "
+            "format; see adam_tpu_torch/api/transform_service.py)",
+        )
+        p.add_argument(
+            "--deadline", dest="deadline", type=float, default=None,
+            metavar="S",
+            help="give up on back-pressured submissions after S "
+            "seconds (default: wait as long as the gateway says to)",
+        )
+        p.add_argument(
+            "--wait", dest="wait", action="store_true",
+            help="after submitting, poll until every job reaches a "
+            "terminal state (exit 1 if any quarantined)",
+        )
+
+    @classmethod
+    def run(cls, args):
+        from adam_tpu_torch.api.transform_service import load_jobs_manifest
+        from adam_tpu_torch.gateway.client import GatewayBusy, GatewayError
+
+        try:
+            specs = load_jobs_manifest(args.jobs)
+        except (OSError, ValueError) as e:
+            print(f"submit: {e}", file=sys.stderr)
+            return 2
+        try:
+            client = cls.client(args)
+        except ValueError as e:
+            print(f"submit: {e}", file=sys.stderr)
+            return 2
+        try:
+            for spec in specs:
+                got = client.submit_with_retry(
+                    spec.job_id, spec.to_doc(),
+                    deadline_s=args.deadline,
+                )
+                state = got.get("state", "?")
+                dup = " (already submitted)" if got.get("duplicate") \
+                    else ""
+                print(f"submit: {spec.job_id}: {state}{dup}")
+        except GatewayBusy as e:
+            print(f"submit: {e}", file=sys.stderr)
+            return 1
+        except (GatewayError, OSError) as e:
+            print(f"submit: {e}", file=sys.stderr)
+            return 2
+        if not args.wait:
+            return 0
+        bad = 0
+        try:
+            for spec in specs:
+                view = client.wait(spec.job_id)
+                print(f"submit: {spec.job_id} -> {view['state']}")
+                if view["state"] == "quarantined":
+                    bad += 1
+        except (GatewayError, OSError) as e:
+            print(f"submit: {e}", file=sys.stderr)
+            return 2
+        return 1 if bad else 0
+
+
+class ServiceStatus(_GatewayCommand):
+    """Point-in-time service (or per-job) status over the gateway."""
+
+    name = "status"
+    description = ("Print a running adam-tpu gateway's service status "
+                   "(or one job's) as JSON")
+
+    @classmethod
+    def configure(cls, p):
+        cls.add_url(p)
+        p.add_argument("job", metavar="JOB", nargs="?", default=None,
+                       help="one job id (default: the whole service)")
+
+    @classmethod
+    def run(cls, args):
+        import json
+
+        from adam_tpu_torch.gateway.client import GatewayError
+
+        try:
+            doc = cls.client(args).status(args.job)
+        except ValueError as e:
+            print(f"status: {e}", file=sys.stderr)
+            return 2
+        except (GatewayError, OSError) as e:
+            print(f"status: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps(doc, indent=1, default=str))
+        return 0
+
+
+class FetchResults(_GatewayCommand):
+    """Byte-exact result download over the gateway: every published
+    part of the job, sha256-verified, Range-resumable — a fetch
+    SIGKILLed mid-download reruns and completes from where it died
+    (docs/SERVING.md resumable-fetch semantics)."""
+
+    name = "fetch"
+    description = ("Download a job's output parts from a gateway "
+                   "(sha256-verified, Range-resumable)")
+
+    @classmethod
+    def configure(cls, p):
+        cls.add_url(p)
+        p.add_argument("job", metavar="JOB")
+        p.add_argument("dest", metavar="DEST_DIR",
+                       help="local directory the parts land in")
+
+    @classmethod
+    def run(cls, args):
+        from adam_tpu_torch.gateway.client import GatewayError
+
+        try:
+            client = cls.client(args)
+            fetched = client.fetch(args.job, args.dest)
+        except ValueError as e:
+            print(f"fetch: {e}", file=sys.stderr)
+            return 2
+        except GatewayError as e:
+            print(f"fetch: {e}", file=sys.stderr)
+            return 1
+        except OSError as e:
+            print(f"fetch: {e}", file=sys.stderr)
+            return 2
+        for name in sorted(fetched):
+            print(f"fetch: {name} -> {fetched[name]} (sha256 verified)")
+        if not fetched:
+            print(f"fetch: job {args.job!r} has no published parts yet",
+                  file=sys.stderr)
+            return 1
+        return 0
+
+
+class CancelJob(_GatewayCommand):
+    """Cancel one running job at its next window boundary: in-flight
+    parts publish, the journal stays durable and resumable, the job
+    lands 'interrupted' (a re-submission resumes it)."""
+
+    name = "cancel"
+    description = ("Cancel a running job on a gateway at its next "
+                   "window boundary (journal stays resumable)")
+
+    @classmethod
+    def configure(cls, p):
+        cls.add_url(p)
+        p.add_argument("job", metavar="JOB")
+
+    @classmethod
+    def run(cls, args):
+        from adam_tpu_torch.gateway.client import GatewayError
+
+        try:
+            doc = cls.client(args).cancel(args.job)
+        except ValueError as e:
+            print(f"cancel: {e}", file=sys.stderr)
+            return 2
+        except GatewayError as e:
+            print(f"cancel: {e}", file=sys.stderr)
+            return 1
+        except OSError as e:
+            print(f"cancel: {e}", file=sys.stderr)
+            return 2
+        print(f"cancel: {doc.get('job_id')} cancelling (stops at its "
+              "next window boundary; journal stays resumable)")
+        return 0
+
+
 class Adam2Fastq(Command):
     name = "adam2fastq"
     description = "Convert BAM to FASTQ files"
@@ -357,6 +795,11 @@ COMMANDS = [
     CountReadKmers,
     CountContigKmers,
     Transform,
+    Serve,
+    Submit,
+    ServiceStatus,
+    FetchResults,
+    CancelJob,
     Adam2Fastq,
     PluginExecutor,
     Flatten,

@@ -145,12 +145,13 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 def command_groups():
     """(group name, commands) in JAX's groups and order, for the verbs the
     port has."""
-    from adam_tpu_torch.cli import actions, conversions, printers
+    from adam_tpu_torch.cli import actions, conversions, devtools, printers
 
     return [
         ("ADAM ACTIONS", actions.COMMANDS),
         ("CONVERSION OPERATIONS", conversions.COMMANDS),
         ("PRINT", printers.COMMANDS),
+        ("DEVELOPMENT", devtools.COMMANDS),
     ]
 
 

@@ -280,6 +280,70 @@ class Analyze(Command):
         return 0
 
 
+class Incidents(Command):
+    """List the anomaly-triggered incident bundles a run (or serve
+    run-root) recorded (utils/incidents.py): one row per bundle —
+    trigger, device, window, trace id, reason — newest last.  Each
+    bundle is a self-contained JSON file carrying the flight-recorder
+    ring tail, a metrics snapshot, the health board, and the
+    triggering job's Chrome trace; point ``adam-tpu analyze`` at a
+    telemetry artifact beside them for the folded report view."""
+
+    name = "incidents"
+    checks_device = False
+    description = ("List anomaly-triggered incident bundles under a "
+                   "run dir or serve run-root (trigger, device, "
+                   "window, trace id; bundles are self-contained JSON)")
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument(
+            "run_dir", metavar="RUN_DIR",
+            help="a run dir or serve run-root (bundles live under its "
+            "incidents/ subdirectory), or the incidents/ dir itself",
+        )
+        p.add_argument(
+            "-json", dest="json_out", action="store_true",
+            help="print the bundle summaries as JSON instead of a table",
+        )
+
+    @classmethod
+    def run(cls, args):
+        import json
+        import time as time_mod
+
+        from adam_tpu_torch.utils import incidents as incidents_mod
+
+        rows = incidents_mod.list_bundles(args.run_dir)
+        if args.json_out:
+            print(json.dumps(
+                {"schema": incidents_mod.INCIDENT_SCHEMA + "+list",
+                 "incidents": rows}, indent=1,
+            ))
+            return 0
+        if not rows:
+            print(f"incidents: none under {args.run_dir}")
+            return 0
+        print(f"{'WHEN':<20} {'TRIGGER':<18} {'DEVICE':<14} "
+              f"{'WINDOW':>6} {'TRACE':<17} REASON")
+        for r in rows:
+            ts = r.get("ts")
+            when = (
+                time_mod.strftime("%Y-%m-%d %H:%M:%S",
+                                  time_mod.localtime(ts))
+                if isinstance(ts, (int, float)) else "-"
+            )
+            window = r.get("window")
+            print(
+                f"{when:<20} {str(r.get('trigger') or '-'):<18} "
+                f"{str(r.get('device') or '-'):<14} "
+                f"{window if window is not None else '-':>6} "
+                f"{str(r.get('trace_id') or '-'):<17} "
+                f"{r.get('reason') or ''}"
+            )
+        return 0
+
+
 COMMANDS = [
     PrintAdam,
     PrintGenes,
@@ -290,6 +354,7 @@ COMMANDS = [
     BuildInformation,
     View,
     Analyze,
+    Incidents,
 ]
 
 

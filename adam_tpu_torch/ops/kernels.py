@@ -167,40 +167,47 @@ def launch(name: str, *args, device, variant: str | None = None) -> None:
     with torch.cuda.device(device):
         stream = _stream_handle(device)
         rc = getattr(library(name), f"{name}_launch")(*args, stream)
-    if in_prewarm():
-        # a device pool's prewarm: counted apart from the main path's work
-        _PREWARM_LAUNCHES[name] += 1
-        if rc != 0:
-            raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
-        return
-    _LAUNCHES[name] += 1
-    dkey = (name, str(device))
-    _DEVICE_LAUNCHES[dkey] = _DEVICE_LAUNCHES.get(dkey, 0) + 1
+    prewarm = in_prewarm()
     slot = getattr(_SLOT_TLS, "index", None)
-    if slot is not None:
-        skey = (name, slot)
-        _SLOT_LAUNCHES[skey] = _SLOT_LAUNCHES.get(skey, 0) + 1
-    if variant is not None:
-        key = f"{name}:{variant}"
-        _VARIANT_LAUNCHES[key] = _VARIANT_LAUNCHES.get(key, 0) + 1
+    # the counts are read-modify-writes on shared dicts, and kernels launch
+    # from several threads at once (a service's jobs, its coalescer, the
+    # realign's overlap work): every update and every read holds the lock
+    with _LOCK:
+        if prewarm:
+            # a device pool's prewarm: counted apart from the main path's work
+            _PREWARM_LAUNCHES[name] += 1
+        else:
+            _LAUNCHES[name] += 1
+            dkey = (name, str(device))
+            _DEVICE_LAUNCHES[dkey] = _DEVICE_LAUNCHES.get(dkey, 0) + 1
+            if slot is not None:
+                skey = (name, slot)
+                _SLOT_LAUNCHES[skey] = _SLOT_LAUNCHES.get(skey, 0) + 1
+            if variant is not None:
+                key = f"{name}:{variant}"
+                _VARIANT_LAUNCHES[key] = _VARIANT_LAUNCHES.get(key, 0) + 1
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
 
 
 def launches() -> dict:
     """Kernel name -> launches since the last :func:`reset_launches`."""
-    return dict(_LAUNCHES)
+    with _LOCK:
+        return dict(_LAUNCHES)
 
 
 def variant_launches() -> dict:
     """``"<kernel>:<variant>"`` -> launches since the last reset."""
-    return dict(_VARIANT_LAUNCHES)
+    with _LOCK:
+        return dict(_VARIANT_LAUNCHES)
 
 
 def device_launches() -> dict:
     """Kernel name -> {device ("cuda:K") -> launches} since the last reset."""
     out: dict = {}
-    for (name, dev), n in _DEVICE_LAUNCHES.items():
+    with _LOCK:
+        items = list(_DEVICE_LAUNCHES.items())
+    for (name, dev), n in items:
         out.setdefault(name, {})[dev] = n
     return out
 
@@ -209,7 +216,9 @@ def slot_launches() -> dict:
     """Kernel name -> {pool slot index -> launches} since the last reset
     (launches made inside a slot's scope only)."""
     out: dict = {}
-    for (name, slot), n in _SLOT_LAUNCHES.items():
+    with _LOCK:
+        items = list(_SLOT_LAUNCHES.items())
+    for (name, slot), n in items:
         out.setdefault(name, {})[slot] = n
     return out
 
@@ -217,13 +226,15 @@ def slot_launches() -> dict:
 def prewarm_launches() -> dict:
     """Kernel name -> launches made under a device pool's prewarm since
     the last reset (in none of the other counts)."""
-    return dict(_PREWARM_LAUNCHES)
+    with _LOCK:
+        return dict(_PREWARM_LAUNCHES)
 
 
 def reset_launches() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-        _PREWARM_LAUNCHES[name] = 0
-    _VARIANT_LAUNCHES.clear()
-    _DEVICE_LAUNCHES.clear()
-    _SLOT_LAUNCHES.clear()
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+            _PREWARM_LAUNCHES[name] = 0
+        _VARIANT_LAUNCHES.clear()
+        _DEVICE_LAUNCHES.clear()
+        _SLOT_LAUNCHES.clear()

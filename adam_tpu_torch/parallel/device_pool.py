@@ -642,6 +642,12 @@ def hedged_call(primary_fn, hedge_fn, threshold_s: float, tracer=None):
             return val, "primary", False
         raise val
     tr.count(tele.C_HEDGE_FIRED)
+    from adam_tpu_torch.utils import incidents
+
+    incidents.maybe_record(
+        "hedge.fired", trace_id=caller_trace or tr.trace, tracer=tr,
+        reason="in-flight window exceeded its %.3fs hedge threshold" % threshold_s,
+    )
     try:
         hedged = hedge_fn()
     except Exception as e:

@@ -77,6 +77,19 @@ log = logging.getLogger(__name__)
 
 _SENTINEL = object()
 
+#: A pass-B window whose observe rode the cross-job coalescer: its future
+#: waits on the caller's ``defer`` list until every window has submitted.
+_DEFERRED = object()
+
+
+class RunCancelled(BaseException):
+    """A cooperative stop at a window boundary (the service's drain or a
+    job cancel), raised out of the ``pacer`` hook.  In pass C the writer
+    pool closes gracefully first, so every part already submitted
+    publishes and journals, and the resume starts right past them.  A
+    ``BaseException`` so that no device recovery path, which catches
+    ``Exception``, takes a drain for a card failure."""
+
 
 def _ingest_windows(path: str, window_reads: int, out_q: queue.Queue,
                     abort: threading.Event, tr: tele.Tracer) -> None:
@@ -160,19 +173,23 @@ def run_fingerprint(path: str, *, mark_duplicates: bool, recalibrate: bool,
     })
 
 
-def _start_heartbeat(tr: tele.Tracer, progress: Optional[str]):
+def _start_heartbeat(tr: tele.Tracer, progress: Optional[str],
+                     include_global: bool = True):
     """Build and start the live progress heartbeat, or None (the default:
     nothing is constructed).  As in the JAX package it samples the run
     tracer and the global ``TRACE`` (the fault counter lands on the
     latter); when no other sink already switched global recording on, it
     is switched on for the heartbeat's life and :func:`_stop_heartbeat`
     restores the flag and resets the tracer, so back-to-back runs in one
-    process cannot sum each other's counters into a beat."""
+    process cannot sum each other's counters into a beat.
+    ``include_global=False`` (a service job) samples the run tracer
+    alone: concurrent jobs fold their tracers into ``TRACE`` as they
+    finish, and a survivor's beat must not count its neighbours' work."""
     sink = progress if progress is not None else tele.progress_sink_from_env()
     if not sink:
         return None
-    hb = tele.Heartbeat([tr, tele.TRACE], sink)
-    hb._hb_restore_recording = not tele.TRACE.recording
+    hb = tele.Heartbeat([tr, tele.TRACE] if include_global else [tr], sink)
+    hb._hb_restore_recording = include_global and not tele.TRACE.recording
     if hb._hb_restore_recording:
         tele.TRACE.recording = True
     hb.start()
@@ -218,6 +235,9 @@ def transform_streamed(
     devices: Optional[int] = None,
     partitioner: Optional[str] = None,
     device_pool=None,
+    pacer=None,
+    coalescer=None,
+    trace: Optional[str] = None,
     device: str = "cuda",
 ) -> dict:
     """Run the streamed markdup + realign + BQSR transform -> stats (stage
@@ -289,14 +309,38 @@ def transform_streamed(
     pass-C windows against the plain version on the CPU (a mismatch
     quarantines the slot and replays the window on another), and
     ``ADAM_TPU_HEDGE_FACTOR`` hedges late ones.  The parts are the same
-    bytes on every device set."""
+    bytes on every device set.
+
+    The service's seams (``serve/``), as in the JAX package: ``pacer(phase,
+    index, size)`` is called once per window at pass A and once per part
+    at pass C (``size`` the window's bytes); the scheduler's fairness
+    interleaver blocks there, and raises :class:`RunCancelled` to stop the
+    run at that boundary (parts already submitted still publish and
+    journal).  ``coalescer`` (a ``serve/batching.CoalescerClient``) sends
+    this run's markdup, observe and apply dispatches to the cross-job
+    coalescer, which fuses concurrent jobs' windows into one dispatch per
+    pass on the card; a window whose fused dispatch fails re-dispatches on
+    this run's own path.  A coalesced run keeps pass B and pass C apart
+    (no fused B->C tier).  ``trace`` is the job's trace id (minted when
+    None).  With ``run_dir`` the incident recorder arms on it unless one
+    is armed already (``utils/incidents.py``), and every completed run
+    books its perf keys into the armed perf ledger's root, else its
+    ``run_dir`` (``utils/perfledger.py``).  None of these changes an
+    output byte."""
+    from adam_tpu_torch.utils import incidents
+
     tr = tele.Tracer(recording=True)
-    trace = tele.mint_trace_id()
+    if trace is None:
+        trace = tele.mint_trace_id()
     tr.set_trace(trace)
     tele.activate_trace(trace)
-    hb = _start_heartbeat(tr, progress)
+    armed_incidents = False
+    if run_dir is not None and not incidents.installed():
+        incidents.install(run_dir)
+        armed_incidents = True
+    hb = _start_heartbeat(tr, progress, include_global=pacer is None)
     try:
-        return _transform_streamed_impl(
+        stats = _transform_streamed_impl(
             path, out_path, tr, hb,
             mark_duplicates=mark_duplicates, recalibrate=recalibrate,
             realign=realign, known_snps=known_snps, known_indels=known_indels,
@@ -307,8 +351,21 @@ def transform_streamed(
             lod_threshold=lod_threshold, max_target_size=max_target_size,
             dump_observations=dump_observations, known_table=known_table,
             run_dir=run_dir, resume=resume, devices=devices,
-            partitioner=partitioner, device_pool=device_pool, device=device,
+            partitioner=partitioner, device_pool=device_pool, pacer=pacer,
+            coalescer=coalescer, device=device,
         )
+        # perf-ledger booking: the armed ledger root (the service's), else
+        # this run's own run_dir; a flagged regression records an incident
+        # and charges the SLO budget.  Booking never fails the run.
+        from adam_tpu_torch.utils import perfledger
+
+        ledger_root = perfledger.ledger_root() or run_dir
+        if ledger_root is not None and perfledger.booking_enabled():
+            try:
+                perfledger.sentinel(ledger_root, tr.snapshot(), run_id=trace)
+            except Exception:
+                log.warning("perf-ledger booking failed", exc_info=True)
+        return stats
     except BaseException:
         # a crashed run's last heartbeat line carries ok=false
         _stop_heartbeat(hb, ok=False)
@@ -316,6 +373,8 @@ def transform_streamed(
     finally:
         _stop_heartbeat(hb)  # a no-op after the normal finish
         tele.deactivate_trace(trace)
+        if armed_incidents:
+            incidents.uninstall()
 
 
 def _inflight_per_device(queues: list, solo_key: str) -> dict:
@@ -334,6 +393,8 @@ def _inflight_per_device(queues: list, solo_key: str) -> dict:
             slot = item[1]
             if isinstance(slot, Slot):
                 key = str(slot.id) if slot.attributed else solo_key
+            elif slot == "batch":  # a ticket of the cross-job coalescer
+                key = "batch"
             else:  # the mesh partitioner
                 key = "mesh"
             per[key] = per.get(key, 0) + 1
@@ -352,7 +413,7 @@ def _transform_streamed_impl(
     realign, known_snps, known_indels, consensus_model, window_reads,
     compression, n_writers, max_indel_size, max_consensus_number,
     lod_threshold, max_target_size, dump_observations, known_table, run_dir,
-    resume, devices, partitioner, device_pool, device,
+    resume, devices, partitioner, device_pool, pacer, coalescer, device,
 ) -> dict:
     from adam_tpu_torch.io.parquet import (
         PartWriterPool, part_index, part_path, purge_stale_staging,
@@ -402,6 +463,14 @@ def _transform_streamed_impl(
             part_mod.healthy_subset(mesh_slots, health_board))
     exec_state = {"mesh": mesh_part, "mode": "mesh" if mesh_part is not None else "pool"}
     stats["partitioner"] = exec_state["mode"]
+    # cross-job batching (serve/batching.py): every hook below skips the
+    # coalescer while the mesh is live (the mesh already fuses the slots)
+    stats["batched"] = coalescer is not None
+
+    def win_nbytes(b) -> int:
+        """A window's grant size for the fairness ring and the quota: the
+        per-residue payload the device passes move."""
+        return int(b.bases.nbytes) + int(b.quals.nbytes)
 
     if known_indels is not None and consensus_model == "reads":
         # known indels imply the knowns consensus model (the reference's
@@ -444,7 +513,7 @@ def _transform_streamed_impl(
     # which observes again only for the CSV), each eligible window's
     # observe and apply + pack run back to back
     fused_np = None
-    if recalibrate and bqsr.fused_bc_enabled():
+    if recalibrate and coalescer is None and bqsr.fused_bc_enabled():
         if known_np is not None:
             fused_np = known_np
         elif journal is not None and journal.resumed and dump_observations:
@@ -685,10 +754,18 @@ def _transform_streamed_impl(
     header = None
     n_reads = 0
 
-    def md_dispatch(win, batch):
+    def md_dispatch(win, batch, coalesce=True):
         """Dispatch window ``win``'s markdup reductions -> (slot | "mesh",
-        lazy cols), the mesh degrading to the pool on a failure."""
+        lazy cols), the mesh degrading to the pool on a failure; with a
+        coalescer, ("batch", future) (``coalesce=False`` is the fallback
+        of a failed fused dispatch)."""
         mp = exec_state["mesh"]
+        if coalesce and coalescer is not None and mp is None:
+            try:
+                return "batch", coalescer.submit_markdup(win, batch, resident_map.get(win))
+            except Exception as e:
+                log.warning("coalesced markdup submit of window %d failed (%s); "
+                            "dispatching on the job's own path", win, e)
         if mp is not None:
             try:
                 cols = md.markdup_columns(batch, resident_map[win], mesh=mp)
@@ -707,6 +784,19 @@ def _transform_streamed_impl(
 
     def summarize(win, where, cols):
         n = windows[win].batch.n_rows
+        if where == "batch":
+            # a coalesced window: host (five, score), bitwise the solo
+            # columns; a failed fused dispatch re-dispatches on this run's
+            # own path
+            try:
+                five, score = cols.result()
+            except Exception as e:
+                log.warning("coalesced markdup of window %d fell back to the job's "
+                            "own dispatch (%s)", win, e)
+                where, cols = md_dispatch(win, windows[win].batch, coalesce=False)
+            else:
+                summaries.append(md.row_summary(windows[win], five, score))
+                return
         while True:
             on_mesh = not isinstance(where, dp.Slot)
             try:
@@ -750,6 +840,10 @@ def _transform_streamed_impl(
                 # one arrival per pass-A window, before its device work
                 # (where the JAX package arrives)
                 faults.point("proc.kill", device="pass_a")
+                # the service's fairness turn (or RunCancelled: nothing of
+                # this window is in flight yet, so a resume runs it again)
+                if pacer is not None:
+                    pacer("pass_a", win, win_nbytes(batch))
                 prewarm_window_shapes(windows[win])
                 make_resident(win, windows[win])
                 if mark_duplicates:
@@ -850,12 +944,14 @@ def _transform_streamed_impl(
 
         return replay
 
-    def observe_window(i, w):
+    def observe_window(i, w, defer=None, coalesce=True):
         """Observe window ``i`` -> ((total, mism, g), replay hook, slot), or
-        None when its histograms went into the mesh's accumulator.  A
-        journaled sidecar loads instead; with the fused tier armed (and the
-        window's part still to write) the window's apply + pack follows from
-        the same dispatch."""
+        None when its histograms went into the mesh's accumulator, or
+        ``_DEFERRED`` when it rode the coalescer and its future waits on
+        ``defer``.  A journaled sidecar loads instead; with the fused tier
+        armed (and the window's part still to write) the window's apply +
+        pack follows from the same dispatch.  ``coalesce=False`` is the
+        fallback of a failed fused dispatch."""
         if journal is not None and journal.resumed:
             got = journal.load_observation(i)
             if got is not None:
@@ -892,6 +988,25 @@ def _transform_streamed_impl(
                     fused_handles[i] = (mp, handle)
                 return None
 
+        if coalesce and coalescer is not None and exec_state["mesh"] is None:
+            # the window's band of the fused histogram is bitwise its solo
+            # histogram; a failed submit or dispatch takes the own path
+            try:
+                fut = coalescer.submit_observe(i, w, known_snps, resident_map.get(i))
+            except Exception as e:
+                log.warning("coalesced observe submit of window %d failed (%s); "
+                            "dispatching on the job's own path", i, e)
+            else:
+                if defer is not None:
+                    defer.append((i, w, fut))
+                    return _DEFERRED
+                try:
+                    with tele.pass_scope("observe"):
+                        return fut.result(), None, None
+                except Exception as e:
+                    log.warning("coalesced observe of window %d fell back to the "
+                                "job's own dispatch (%s)", i, e)
+
         def on_slot(slot):
             rw = resident_on(i, w, slot)
             got = None
@@ -914,12 +1029,27 @@ def _transform_streamed_impl(
         if not recalibrate or resume_table is not None:
             return
         with tr.span(tele.SPAN_OBSERVE):
+            # coalesced windows resolve after every window has submitted:
+            # the coalescer sees the job's whole window set at once
+            deferred: list = []
             for i, w in enumerate(windows):
                 if window_valid[i]:
                     faults.point("proc.kill", device="pass_b")
-                    got = observe_window(i, w)
+                    got = observe_window(i, w, defer=deferred)
+                    if got is _DEFERRED:
+                        continue
                     if got is not None:
                         add_part(i, got)
+            for i, w, fut in deferred:
+                try:
+                    with tele.pass_scope("observe"):
+                        got = (fut.result(), None, None)
+                except Exception as e:
+                    log.warning("coalesced observe of window %d fell back to the "
+                                "job's own dispatch (%s)", i, e)
+                    got = observe_window(i, w, coalesce=False)
+                if got is not None:
+                    add_part(i, got)
 
     # ---- tail: realign the candidates (observing under the sweeps), then
     # observe the realigned part ----------------------------------------
@@ -1082,7 +1212,14 @@ def _transform_streamed_impl(
         tracer=tr,
     )
 
+    def pace_c(i, batch):
+        # one fairness turn per part; a RunCancelled here closes the writer
+        # pool gracefully below (this part re-runs on resume)
+        if pacer is not None:
+            pacer("pass_c", i, win_nbytes(batch))
+
     def submit(i, done):
+        pace_c(i, done[0].batch)
         faults.point("proc.kill", device="pass_c")
         pool.submit(part_path(out_path, i), *_submit_args(done))
         release_resident(i)
@@ -1129,6 +1266,12 @@ def _transform_streamed_impl(
         log.error("SDC audit: window %d's card result does not match the CPU "
                   "recompute; quarantining %s and replaying the window", i,
                   f"slot {prod.key}" if isinstance(prod, dp.Slot) else "the mesh")
+        from adam_tpu_torch.utils import incidents
+
+        incidents.maybe_record(
+            "audit.mismatch", device=attrs.get("device"), window=i,
+            trace_id=tr.trace, tracer=tr,
+            reason="SDC dual-compute mismatch on window %d; the window replays" % i)
         if not isinstance(prod, dp.Slot):
             mesh_degrade(RuntimeError(f"sdc audit mismatch on window {i}"),
                          "pass-C audit")
@@ -1194,12 +1337,47 @@ def _transform_streamed_impl(
             done = audit(i, prod if prod is not None else pick_slot(i), w, done)
         return done
 
-    pend: deque = deque()  # (window, slot | "mesh", handle)
+    def finish_batched(i, fut):
+        """A coalesced window's result; a failed fused dispatch re-applies
+        on this run's own card path.  A sampled audit that mismatches
+        replays the window there too (a fused dispatch has no single slot
+        to quarantine)."""
+        w = fut.dataset
+        try:
+            with tr.span(tele.SPAN_APPLY_FETCH, window=i, device="batch"):
+                done = fut.result()
+        except Exception as e:
+            log.warning("coalesced apply of window %d fell back to the job's own "
+                        "dispatch (%s)", i, e)
+            return on_survivors(i, lambda nd: apply_on(i, w, nd))
+        if sdc_audit_rate > 0 and health_mod.audit_due(i, sdc_audit_rate):
+            tr.count(tele.C_AUDIT_SAMPLED)
+            with tr.span(tele.SPAN_AUDIT_CHECK, window=i, device="batch"):
+                ok = bqsr.packed_equal(done[1], bqsr.apply_reference(w, table))
+            if not ok:
+                tr.count(tele.C_AUDIT_MISMATCH)
+                from adam_tpu_torch.utils import incidents
+
+                incidents.maybe_record(
+                    "audit.mismatch", window=i, trace_id=tr.trace, tracer=tr,
+                    reason="SDC dual-compute mismatch on coalesced window %d; "
+                           "the window replays on the job's own path" % i)
+                slot = pick_slot(i)
+                with tr.span(tele.SPAN_POOL_REPLAY, window=i, device="batch"), \
+                        dp.replay_scope():
+                    again = apply_on(i, w, slot)
+                done = audit(i, slot, w, again)
+        return done
+
+    pend: deque = deque()  # (window, slot | "mesh" | "batch", handle)
     inflight.append(pend)
 
     def fetch_one():
         i, where, h = pend[0]
-        done = finish_checked(i, where, h)
+        if where == "batch":
+            done = finish_batched(i, h)
+        else:
+            done = finish_checked(i, where, h)
         pend.popleft()
         submit(i, done)
 
@@ -1271,6 +1449,21 @@ def _transform_streamed_impl(
             tr.add_span(tele.SPAN_POOL_PREWARM_C, t_pwc, time.monotonic_ns() - t_pwc)
         apply_depth = 2 if dpool is None else 2 * dpool.n
         for i in plist:
+            if coalescer is not None:
+                # the window's apply rides a fused dispatch; its future joins
+                # the in-flight queue like a handle
+                try:
+                    fut = coalescer.submit_apply(i, windows[i], table,
+                                                 resident=resident_map.get(i))
+                except Exception as e:
+                    log.warning("coalesced apply submit of window %d failed (%s); "
+                                "dispatching on the job's own path", i, e)
+                else:
+                    pend.append((i, "batch", fut))
+                    tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
+                    if len(pend) >= apply_depth:
+                        fetch_one()
+                    continue
             # a fused window's columns are already computed: fetch only
             fh = fused_handles.pop(i, None)
             if fh is not None and isinstance(fh[0], dp.Slot):
@@ -1304,12 +1497,20 @@ def _transform_streamed_impl(
             else:
                 for i in parts:
                     w = windows[i]
+                    pace_c(i, w.batch)
                     faults.point("proc.kill", device="pass_c")
                     pool.submit(part_path(out_path, i), w.batch, w.sidecar, w.header)
                     release_resident(i)
                     windows[i] = None
         with tr.span(tele.SPAN_WRITE_WAIT):
             pool.close()
+    except RunCancelled:
+        # a drain at a pass-C boundary: every part already submitted
+        # publishes and journals before the cancellation propagates (a
+        # writer error raised by this close replaces it)
+        with tr.span(tele.SPAN_WRITE_WAIT):
+            pool.close()
+        raise
     except BaseException:
         pool.close(abort=True)
         raise

@@ -29,25 +29,28 @@ selector reads the thread's ``utils/telemetry.pass_scope``, and each
 injection counts ``fault.injected`` on the global tracer, as in JAX.
 
 The port parses every site and action the JAX package knows, with the
-same messages, but arms only the sites it has (:data:`ARMED_POINTS`):
+same messages, and arms every site (:data:`ARMED_POINTS`):
 
 * ``proc.kill`` with the phase in the ``device`` slot: ``ingest`` (per
   tokenized window, on the ingest thread), ``pass_a`` (per pass-A
   window), ``pass_b`` (per observed window), ``fused_bc`` (per fused B->C
   dispatch), ``barrier2`` (at the merge's entry and after the table is
-  journaled), ``pass_c`` (per fresh part submit) and ``write`` (after
-  each part's durable publish);
+  journaled), ``pass_c`` (per fresh part submit), ``write`` (after each
+  part's durable publish) and ``batch`` (per fused cross-job dispatch);
 * ``parquet.encode`` (the writer pool's encoder) and ``parquet.write``
   (before a part's staging write);
 * ``device.dispatch`` (before each window's device work, attributed to
   the pool slot's id: ``device=1`` is slot 1), ``device.fetch`` (each
   ``utils/transfer.device_fetch``; its ``corrupt`` action flips one bit
   of the fetched array through :func:`corrupt_array`, which the SDC audit
-  catches) and ``pool.prewarm`` (each prewarm launch of a slot).
-
-:func:`install` refuses a spec naming any other site, naming the ROADMAP
-queue 1 item that will arm it: a clause that can never fire must not test
-nothing in silence.
+  catches) and ``pool.prewarm`` (each prewarm launch of a slot);
+* the service's sites (``serve/``, ``gateway/``), the job id in the
+  ``device`` slot where there is one: ``sched.admit`` (each submission),
+  ``sched.dispatch`` (each pacer turn), ``sched.job_crash`` (each run
+  attempt of a job), ``sched.drain`` (a drain request), ``sched.batch``
+  (each fused dispatch, the pass kind in ``device``), ``gateway.accept``
+  (each request), ``gateway.stream`` (each event-stream line) and
+  ``gateway.fetch`` (each part-fetch chunk).
 """
 
 from __future__ import annotations
@@ -81,27 +84,12 @@ KNOWN_POINTS = frozenset({
     "gateway.fetch",
 })
 
-#: The sites the port arms.
-ARMED_POINTS = frozenset({"proc.kill", "parquet.write", "parquet.encode",
-                          "device.dispatch", "device.fetch", "pool.prewarm"})
+#: The sites the port arms: every one JAX names.
+ARMED_POINTS = KNOWN_POINTS
 
 #: Sites whose call path can flip result bits (JAX's; the parse refuses a
 #: ``corrupt`` clause anywhere else, as JAX does).
 CORRUPT_POINTS = frozenset({"device.fetch"})
-
-#: What arms each site the port does not arm yet.
-_SERVICE = "ROADMAP queue 1 item 5 (the service and operations layers)"
-_UNARMED_BY = {
-    "sched.admit": _SERVICE,
-    "sched.batch": _SERVICE,
-    "sched.dispatch": _SERVICE,
-    "sched.drain": _SERVICE,
-    "sched.job_crash": _SERVICE,
-    "gateway.accept": _SERVICE,
-    "gateway.stream": _SERVICE,
-    "gateway.fetch": _SERVICE,
-}
-
 
 class FaultError(Exception):
     """Base class of injected faults (never raised itself)."""
@@ -247,16 +235,6 @@ def parse_spec(spec: str) -> list:
     ]
 
 
-def _check_armed(clause: _Clause) -> None:
-    """Refuse a clause the port cannot fire yet, naming what arms it."""
-    if clause.site not in ARMED_POINTS:
-        raise ValueError(
-            f"fault clause at {clause.site!r}: adam_tpu_torch does not arm "
-            f"this fault point yet ({_UNARMED_BY[clause.site]}); armed: "
-            f"{sorted(ARMED_POINTS)}"
-        )
-
-
 # Module state: ENABLED is the one branch the disabled fast path pays.
 ENABLED = False
 _CLAUSES: list = []
@@ -265,15 +243,12 @@ _LOCK = threading.Lock()
 
 def install(spec: str | None) -> None:
     """Arm (or, with None/empty, disarm) a fault spec process-wide.
-    Raises ``ValueError`` for a malformed spec, and for a clause the
-    port does not arm (see :func:`_check_armed`).  Arming or disarming
+    Raises ``ValueError`` for a malformed spec.  Arming or disarming
     also resets the slot-health scoreboard (``utils/health.py``), as in
     JAX: the signals an injected spec manufactures must not leak into
     later runs in the process."""
     global ENABLED, _CLAUSES
     clauses = parse_spec(spec) if spec else []
-    for clause in clauses:
-        _check_armed(clause)
     with _LOCK:
         was = ENABLED
         _CLAUSES = clauses

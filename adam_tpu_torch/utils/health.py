@@ -25,9 +25,10 @@ placeable set.
 
 One process-wide board (:data:`BOARD`) spans runs, keyed by slot
 (:func:`device_key`), not by ``torch.device``: two slots on one card are
-two entries.  JAX also records an incident bundle on each transition;
-incident recording comes with ROADMAP queue 1 item 5, so the port logs
-the transition and records it in the tracer's health ledger only.
+two entries.  Every transition (to suspect, probation or evicted) is
+logged, recorded in the tracer's health ledger, and fires a
+``health.transition`` incident bundle (``utils/incidents.py``) once the
+board's lock is released, as in JAX.
 """
 
 from __future__ import annotations
@@ -151,6 +152,9 @@ class HealthBoard:
         self._dev: dict[str, _Device] = {}
         self._lat: dict[str, dict] = {}
         self.next_probe_due = float("inf")
+        # transitions staged under the lock, recorded after its release
+        # (the bundle writer snapshots this board, which takes the lock)
+        self._pending_incidents: list = []
 
     def _slot_locked(self, key: str) -> _Device:
         d = self._dev.get(key)
@@ -186,6 +190,7 @@ class HealthBoard:
             d.reason = reason
             tracer.count(tele.C_HEALTH_DEMOTED)
             tracer.record_health(key, SUSPECT, d.score, reason)
+            self._pending_incidents.append((key, SUSPECT, reason, tracer))
             log.warning("slot %s health: healthy -> suspect (score %.1f, %s)",
                         key, d.score, reason)
 
@@ -197,9 +202,26 @@ class HealthBoard:
         self.next_probe_due = min(self.next_probe_due, now + self.cooldown_s)
         tracer.count(tele.C_HEALTH_PROBATION)
         tracer.record_health(key, PROBATION, d.score, reason)
+        self._pending_incidents.append((key, PROBATION, reason, tracer))
         log.error("slot %s health: PROBATION (score %.1f, %s) — left out of "
                   "placement; re-admission probe after %.0fs cooldown",
                   key, d.score, reason, self.cooldown_s)
+
+    def _flush_incidents(self) -> None:
+        """Record the staged ``health.transition`` bundles; every public
+        feed calls it after releasing the lock."""
+        with self._lock:
+            if not self._pending_incidents:
+                return
+            pending = self._pending_incidents
+            self._pending_incidents = []
+        from adam_tpu_torch.utils import incidents
+
+        for key, state, reason, tracer in pending:
+            incidents.maybe_record(
+                "health.transition", device=key, tracer=tracer,
+                reason=f"device {key} -> {state}: {reason}",
+            )
 
     def note_retry(self, device, site: str = "", tracer=None) -> None:
         """A transient, retried failure attributed to ``device``."""
@@ -207,6 +229,7 @@ class HealthBoard:
             self._penalize_locked(device_key(device), W_RETRY, "retry",
                                   f"retried failure at {site or 'device call'}",
                                   tracer if tracer is not None else tele.TRACE)
+        self._flush_incidents()
 
     def note_timeout(self, device, site: str = "", tracer=None) -> None:
         """A fetch-deadline watchdog trip attributed to ``device``."""
@@ -214,6 +237,7 @@ class HealthBoard:
             self._penalize_locked(device_key(device), W_TIMEOUT, "timeout",
                                   f"deadline exceeded at {site or 'device.fetch'}",
                                   tracer if tracer is not None else tele.TRACE)
+        self._flush_incidents()
 
     def observe_latency(self, kernel: str, device, seconds: float,
                         tracer=None) -> None:
@@ -256,6 +280,7 @@ class HealthBoard:
                     f"{kernel} wall {s * 1e3:.1f}ms above "
                     f"{self.latency_factor:g}x {breach}",
                     tracer if tracer is not None else tele.TRACE)
+        self._flush_incidents()
 
     def note_hedge_lost(self, device, kernel: str = "", tracer=None) -> None:
         """``device`` lost a hedge race: weighted like a latency breach."""
@@ -263,6 +288,7 @@ class HealthBoard:
             self._penalize_locked(device_key(device), W_LATENCY, "latency",
                                   f"lost hedge race on {kernel or 'dispatch'}",
                                   tracer if tracer is not None else tele.TRACE)
+        self._flush_incidents()
 
     def quarantine(self, device, reason: str = "", tracer=None) -> None:
         """Straight to probation: the SDC audit's verdict."""
@@ -277,6 +303,7 @@ class HealthBoard:
             d.t_score = now
             self._enter_probation_locked(key, d, now, reason or "quarantined",
                                          tracer if tracer is not None else tele.TRACE)
+        self._flush_incidents()
 
     def mark_evicted(self, device, tracer=None) -> None:
         """The pool evicted this slot: terminal, never placeable again."""
@@ -287,8 +314,11 @@ class HealthBoard:
                 return
             d.state = EVICTED
             d.since = self._clock()
-            (tracer if tracer is not None else tele.TRACE).record_health(
-                key, EVICTED, d.score, d.reason)
+            tr = tracer if tracer is not None else tele.TRACE
+            tr.record_health(key, EVICTED, d.score, d.reason)
+            self._pending_incidents.append(
+                (key, EVICTED, d.reason or "evicted by the pool", tr))
+        self._flush_incidents()
 
     def state(self, device) -> str:
         with self._lock:
@@ -374,6 +404,9 @@ class HealthBoard:
             d.since = self._clock()
             tr.count(tele.C_HEALTH_PROBE_FAILED)
             tr.record_health(key, EVICTED, d.score, "re-admission probe failed")
+            self._pending_incidents.append(
+                (key, EVICTED, "re-admission probe failed", tr))
+        self._flush_incidents()
         log.error("slot %s health: re-admission probe FAILED — evicting", key)
 
     def states(self) -> dict:
@@ -411,6 +444,7 @@ class HealthBoard:
         with self._lock:
             self._dev.clear()
             self._lat.clear()
+            self._pending_incidents.clear()
             self.next_probe_due = float("inf")
 
 

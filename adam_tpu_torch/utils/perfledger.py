@@ -1,10 +1,35 @@
-"""The perf ledger's read side (copied from ``adam_tpu/utils/perfledger.py``):
-the key extractor, the ledger reader, the rolling-median baseline and the
-trend rows that ``analyzer.analyze_path`` folds into its "Perf trend"
-section when a ``PERF_LEDGER.ndjson`` sits beside an artifact.
+"""Append-only per-run perf history + the regression sentinel
+(docs/OBSERVABILITY.md "The perf ledger").
 
-Booking a run into the ledger and the regression sentinel (the incident
-bundle and the SLO charge it raises) come with ROADMAP queue 1 item 5.
+``scripts/bench-diff`` can compare any TWO artifacts, but a single
+pairwise diff cannot tell a noisy run from a trend.  This module keeps
+the longitudinal record: on every completed run/job the bench-diff key
+extractor (mirrored here so the script stays dependency-free) books
+the run's direction-aware perf keys — span walls, the derived
+``stages.*`` tail identities, h2d/d2h transfer totals, the
+``compiles.in_window`` count, kernelbench rows when present — as one
+NDJSON line in ``<run-root>/PERF_LEDGER.ndjson``.  A **sentinel** then
+compares the new run against the rolling median of the previous
+``ADAM_TPU_PERF_BASELINE_N`` runs (median, not mean: one straggler run
+must not poison the baseline) and flags direction-aware regressions
+past ``ADAM_TPU_PERF_THRESHOLD`` percent — each flagged run emits a
+``perf.regression`` incident bundle, counts ``perf.regressions``, and
+charges the SLO error budget (a confirmed regression spends budget
+even when no individual job missed its bound).
+
+The ledger is append-only NDJSON: concurrent appends from scheduler
+job threads interleave whole lines (single ``write`` under a lock), a
+torn final line from a crash is skipped on read, and the history
+survives restarts for free.  ``adam-tpu perf`` renders the trend table
+(``--json`` for machines) and exits 1 when the newest run regresses —
+the CI leg.
+
+The sentinel needs at least :data:`MIN_BASELINE_RUNS` prior entries
+before it will flag anything: with one or two runs of history a
+"regression" is indistinguishable from noise (and a resumed run's
+second booking must not page anyone).
+
+The port's copy of ``adam_tpu/utils/perfledger.py``; the files it writes are JAX's.
 """
 
 from __future__ import annotations
@@ -13,7 +38,11 @@ import json
 import logging
 import os
 import statistics
+import threading
+import time
 from typing import Optional
+
+from adam_tpu_torch.utils import telemetry as tele
 
 log = logging.getLogger(__name__)
 
@@ -37,6 +66,8 @@ MIN_BASELINE_RUNS = 3
 #: regression.  Keys whose baseline median sits under the floor are
 #: booked but never flagged.
 MIN_BASELINE_VALUE = 5e-3
+
+_APPEND_LOCK = threading.Lock()
 
 
 def perf_threshold_pct() -> float:
@@ -62,6 +93,14 @@ def baseline_n() -> int:
                     "default %d", v, DEFAULT_BASELINE_N)
         return DEFAULT_BASELINE_N
     return v
+
+
+def booking_enabled() -> bool:
+    """``ADAM_TPU_PERF_LEDGER`` (default on): whether completed runs
+    book into the ledger at all."""
+    from adam_tpu_torch.utils.retry import env_toggle
+
+    return env_toggle("ADAM_TPU_PERF_LEDGER", True)
 
 
 def snapshot_keys(doc: dict) -> dict:
@@ -142,6 +181,31 @@ def ledger_path(root: str) -> str:
     if os.path.basename(root) == LEDGER_FILENAME:
         return root
     return os.path.join(root, LEDGER_FILENAME)
+
+
+def book(root: str, snapshot: dict, *, run_id: Optional[str] = None,
+         kind: str = "run") -> dict:
+    """Append one ledger entry for ``snapshot`` (a telemetry snapshot
+    or an already-extracted key map) and return it."""
+    if snapshot and all(isinstance(v, tuple) for v in snapshot.values()):
+        keys = snapshot
+    else:
+        keys = snapshot_keys(snapshot or {})
+    entry = {
+        "schema": LEDGER_SCHEMA,
+        "ts": time.time(),
+        "run_id": run_id,
+        "kind": kind,
+        "keys": {k: [v, d] for k, (v, d) in sorted(keys.items())},
+    }
+    path = ledger_path(root)
+    line = json.dumps(entry, sort_keys=True) + "\n"
+    with _APPEND_LOCK:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "a", encoding="utf-8") as fh:
+            fh.write(line)
+            fh.flush()
+    return entry
 
 
 def read_ledger(root: str) -> list:
@@ -226,6 +290,52 @@ def compare(entry: dict, baseline: dict,
     return regressions
 
 
+def check_latest(root: str, *, threshold_pct: Optional[float] = None,
+                 n: Optional[int] = None) -> list:
+    """Regressions of the NEWEST ledger entry vs the rolling median of
+    the entries before it; empty when history is too shallow
+    (< :data:`MIN_BASELINE_RUNS` priors)."""
+    entries = read_ledger(root)
+    if len(entries) < MIN_BASELINE_RUNS + 1:
+        return []
+    baseline = rolling_baseline(entries[:-1], n)
+    return compare(entries[-1], baseline, threshold_pct)
+
+
+def sentinel(root: str, snapshot: dict, *, run_id: Optional[str] = None,
+             kind: str = "run",
+             threshold_pct: Optional[float] = None,
+             n: Optional[int] = None) -> list:
+    """Book ``snapshot`` and judge it: compare against the rolling
+    median of the prior runs, and on any regression count
+    ``perf.regressions``, emit a ``perf.regression`` incident bundle,
+    and charge the SLO error budget.  Returns the regression list."""
+    prior = read_ledger(root)
+    entry = book(root, snapshot, run_id=run_id, kind=kind)
+    if len(prior) < MIN_BASELINE_RUNS:
+        return []
+    baseline = rolling_baseline(prior, n)
+    regressions = compare(entry, baseline, threshold_pct)
+    if not regressions:
+        return []
+    tele.TRACE.count(tele.C_PERF_REGRESSIONS, len(regressions))
+    worst = max(regressions, key=lambda r: abs(r["delta_pct"]))
+    reason = (
+        f"run {run_id or '?'}: {len(regressions)} perf key(s) regressed "
+        f"past threshold; worst {worst['key']} "
+        f"{worst['delta_pct']:+.1f}% vs rolling median "
+        f"{worst['baseline']:.4g}"
+    )
+    from adam_tpu_torch.utils import incidents
+
+    incidents.maybe_record("perf.regression", trace_id=run_id,
+                           reason=reason)
+    from adam_tpu_torch.utils import slo
+
+    slo.note_perf_regression(len(regressions), reason=reason)
+    return regressions
+
+
 def trend(entries: list, *, n: Optional[int] = None,
           threshold_pct: Optional[float] = None) -> list:
     """Per-entry trend rows for ``adam-tpu perf``: each entry judged
@@ -250,3 +360,32 @@ def trend(entries: list, *, n: Optional[int] = None,
             "regressions": regressions,
         })
     return rows
+
+
+# ---- module-level arm/disarm (the incident-recorder pattern) ----
+
+_ROOT: Optional[str] = None
+
+
+def install(run_root: str) -> None:
+    """Arm the ledger on a service run root: completed jobs book
+    there instead of their own run dirs."""
+    global _ROOT
+    _ROOT = os.path.abspath(run_root)
+
+
+def uninstall() -> None:
+    global _ROOT
+    _ROOT = None
+
+
+def installed() -> bool:
+    return _ROOT is not None
+
+
+def ledger_root() -> Optional[str]:
+    return _ROOT
+
+
+def _reset_for_tests() -> None:
+    uninstall()

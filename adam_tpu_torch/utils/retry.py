@@ -220,6 +220,19 @@ def retry_call(
             return fn()
         except BaseException as e:
             if attempt >= policy.attempts or not retryable(e):
+                # ``retryable`` may score the failure (a fetch's notes the
+                # health board), so the last attempt asks the plain rule
+                if attempt >= policy.attempts and is_retryable(e):
+                    # the budget was spent on retryable failures (a
+                    # permanent error on the first attempt is not an
+                    # incident): snapshot the evidence before the caller's
+                    # eviction path churns the event ring
+                    from adam_tpu_torch.utils import incidents
+
+                    incidents.maybe_record(
+                        "retry.exhausted",
+                        reason="site=%s attempts=%d last=%s" % (site, attempt, e),
+                    )
                 raise
             tele.TRACE.count(tele.C_RETRY_ATTEMPTS)
             sleep_s = backoff * jitter_factor(

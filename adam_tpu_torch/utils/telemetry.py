@@ -1855,16 +1855,33 @@ def _health_states_for_heartbeat():
 
 
 def _slo_for_heartbeat():
-    """The /7 ``slo_worst_burn`` field: None in the port — the SLO
-    engine that arms it comes with ROADMAP queue 1 item 5."""
-    return None
+    """The /7 ``slo_worst_burn`` field: the armed SLO engine's worst
+    short-window burn rate, or None while no engine is armed (a lazy
+    import: ``utils/slo.py`` imports this module)."""
+    try:
+        from adam_tpu_torch.utils import slo as slo_mod
+
+        burn = slo_mod.worst_burn()
+        return round(burn, 3) if burn is not None else None
+    except Exception:
+        return None
 
 
 def _incident_for_heartbeat():
-    """The /6 ``last_incident`` + ``last_incident_age_s`` fields: None,
-    None in the port — the incident recorder that arms them comes with
-    ROADMAP queue 1 item 5."""
-    return None, None
+    """The /6 ``last_incident`` + ``last_incident_age_s`` fields: the
+    newest bundle this process recorded, as ``(id, age_s)``, both None
+    until one fires (a lazy import: ``utils/incidents.py`` imports this
+    module)."""
+    try:
+        from adam_tpu_torch.utils import incidents as incidents_mod
+
+        last = incidents_mod.last_incident()
+        if not last:
+            return None, None
+        age = time.monotonic() - last["ts_monotonic"]
+        return last["id"], round(max(0.0, age), 1)
+    except Exception:
+        return None, None
 
 
 _DEFAULT_HEARTBEAT_INTERVAL_S = 2.0

@@ -11,7 +11,9 @@ Phases, each of which fails the script on any error:
    inputs from a numpy seed, bit equality required, times by CUDA events:
    observe_hist and pack_rows at the main path's shapes (g = 262,144
    rows, gl = 128 lanes, n_rg = 3), observe_hist once more at the
-   dataset-level transform's shape (g = 1,048,576), pack_rows once more with the SANGER
+   dataset-level transform's shape (g = 1,048,576) and at the service's
+   fused shape (g = 524,288: 8 windows of 65,536 rows, n_rg = 56, more
+   than 4,096 slabs, so the kernel's grouped route), pack_rows once more with the SANGER
    encode fused in, timed beside the unfused ``sanger_body`` + pack pair;
    sw_score at ``benchmark_gcups``' shape (B = 8,192, lx = ly = 127) in
    f32 (weights 1, -0.333, -0.5, -0.5), i16 and bf16 (2, -1, -1, -1),
@@ -155,6 +157,24 @@ Phases, each of which fails the script on any error:
    ``parallel/dist.py`` function over a two-slot ``LocalMesh`` on 65,536
    reads equal to its one-slot result, then ``distributed_observe`` over
    a one-rank NCCL ``ProcessMesh`` equal to the local histograms;
+4p. the transform service on the card: four jobs of 262,144 reads
+   (``make_wgs`` seeds 11-14, made by four worker processes at 4p's
+   start, each rewritten onto six read groups: six lanes of two
+   libraries), tenant A (weight 2: jobs A1, A2) and B (weight 1: B1,
+   B2), windows of 65,536 reads, ``max_jobs`` 4.  Each job's solo
+   ``transform_streamed`` first, then five legs, each with its counts
+   reset: (i) ``TransformService`` unbatched; (ii) batched; (iii) batched
+   through ``GatewayServer`` on 127.0.0.1:0, one ``GatewayClient`` thread
+   per job submitting twice with one key (the same reply), following its
+   event stream and fetching its parts (A1's first part resumed by Range
+   from its first half); (iv) batched, ``drain`` once the first part is
+   published, then a new service's ``recover()`` on the same run root;
+   (v) batched with ``sched.batch`` failing once.  Every leg: each job's
+   parts its solo run's; walls, reads/s, kernel 1 and 2 launches,
+   ``sched.batch.dispatches``/``windows``/``fallbacks``, the largest fused
+   groups (tickets, g, n_rg) and ``device.compile.in_window`` printed;
+   no fallback in (ii) and (iii), at least one in (v), and fewer kernel-1
+   launches in (ii) than in (i);
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -182,7 +202,10 @@ Phases, each of which fails the script on any error:
    equal), ``plugin`` with a plugin and access control this script writes
    (the same lines), and ``buildinfo`` printed once; the pool and the
    mesh over two slots of the card and over two CPU slots, windows of
-   16,384 reads, each equal to the one-device CPU run.
+   16,384 reads, each equal to the one-device CPU run; two service jobs of
+   16,384 reads in windows of 4,096 through the scheduler, batched and
+   unbatched, on the card and on the CPU, every job's parts
+   byte-identical across the four runs.
 
 It imports nothing of JAX or of ``adam_tpu``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
@@ -2347,6 +2370,320 @@ def check_parity_pool_mesh(work: str, sam: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4p. the transform service on the card: four jobs of two tenants through
+# the scheduler, the coalescer and the gateway
+# ---------------------------------------------------------------------------
+SERVICE_READS = 262_144     # per job: four jobs hold the main path's 1,048,576
+SERVICE_WINDOW = 65_536
+SERVICE_JOBS = (("A1", "A", 2.0, 11), ("A2", "A", 2.0, 12),
+                ("B1", "B", 1.0, 13), ("B2", "B", 1.0, 14))
+SERVICE_LANES = 6           # read groups: six lanes of two libraries
+PARITY_SERVICE_READS = 16_384
+PARITY_SERVICE_WINDOW = 4_096
+
+
+def rewrite_read_groups(path: str, lanes: int = SERVICE_LANES) -> None:
+    """Put a SAM's reads onto ``lanes`` read groups, as a multi-lane
+    sample has them: lanes 1-3 of library lib1, 4-6 of lib2, each read
+    (both mates, by its name's CRC) on one lane."""
+    import zlib
+
+    with open(path, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    head, body = [], []
+    for ln in lines:
+        if not ln:
+            continue
+        if ln.startswith(b"@"):
+            if not ln.startswith(b"@RG"):
+                head.append(ln)
+            continue
+        f = ln.split(b"\t")
+        lane = zlib.crc32(f[0]) % lanes + 1
+        body.append(b"\t".join([x for x in f if not x.startswith(b"RG:Z:")]
+                               + [b"RG:Z:lane%d" % lane]))
+    head += [b"@RG\tID:lane%d\tSM:sample\tLB:lib%d\tPL:ILLUMINA" % (k, 1 + (k - 1) * 2 // lanes)
+             for k in range(1, lanes + 1)]
+    with open(path, "wb") as fh:
+        fh.write(b"\n".join(head + body) + b"\n")
+
+
+def make_service_sam(path: str, n_reads: int, seed: int) -> str:
+    """One service job's input (a worker process's task): ``make_wgs`` at
+    ``seed``, then six read groups."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    from make_wgs_sam import make_wgs
+
+    make_wgs(path, n_reads, 100, seed=seed)
+    rewrite_read_groups(path)
+    return path
+
+
+def start_service_inputs(work: str):
+    """Start the 4p and phase-5 service inputs in four worker processes
+    -> (executor, {job: future}) for :func:`service_inputs`."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ex = ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    futs = {jid: ex.submit(make_service_sam, os.path.join(work, f"svc.{jid}.sam"),
+                           SERVICE_READS, seed) for jid, _t, _w, seed in SERVICE_JOBS}
+    for jid, seed in (("P1", 15), ("P2", 16)):
+        futs[jid] = ex.submit(make_service_sam, os.path.join(work, f"svc.{jid}.sam"),
+                              PARITY_SERVICE_READS, seed)
+    return ex, futs
+
+
+def service_inputs(started) -> dict:
+    """Wait for the inputs; stop the worker processes."""
+    ex, futs = started
+    try:
+        return {jid: f.result(timeout=600) for jid, f in futs.items()}
+    finally:
+        ex.shutdown(wait=True)
+
+
+def _specs(JobSpec, sams: dict, out: str, jobs=SERVICE_JOBS, window=SERVICE_WINDOW) -> list:
+    return [JobSpec(job_id=jid, input=sams[jid], output=os.path.join(out, jid),
+                    tenant=tenant, weight=weight, window_reads=window)
+            for jid, tenant, weight, _seed in jobs]
+
+
+def _wait_first_part(out: str, jobs, timeout_s: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for jid, *_ in jobs:
+            d = os.path.join(out, jid)
+            if os.path.isdir(d) and any(f.startswith("part-") for f in os.listdir(d)):
+                return
+        time.sleep(0.005)
+    raise AssertionError("4p (iv): no part was published")
+
+
+def _gateway_leg(svc, specs: list, solo: dict, out: str) -> dict:
+    """4p (iii): each job submitted twice with one key by its own client
+    thread (the same reply), its event stream followed to the end, its
+    parts fetched over HTTP; job A1's first part is resumed by Range from
+    its first half, as a killed client leaves it."""
+    import threading
+
+    from adam_tpu_torch.gateway import GatewayClient, GatewayServer
+
+    gw = GatewayServer(svc, "127.0.0.1", 0)
+    gw.start()
+    got, errors = {}, []
+
+    def one(spec):
+        try:
+            c = GatewayClient(gw.url)
+            doc = {k: v for k, v in spec.to_doc().items() if k != "trace_id"}
+            first = c.submit_with_retry(spec.job_id, doc, deadline_s=300)
+            again = c.submit(spec.job_id, doc)
+            if (again.get("trace_id") != first.get("trace_id")
+                    or again.get("job_id") != first.get("job_id") or not again.get("duplicate")):
+                raise AssertionError(f"resubmission of {spec.job_id}: {first} then {again}")
+            lines = 0
+            final = None
+            for _cur, line in c.events(spec.job_id):
+                lines += 1
+                final = line
+            if not (final and final.get("done") and final.get("ok")):
+                raise AssertionError(f"{spec.job_id}'s event stream ended with {final}")
+            dest = os.path.join(out, f"fetched.{spec.job_id}")
+            resumed = 0
+            if spec.job_id == "A1":
+                name = sorted(solo[spec.job_id])[0]
+                os.makedirs(dest, exist_ok=True)
+                with open(os.path.join(spec.output, name), "rb") as fh:
+                    data = fh.read()
+                resumed = len(data) // 2
+                with open(os.path.join(dest, name + ".fetch-tmp"), "wb") as fh:
+                    fh.write(data[:resumed])
+            fetched = c.fetch(spec.job_id, dest)
+            got[spec.job_id] = {"events": lines, "resumed_from": resumed,
+                                "fetched": {n: _file_hash(p) for n, p in fetched.items()}}
+        except Exception as e:  # raised below
+            errors.append((spec.job_id, e))
+
+    threads = [threading.Thread(target=one, args=(s,)) for s in specs]
+    try:
+        for t in threads:
+            t.start()
+    finally:
+        for t in threads:
+            t.join(600)
+        gw.close()
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"4p (iii): {errors or 'a client thread hung'}")
+    for jid, g in got.items():
+        if g["fetched"] != solo[jid]:
+            raise AssertionError(f"4p (iii): {jid}'s fetched parts differ from its solo run")
+    return got
+
+
+def check_service(work: str, sams: dict, smi: str) -> dict:
+    """Phase 4p: each job's solo run, then the five service legs, each
+    with its counts reset; every job's parts must be its solo run's."""
+    from adam_tpu_torch.api.transform_service import TransformService
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.streamed import transform_streamed
+    from adam_tpu_torch.serve import JobSpec
+    from adam_tpu_torch.utils import compile_ledger, faults
+    from adam_tpu_torch.utils import telemetry as tele
+
+    n_reads = SERVICE_READS * len(SERVICE_JOBS)
+    solo, solo_s = {}, {}
+    for jid, *_ in SERVICE_JOBS:
+        d = os.path.join(work, f"svc.solo.{jid}")
+        st = transform_streamed(sams[jid], d, window_reads=SERVICE_WINDOW, device="cuda")
+        solo[jid] = _part_hashes(d)
+        solo_s[jid] = st["total_s"]
+        shutil.rmtree(d)
+    _log(f"4p solo runs ({SERVICE_READS} reads each, windows of {SERVICE_WINDOW}, "
+         f"{SERVICE_LANES} read groups): total_s {solo_s}")
+    out = {"solo_total_s": solo_s}
+
+    def leg(name, batching, run, spec=None):
+        root = os.path.join(work, f"svc.{name}")
+        _reset_telemetry()
+        kernels.reset_launches()
+        compile_ledger.reset()
+        if spec:
+            faults.install(spec)
+        svc = TransformService(root, max_jobs=4, batching=batching, device="cuda")
+        t0 = time.monotonic()
+        try:
+            extra = run(svc, root) or {}
+            wall = time.monotonic() - t0
+            states = extra.pop("final_states", None) or {
+                j: v["state"] for j, v in svc.status()["jobs"].items()}
+            coal = svc.scheduler._coalescer
+            groups = (coal.largest_groups() if coal is not None
+                      else extra.pop("largest_group", {}))
+        finally:
+            faults.clear()
+            svc.close()
+        c = dict(tele.TRACE.counters_and_gauges()[0])
+        rec = {
+            "wall_s": wall, "reads_per_s": n_reads / wall, "states": states,
+            "launches": kernels.launches(), "prewarm_launches": kernels.prewarm_launches(),
+            "variant_launches": kernels.variant_launches(),
+            "batch": {k: c.get(f"sched.batch.{k}", 0)
+                      for k in ("dispatches", "windows", "fallbacks")},
+            "largest_group": groups,
+            "compile_in_window": c.get("device.compile.in_window", 0), **extra,
+        }
+        _reset_telemetry()
+        for jid, *_ in SERVICE_JOBS:
+            got = _part_hashes(os.path.join(root, "out", jid))
+            if got != solo[jid]:
+                raise AssertionError(f"4p ({name}): {jid}'s parts differ from its solo run")
+        if set(states.values()) != {"done"}:
+            raise AssertionError(f"4p ({name}): job states {states}")
+        _log(f"4p ({name}): {wall:.3f} s, {rec['reads_per_s']:.0f} reads/s ({smi}); "
+             f"launches observe_hist {rec['launches']['observe_hist']} pack_rows "
+             f"{rec['launches']['pack_rows']} (prewarm {rec['prewarm_launches']}); "
+             f"sched.batch {rec['batch']}; largest fused groups {groups}; "
+             f"device.compile.in_window {rec['compile_in_window']}"
+             + (f"; {extra}" if extra else "") + "; every job's parts are its solo run's")
+        shutil.rmtree(root)
+        return rec
+
+    def submit_all(svc, root):
+        for spec in _specs(JobSpec, sams, os.path.join(root, "out")):
+            got = svc.submit(spec)
+            if type(got).__name__ != "Admitted":
+                raise AssertionError(f"4p: {spec.job_id} refused: {got}")
+        if not svc.wait(timeout=900):
+            raise AssertionError("4p: the jobs did not finish")
+
+    def through_gateway(svc, root):
+        specs = _specs(JobSpec, sams, os.path.join(root, "out"))
+        got = _gateway_leg(svc, specs, solo, root)
+        if not svc.wait(timeout=900):
+            raise AssertionError("4p (iii): the jobs did not finish")
+        return {"clients": {j: {k: v for k, v in g.items() if k != "fetched"}
+                            for j, g in got.items()}}
+
+    def drain_then_recover(svc, root):
+        specs = _specs(JobSpec, sams, os.path.join(root, "out"))
+        for spec in specs:
+            svc.submit(spec)
+        _wait_first_part(os.path.join(root, "out"), SERVICE_JOBS)
+        if not svc.drain(timeout=900):
+            raise AssertionError("4p (iv): the drain did not settle")
+        drained = {j: v["state"] for j, v in svc.status()["jobs"].items()}
+        groups = svc.scheduler._coalescer.largest_groups()
+        svc.close()
+        again = TransformService(root, max_jobs=4, batching=True, device="cuda")
+        try:
+            resumed = again.recover()
+            if not again.wait(timeout=900):
+                raise AssertionError("4p (iv): the recovered jobs did not finish")
+            after = {j: v["state"] for j, v in again.status()["jobs"].items()}
+        finally:
+            again.close()
+        if set(after.values()) != {"done"} or "interrupted" not in drained.values():
+            raise AssertionError(f"4p (iv): drained {drained}, after recovery {after}")
+        return {"drained_states": drained, "resumed": sorted(resumed), "final_states": after,
+                "largest_group": groups}
+
+    out["unbatched"] = leg("i.unbatched", False, submit_all)
+    out["batched"] = leg("ii.batched", True, submit_all)
+    out["gateway"] = leg("iii.gateway", True, through_gateway)
+    out["drain_recover"] = leg("iv.drain_recover", True, drain_then_recover)
+    out["batch_fault"] = leg("v.batch_fault", True, submit_all, spec="sched.batch=transient,times=1")
+    for name in ("batched", "gateway"):
+        if out[name]["batch"]["fallbacks"] != 0 or out[name]["batch"]["dispatches"] == 0:
+            raise AssertionError(f"4p ({name}): sched.batch {out[name]['batch']}")
+    if out["batch_fault"]["batch"]["fallbacks"] < 1:
+        raise AssertionError(f"4p (v): no fallback: {out['batch_fault']['batch']}")
+    k1 = {n: out[n]["launches"]["observe_hist"] for n in ("unbatched", "batched")}
+    if not k1["batched"] < k1["unbatched"]:
+        raise AssertionError(f"4p: batching launched kernel 1 {k1['batched']} times, "
+                             f"unbatched {k1['unbatched']}")
+    # the drain leg's count covers the jobs' first attempts and the recovery
+    for name in ("unbatched", "batched", "gateway", "batch_fault"):
+        if out[name]["launches"]["observe_hist"] < 1 or out[name]["launches"]["pack_rows"] < 2:
+            raise AssertionError(f"4p ({name}): launches {out[name]['launches']}")
+    return out
+
+
+def check_parity_service(sams: dict, work: str) -> dict:
+    """Phase 5's service leg: two jobs of 16,384 reads in windows of 4,096
+    through the scheduler, batched and unbatched, on the card and on the
+    CPU: every job's parts byte-identical across the four runs."""
+    from adam_tpu_torch.api.transform_service import TransformService
+    from adam_tpu_torch.serve import JobSpec
+
+    jobs = (("P1", "A", 2.0, 15), ("P2", "B", 1.0, 16))
+    hashes = {}
+    for device in ("cuda", "cpu"):
+        for batching in (False, True):
+            root = os.path.join(work, f"psvc.{device}.{int(batching)}")
+            svc = TransformService(root, max_jobs=2, batching=batching, device=device)
+            try:
+                for spec in _specs(JobSpec, sams, os.path.join(root, "out"), jobs,
+                                   PARITY_SERVICE_WINDOW):
+                    svc.submit(spec)
+                if not svc.wait(timeout=600):
+                    raise AssertionError("phase 5 service leg: the jobs did not finish")
+            finally:
+                svc.close()
+            hashes[(device, batching)] = {j: _part_hashes(os.path.join(root, "out", j))
+                                          for j, *_ in jobs}
+            shutil.rmtree(root)
+    ref = hashes[("cuda", False)]
+    if not all(ref[j] for j in ref) or any(h != ref for h in hashes.values()):
+        raise AssertionError("phase 5 service leg: parts differ across device and batching")
+    n = sum(len(v) for v in ref.values())
+    _log(f"card vs CPU (service, 2 jobs of {PARITY_SERVICE_READS} reads, batched and "
+         f"unbatched): {n} parts byte-identical across the four runs")
+    return {"parts": n}
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -2373,6 +2710,7 @@ def main() -> int:
     from adam_tpu_torch import native
     from adam_tpu_torch.device import resolve_device
     from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.utils import compile_ledger
 
     # ---- 1. the card ----------------------------------------------------
     dev = resolve_device("cuda")
@@ -2410,6 +2748,28 @@ def main() -> int:
         raise AssertionError(f"observe_hist disagrees with its plain version at "
                              f"{in_memory['shape']}: {in_memory}")
     kern[0]["in_memory"] = {k: in_memory[k] for k in (
+        "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "x_bound", "residues_counted")}
+    # kernel 1 at the service's fused shape (4p): 8 windows of 65,536 rows
+    # of jobs with 7 read-group bins each, n_rg = 56 (5,264 slabs: past
+    # kGroup, so the kernel's grouped route)
+    import numpy as np
+
+    t, g, gl = _kernel_inputs(dev, 8 * SERVICE_WINDOW)
+    t["rg"] = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        -1, 55, g).astype(np.int32)).to(dev)
+    fused = check_observe(t, g, gl, n_rg=8 * (SERVICE_LANES + 1))
+    del t
+    torch.cuda.empty_cache()
+    fused["x_bound"] = fused["ms"] / fused["bound_ms"]
+    _log(f"kernel observe_hist at the service's fused shape {fused['shape']}: equal="
+         f"{fused['equal']} {fused['ms']:.4f} ms (plain {fused['plain_ms']:.4f} ms, library "
+         f"{fused['library_ms']:.4f} ms, bound {fused['bound_ms']:.4f} ms by bytes, "
+         f"{fused['residues_counted']} residues)")
+    if not fused["equal"]:
+        raise AssertionError(f"observe_hist disagrees with its plain version at "
+                             f"{fused['shape']}: {fused}")
+    kern[0]["fused"] = {k: fused[k] for k in (
         "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by", "x_bound", "residues_counted")}
     for k in kern:
@@ -2546,6 +2906,28 @@ def main() -> int:
             for leg in ("pool", "mesh", "evict", "degrade", "audit"):
                 by_name[name][f"launches_{leg}"] = multi[leg]["launches"][name]
 
+        # ---- 4p. the transform service: scheduler, coalescer, gateway ------
+        # its inputs and phase 5's, made by four worker processes here, so
+        # that no measured phase shares the host with them
+        t0 = time.monotonic()
+        svc_sams = service_inputs(start_service_inputs(work))
+        _log(f"generated the service inputs ({len(SERVICE_JOBS)} x {SERVICE_READS} reads and "
+             f"2 x {PARITY_SERVICE_READS}, {SERVICE_LANES} read groups) in "
+             f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        service = check_service(work, svc_sams, smi)
+        service["phase_s"] = time.monotonic() - t0
+        _log(f"4p: {service['phase_s']:.1f} s in all ({smi})")
+        legs = ("unbatched", "batched", "gateway", "drain_recover", "batch_fault")
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_service"] = {
+                leg: service[leg]["launches"][name] for leg in legs}
+        by_name["pack_rows_sanger"]["launches_service"] = {
+            leg: service[leg]["variant_launches"].get("pack_rows:sanger", 0) for leg in legs}
+        kern[0]["fused"]["launches_service"] = by_name["observe_hist"]["launches_service"]
+        for jid, *_ in SERVICE_JOBS:
+            os.unlink(svc_sams[jid])
+
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
         if SW_READS != MAIN_READS:
@@ -2678,6 +3060,9 @@ def main() -> int:
                 if model == "reads":
                     m_json = os.path.join(work, f"metrics.{device}.json")
                     _reset_telemetry()
+                    # each run's first launches are its own (the ledger is
+                    # process-wide, and 4p launched at this grid too)
+                    compile_ledger.reset()
                     run_transform(sam, d, device, extra=("--metrics-json", m_json))
                     _reset_telemetry()
                     with open(m_json) as fh:
@@ -2737,6 +3122,7 @@ def main() -> int:
         parity["spark_executor"] = check_parity_spark(work, sam, p_snps)
         parity["plugin"] = check_parity_plugin(work, os.path.join(work, "reads.cuda.adam"))
         parity["pool_mesh"] = check_parity_pool_mesh(work, sam)
+        parity["service"] = check_parity_service(svc_sams, work)
         _log("buildinfo: " + " | ".join(_cli(["buildinfo"])[0].splitlines()))
         parity["spark_plugin_buildinfo_s"] = time.monotonic() - t0
         _log(f"card vs CPU executor, plugin and buildinfo legs: "
@@ -2784,6 +3170,7 @@ def main() -> int:
         "transform_step": tstep,
         "observability": observ,
         "multi_device": multi,
+        "service": service,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

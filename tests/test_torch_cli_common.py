@@ -38,9 +38,12 @@ def sam(tmp_path_factory):
 
 
 def _positionals(parser) -> list:
-    """One placeholder per required positional of ``parser``."""
+    """One placeholder per required positional of ``parser``, then each
+    required option with a placeholder (``submit --jobs``)."""
     return ["1" for a in parser._actions
-            if not a.option_strings and a.nargs in (None, "+")]
+            if not a.option_strings and a.nargs in (None, "+")] + [
+        x for a in parser._actions if a.option_strings and a.required
+        for x in (a.option_strings[0], "1")]
 
 
 def _jax_parser(name):
@@ -71,14 +74,15 @@ def test_groups_and_order_are_jax_for_the_ported_verbs():
     jax_desc = {c.name: c.description for _, cmds in jax_groups() for c in cmds}
     assert all(c.description == jax_desc[c.name]
                for _, cmds in command_groups() for c in cmds)
-    assert len(_port_verbs()) == 23
+    assert len(_port_verbs()) == 30
 
 
 @pytest.mark.parametrize("verb", [
     "depth", "count_kmers", "count_contig_kmers", "transform", "adam2fastq", "plugin",
     "flatten", "bam2adam", "vcf2adam", "anno2adam", "adam2vcf", "fasta2adam",
     "features2adam", "wigfix2bed", "print", "print_genes", "flagstat", "print_tags",
-    "listdict", "allelecount", "buildinfo", "view", "analyze"])
+    "listdict", "allelecount", "buildinfo", "view", "analyze", "serve", "submit",
+    "status", "fetch", "cancel", "incidents", "perf"])
 def test_every_verb_parses_the_shared_flags_as_jax(verb):
     from adam_tpu_torch.cli.main import parser_for
 
@@ -273,7 +277,7 @@ def test_usage_exits_0_in_both(argv):
     assert "           transform : " in _run(main, argv)[1]
 
 
-@pytest.mark.parametrize("verb", ["bogus", "serve", "Transform"])
+@pytest.mark.parametrize("verb", ["bogus", "top", "Transform"])
 def test_unknown_verb_exits_1_in_both(verb):
     from adam_tpu.cli.main import main as jax_main
 
@@ -282,7 +286,7 @@ def test_unknown_verb_exits_1_in_both(verb):
     rc, out, err = _run(main, [verb, "x"])
     assert rc == 1 and out == ""
     assert err.startswith(f"unknown command: {verb}\n\nUsage: ")
-    if verb != "serve":  # a JAX verb the port does not have yet
+    if verb != "top":  # a JAX verb the port does not have yet
         jrc, _, jerr = _run(jax_main, [verb, "x"])
         assert jrc == 1 and jerr.startswith(f"unknown command: {verb}\n")
 

@@ -814,3 +814,157 @@ def test_two_slots_on_the_card_equal_one_device(pool_sam, partitioner):
     assert parts and parts == sorted(f for f in os.listdir(out) if f.startswith("part-"))
     for f in parts:
         assert (out / f).read_bytes() == (one / f).read_bytes(), f
+
+
+def test_launch_counts_are_exact_under_threads(cuda_device):
+    """Eight threads launch ``pack_rows`` 200 times each: every count the
+    wrappers keep (total, per device, per variant) is exactly 1,600."""
+    import threading
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.ops.colpack import pack_rows
+
+    mat = torch.randint(0, 60, (64, 32), dtype=torch.uint8, device="cuda")
+    lens = torch.randint(0, 33, (64,), dtype=torch.int64, device="cuda")
+    kernels.reset_launches()
+    pack_rows(mat, lens, 64 * 32, encode="sanger")  # build and load first
+    kernels.reset_launches()
+    errors = []
+
+    def hammer():
+        try:
+            for _ in range(200):
+                pack_rows(mat, lens, 64 * 32, encode="sanger")
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer) for _ in range(8)]
+    try:
+        for t in threads:
+            t.start()
+    finally:
+        for t in threads:
+            t.join(120)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert kernels.launches()["pack_rows"] == 1600
+    assert kernels.device_launches()["pack_rows"] == {"cuda:0": 1600}
+    assert kernels.variant_launches()["pack_rows:sanger"] == 1600
+
+
+def _tickets(seed, n_rgs, g, gl, device):
+    """One ticket per entry of ``n_rgs``: its window's five columns, its
+    masks, has_qual/valid, and its own table, on ``device``."""
+    out = []
+    for k, n_rg in enumerate(n_rgs):
+        w = _window(seed + k, g, gl, n_rg=n_rg)
+        out.append({n: v.to(device) for n, v in w.items()})
+    return out
+
+
+@pytest.mark.parametrize("n_rgs", [(3, 4), (7,) * 8], ids=["two_tickets", "n_rg_56"])
+def test_fused_observe_on_the_card_equals_solo_dispatches(cuda_device, n_rgs):
+    """The coalescer's fused observe on the card, one ``observe_hist``
+    launch over every ticket, against one solo observe per ticket on the
+    card and the plain version on the CPU: each band bit for bit.  Eight
+    tickets of 7 read-group bins (n_rg = 56, 5,264 slabs) take the kernel's
+    grouped route."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.bqsr import observe_packed_body
+    from adam_tpu_torch.serve.batching import fused_observe_body
+
+    g, gl = 2048, 128
+    tickets = _tickets(50, n_rgs, g, gl, "cuda")
+    segs, base = [], 0
+    for n in n_rgs:
+        segs.append((base, n))
+        base += n
+    cols = tuple(tuple(t[n] for n in _WINDOW) for t in tickets)
+    masks = tuple((t["res_bits"], t["mm_bits"], t["read_ok"]) for t in tickets)
+    kernels.reset_launches()
+    total, mism = fused_observe_body(cols, masks, tuple(segs), base, gl)
+    assert kernels.launches()["observe_hist"] == 1
+    cpu_t, cpu_m = fused_observe_body(
+        tuple(tuple(x.cpu() for x in c) for c in cols),
+        tuple(tuple(x.cpu() for x in m) for m in masks), tuple(segs), base, gl)
+    assert torch.equal(total.cpu(), cpu_t) and torch.equal(mism.cpu(), cpu_m)
+    for t, (b0, n) in zip(tickets, segs):
+        st, sm = observe_packed_body(*(t[x] for x in _WINDOW), t["res_bits"],
+                                     t["mm_bits"], t["read_ok"], n, gl)
+        assert torch.equal(total[b0:b0 + n], st) and torch.equal(mism[b0:b0 + n], sm)
+
+
+@pytest.mark.parametrize("n_rgs", [(3, 4), (7,) * 8], ids=["two_tickets", "n_rg_56"])
+def test_fused_apply_on_the_card_equals_solo_dispatches(cuda_device, n_rgs):
+    """The fused apply on the card: one table gather over the concatenated
+    tables and one ``pack_rows`` launch per column over every ticket; each
+    ticket's byte range is its solo apply's packed bytes."""
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.pipelines.bqsr import apply_pack2_body
+    from adam_tpu_torch.serve.batching import fused_apply_body
+
+    g, gl = 2048, 128
+    tickets = _tickets(80, n_rgs, g, gl, "cuda")
+    segs, base = [], 0
+    for n in n_rgs:
+        segs.append((base, n))
+        base += n
+    table = torch.cat([t["table"] for t in tickets], dim=0)
+    cols = tuple(tuple(t[n] for n in _WINDOW) for t in tickets)
+    extras = tuple((t["has_qual"], t["valid"]) for t in tickets)
+    size = g * gl * len(tickets)
+    kernels.reset_launches()
+    pq, pb = fused_apply_body(cols, extras, table, tuple(segs), gl, size)
+    assert kernels.launches()["pack_rows"] == 2
+    oq = ob = 0
+    for t in tickets:
+        sq, sb = apply_pack2_body(*(t[x] for x in _WINDOW), t["has_qual"], t["valid"],
+                                  t["table"], gl, g * gl)
+        lens = t["lengths"].to(torch.int64)
+        nq = int(torch.where(t["valid"] & t["has_qual"], lens, 0).sum())
+        nb = int(torch.where(t["valid"], lens, 0).sum())
+        assert torch.equal(pq[oq:oq + nq], sq[:nq]) and torch.equal(pb[ob:ob + nb], sb[:nb])
+        oq += nq
+        ob += nb
+
+
+def test_service_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """Two jobs through the batched scheduler on the card and on the CPU:
+    the same parts, the fused dispatches on the card going through kernels
+    1 and 2, and no fallback."""
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.serve import JobScheduler, JobSpec
+    from adam_tpu_torch.utils import telemetry as tele
+
+    inputs = {}
+    for k, seed in (("ca", 31), ("cb", 32)):
+        inputs[k] = str(tmp_path / f"{k}.sam")
+        make_wgs(inputs[k], 8192, 100, n_contigs=2, contig_len=200_000, seed=seed)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        tele.TRACE.reset()
+        kernels.reset_launches()
+        sched = JobScheduler(str(tmp_path / f"root-{device}"), max_jobs=2, batching=True,
+                             device=device)
+        try:
+            for k, inp in inputs.items():
+                sched.submit(JobSpec(job_id=k, input=inp, output=str(tmp_path / f"{device}-{k}"),
+                                     tenant=k, window_reads=2048))
+            assert sched.wait(timeout=600)
+            assert {v["state"] for v in sched.status()["jobs"].values()} == {"done"}
+        finally:
+            sched.close()
+        c, _ = tele.TRACE.counters_and_gauges()
+        assert c["sched.batch.dispatches"] >= 1 and c.get("sched.batch.fallbacks", 0) == 0
+        if device == "cuda":
+            assert kernels.launches()["observe_hist"] >= 1
+            assert kernels.launches()["pack_rows"] >= 2
+        outs[device] = {k: sorted(os.listdir(tmp_path / f"{device}-{k}")) for k in inputs}
+    assert outs["cpu"] == outs["cuda"]
+    for k, names in outs["cpu"].items():
+        for f in names:
+            if f.startswith("part-"):
+                assert (tmp_path / f"cuda-{k}" / f).read_bytes() == \
+                    (tmp_path / f"cpu-{k}" / f).read_bytes(), (k, f)

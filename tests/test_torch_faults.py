@@ -2,8 +2,8 @@
 the module it ports, ``adam_tpu/utils/faults.py``: the same grammar and
 messages, the same arrival counting under ``every``/``after``/``times``,
 ``device=``, ``pass=`` and seeded ``p=`` clauses, a ``kill`` that
-SIGKILLs the process, and an ``install`` that refuses what the port does
-not arm yet, naming the ROADMAP item that will arm it."""
+SIGKILLs the process, and every site JAX names armed in the port's code
+(the service's ``sched.*`` and ``gateway.*`` sites included)."""
 
 import contextlib
 import io
@@ -202,35 +202,135 @@ def test_kill_sigkills_a_child(how):
     assert res.stdout == "first arrival survived\n"
 
 
-_UNARMED = {
-    "sched.admit": "queue 1 item 5",
-    "sched.batch": "queue 1 item 5", "sched.dispatch": "queue 1 item 5",
-    "sched.drain": "queue 1 item 5", "sched.job_crash": "queue 1 item 5",
-    "gateway.accept": "queue 1 item 5", "gateway.stream": "queue 1 item 5",
-    "gateway.fetch": "queue 1 item 5",
-}
+#: The service's sites, armed with the service (``serve/``, ``gateway/``).
+_SERVICE_SITES = ["gateway.accept", "gateway.fetch", "gateway.stream", "sched.admit",
+                  "sched.batch", "sched.dispatch", "sched.drain", "sched.job_crash"]
 
 
 def test_every_known_point_is_armed_or_names_its_item():
     assert tf.KNOWN_POINTS == jf.KNOWN_POINTS
     assert tf.CORRUPT_POINTS == jf.CORRUPT_POINTS
-    assert set(_UNARMED) == tf.KNOWN_POINTS - tf.ARMED_POINTS
-    assert tf.ARMED_POINTS == {"proc.kill", "parquet.write", "parquet.encode",
-                               "device.dispatch", "device.fetch", "pool.prewarm"}
+    # every site JAX names is armed: none is left to name an item
+    assert tf.ARMED_POINTS == tf.KNOWN_POINTS
+    assert set(_SERVICE_SITES) <= tf.ARMED_POINTS
+    assert not hasattr(tf, "_UNARMED_BY")
 
 
-@pytest.mark.parametrize("site", sorted(_UNARMED))
-def test_install_refuses_unarmed_sites(site):
-    tf.install("parquet.write=transient")
-    spec = f"parquet.encode=transient;{site}=transient,every=2"
-    jf.install(spec)  # the JAX package arms it
-    with pytest.raises(ValueError, match=_UNARMED[site]) as e:
-        tf.install(spec)
-    assert "not arm this fault point yet" in str(e.value)
-    # a refused spec leaves the armed one as it was
-    assert tf.ENABLED
+def _fire_service_site(site, tmp_path):
+    """Drive the port's code to ``site`` once; return what it did."""
+    import threading
+
+    from adam_tpu_torch.serve import JobScheduler, JobSpec, WeightedInterleaver
+    from adam_tpu_torch.serve import scheduler as sched_mod
+
+    if site == "sched.dispatch":
+        with pytest.raises(tf.PermanentFault):
+            WeightedInterleaver().pacer("j")("pass_a", 0, 10)
+        return "pacer"
+    if site == "sched.batch":
+        from adam_tpu_torch.serve.batching import CoalesceError, WindowCoalescer
+
+        sys.path.insert(0, os.path.join(str(REPO), "tools"))
+        from make_wgs_sam import make_wgs
+
+        from adam_tpu_torch.io import sam as sam_io
+
+        make_wgs(str(tmp_path / "in.sam"), 300, 100, n_contigs=1, contig_len=20_000)
+        batch, _side, _h = next(sam_io.iter_sam_batches(str(tmp_path / "in.sam"), 512))
+        coal = WindowCoalescer(wait_ms=0, device="cpu")
+        try:
+            with pytest.raises(CoalesceError, match="PermanentFault"):
+                coal.client("j", "t").submit_markdup(0, batch).result(timeout=60)
+        finally:
+            coal.stop()
+        return "fallback"
+    if site.startswith("gateway."):
+        from adam_tpu_torch.api.transform_service import TransformService
+        from adam_tpu_torch.gateway import GatewayClient, GatewayError, GatewayServer
+
+        out = tmp_path / "o.adam"
+        out.mkdir()
+        (out / "part-r-00000.parquet").write_bytes(b"x" * 100)
+        svc = TransformService(str(tmp_path / "root"), max_jobs=1, device="cpu")
+        gw = GatewayServer(svc)
+        gw.start()
+        try:
+            c = GatewayClient(gw.url, timeout_s=10)
+            if site == "gateway.accept":
+                with pytest.raises(GatewayError) as e:
+                    c.status()
+                return e.value.status
+            # the job is known to the service (a finished record)
+            from adam_tpu_torch.serve.job import JobRecord
+
+            svc.scheduler._jobs["jx"] = JobRecord(
+                JobSpec(job_id="jx", input="in", output=str(out)), state="done",
+                settled=True)
+            if site == "gateway.fetch":
+                got = c.fetch("jx", str(tmp_path / "dest"))
+                return sorted(got)
+            hb = tmp_path / "root" / "jx"
+            hb.mkdir(parents=True)
+            (hb / "heartbeat.ndjson").write_text('{"done": true, "ok": true}\n')
+            return [line for _cur, line in c.events("jx")]
+        finally:
+            gw.close()
+            svc.close()
+    release = threading.Event()
+    sched = JobScheduler(str(tmp_path / "root"), max_jobs=2, job_retries=0, device="cpu")
+    real = sched_mod.streamed_mod.transform_streamed
+    sched_mod.streamed_mod.transform_streamed = lambda *a, **k: (release.wait(30), {})[1]
+    try:
+        spec = JobSpec(job_id="jx", input="in", output="out")
+        if site == "sched.admit":
+            with pytest.raises(tf.PermanentFault):
+                sched.submit(spec)
+            return "refused"
+        if site == "sched.drain":
+            sched.submit(spec)
+            with pytest.raises(tf.PermanentFault):
+                sched.request_drain()
+            return "drain"
+        sched.submit(spec)  # sched.job_crash
+        release.set()
+        assert sched.wait(timeout=30)
+        return sched.status()["jobs"]["jx"]["state"]
+    finally:
+        release.set()
+        sched.wait(timeout=30)
+        sched.close()
+        sched_mod.streamed_mod.transform_streamed = real
+
+
+@pytest.mark.parametrize("site", _SERVICE_SITES)
+def test_install_refuses_unarmed_sites(site, tmp_path):
+    """The eight service sites, once refused, are armed: the same spec as
+    JAX's installs in both packages, and the site fires in the port's
+    code (``fault.injected`` counts it, and the code does what a fault
+    there means: a refusal, a 500, a resumed stream or fetch, a fused
+    dispatch's fallback, a quarantined job)."""
+    clause = f"{site}=permanent,times=1"
+    spec = f"parquet.encode=transient;{clause}"
+    jf.install(spec)
+    tf.install(spec)
+    assert tf.ENABLED and [c.site for c in tf._CLAUSES] == ["parquet.encode", site]
+    was = ttele.TRACE.recording
+    ttele.TRACE.recording = True
+    try:
+        n0 = ttele.TRACE.counters_and_gauges()[0].get("fault.injected", 0)
+        got = _fire_service_site(site, tmp_path)
+        n1 = ttele.TRACE.counters_and_gauges()[0]["fault.injected"]
+    finally:
+        ttele.TRACE.recording = was
+    assert n1 - n0 == 1
+    assert got == {"gateway.accept": 500, "gateway.fetch": ["part-r-00000.parquet"],
+                   "gateway.stream": [{"done": True, "ok": True}],
+                   "sched.admit": "refused", "sched.batch": "fallback",
+                   "sched.dispatch": "pacer", "sched.drain": "drain",
+                   "sched.job_crash": "quarantined"}[site]
+    # the armed spec is still the one installed
     with pytest.raises(tf.TransientFault):
-        tf.point("parquet.write")
+        tf.point("parquet.encode")
 
 
 def test_install_refuses_corrupt():
@@ -257,7 +357,7 @@ def test_install_refuses_corrupt():
 
 
 @pytest.mark.parametrize("spec", ["nope.site=transient", "proc.kill=kill,every=0",
-                                  "sched.admit=transient"])
+                                  "sched.admit=corrupt"])
 def test_cli_refuses_a_bad_fault_spec_as_jax(spec, tmp_path):
     from adam_tpu.cli.main import main as jax_main
 
@@ -271,15 +371,12 @@ def test_cli_refuses_a_bad_fault_spec_as_jax(spec, tmp_path):
     assert rc == 2
     line = err.getvalue().strip()
     assert line.startswith("--fault-spec: fault clause")
-    try:
+    with pytest.raises(ValueError) as e:
         jf.parse_spec(spec)
-    except ValueError as e:
-        jerr = io.StringIO()
-        with contextlib.redirect_stderr(jerr):
-            assert jax_main(argv[:-2]) == 2
-        assert line == jerr.getvalue().strip() == f"--fault-spec: {e}"
-    else:
-        assert "queue 1 item 5" in line
+    jerr = io.StringIO()
+    with contextlib.redirect_stderr(jerr):
+        assert jax_main(argv[:-2]) == 2
+    assert line == jerr.getvalue().strip() == f"--fault-spec: {e.value}"
 
 
 @pytest.mark.parametrize("site,where", [

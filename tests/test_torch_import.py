@@ -46,6 +46,26 @@ _FORBIDDEN = re.compile(
 )
 
 
+@pytest.mark.parametrize("module", ["adam_tpu_torch.serve", "adam_tpu_torch.gateway",
+                                    "adam_tpu_torch.api.transform_service",
+                                    "adam_tpu_torch.serve.batching"])
+def test_service_modules_load_no_jax_and_no_adam_tpu(module):
+    """The service, the gateway and the library seam stand alone too: each
+    imported first, in a fresh interpreter."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.")
+                     or n == "adam_tpu" or n.startswith("adam_tpu."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_sources_import_no_jax_and_no_adam_tpu():
     files = sorted((REPO / "adam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20

@@ -212,24 +212,50 @@ def test_snapshot_helpers_equal_jax(both, monkeypatch, helper):
 # --------------------------------------------------------------------------
 # the heartbeat
 # --------------------------------------------------------------------------
-def test_heartbeat_sample_keys_equal_jax(both):
+def test_heartbeat_sample_keys_equal_jax(both, tmp_path, monkeypatch):
     jt, tt = both
+    from adam_tpu.utils import incidents as ji
+    from adam_tpu.utils import slo as js
+
+    from adam_tpu_torch.utils import incidents as ti
+    from adam_tpu_torch.utils import slo as ts
+
+    monkeypatch.setenv("ADAM_TPU_INCIDENT_COOLDOWN_S", "0")
     lines = []
-    for tele in (jt, tt):
-        tr = tele.Tracer(recording=True)
-        tr.count(tele.C_READS_INGESTED, 100)
-        tr.count(tele.C_PARTS_WRITTEN, 2)
-        hb = tele.Heartbeat([tr], sink="stderr", interval_s=60)
-        hb.set_devices([])
-        hb.set_total(4)
-        lines.append(hb.sample(done=True))
-    assert list(lines[1]) == list(lines[0]) == list(tt.HEARTBEAT_FIELDS)
-    # nothing tracked on the health board: None, as JAX's; the judgment
-    # fields are None until ROADMAP queue 1 item 5
-    assert lines[1]["device_health"] is None
-    assert lines[1]["last_incident"] is None and lines[1]["slo_worst_burn"] is None
+    try:
+        for tele, inc, slo in ((jt, ji, js), (tt, ti, ts)):
+            inc._reset_for_tests()
+            slo._reset_for_tests()
+            tr = tele.Tracer(recording=True)
+            tr.count(tele.C_READS_INGESTED, 100)
+            tr.count(tele.C_PARTS_WRITTEN, 2)
+            hb = tele.Heartbeat([tr], sink="stderr", interval_s=60)
+            hb.set_devices([])
+            hb.set_total(4)
+            quiet = hb.sample(done=False)
+            # the judgment fields arm with the recorder and the SLO engine
+            inc.install(str(tmp_path / tele.__name__))
+            slo.install("*:avail>=0.9", str(tmp_path / tele.__name__), window_s=60)
+            slo.observe_job("t", 1.0, ok=False)
+            inc.maybe_record("hedge.fired", reason="probe")
+            lines.append((quiet, hb.sample(done=True)))
+    finally:
+        for inc, slo in ((ji, js), (ti, ts)):
+            inc._reset_for_tests()
+            slo._reset_for_tests()
+    (jq, jl), (tq, tl) = lines
+    assert list(tl) == list(jl) == list(tt.HEARTBEAT_FIELDS)
+    # nothing tracked on the health board, no incident, no SLO: None, as JAX's
+    assert tq["device_health"] is None
+    assert (tq["last_incident"], tq["last_incident_age_s"], tq["slo_worst_burn"]) == \
+        (jq["last_incident"], jq["last_incident_age_s"], jq["slo_worst_burn"]) == \
+        (None, None, None)
+    assert tl["last_incident"].endswith("-hedge-fired") and jl["last_incident"].endswith(
+        "-hedge-fired")
+    assert 0 <= tl["last_incident_age_s"] < 60
+    assert tl["slo_worst_burn"] == jl["slo_worst_burn"] == 10.0
     for k in ("windows_total", "reads_ingested", "parts_written", "done", "eta_s"):
-        assert lines[1][k] == lines[0][k], k
+        assert tl[k] == jl[k], k
 
 
 def test_heartbeat_file_sink_rotates_at_max_bytes(both, tmp_path, monkeypatch):
@@ -394,14 +420,13 @@ def test_prometheus_names_are_valid_and_distinct():
 # --------------------------------------------------------------------------
 # the streamed run, port against JAX
 # --------------------------------------------------------------------------
-#: What the JAX run records and the port does not, each with the ROADMAP
-#: queue 1 item that brings it: only the service layers' spans (item 5).
-#: Every name of the device pool, the mesh, the device ledger and the
-#: compile ledger is recorded (item 4).
+#: What the JAX run records and the port does not: nothing.  The device
+#: pool's, the mesh's and the ledgers' names came with ROADMAP queue 1 item
+#: 4, the service's spans (``sched.job.run``, ``sched.batch.fused``,
+#: ``gateway.job.submit``) with item 5's service part; a service run
+#: records them (``tests/test_torch_serve.py``, ``test_torch_gateway.py``).
 NOT_RECORDED = {
-    "spans": {
-        "sched.job.run": 5, "gateway.job.submit": 5, "sched.batch.fused": 5,
-    },
+    "spans": {},
     "counters": {},
     "gauges": {},
 }
