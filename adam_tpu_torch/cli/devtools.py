@@ -1,13 +1,38 @@
 """Development and CI commands (the counterpart of
-``adam_tpu/cli/devtools.py``): ``perf``, the perf ledger's trend table.
-The static checker's ``check`` verb is still to be ported (ROADMAP queue
-1 item 5)."""
+``adam_tpu/cli/devtools.py``): ``check``, the static contract checker
+(``adam_tpu_torch/staticcheck``), and ``perf``, the perf ledger's trend
+table.  Neither touches a device."""
 
 from __future__ import annotations
 
 import argparse
 
 from adam_tpu_torch.cli.main import Command
+
+
+class Check(Command):
+    """``check`` — the AST-based contract checker of the port
+    (adam_tpu_torch/staticcheck).  Its root defaults to the directory
+    above the package; exit 0 clean, 1 findings, 2 a usage or internal
+    error."""
+
+    name = "check"
+    checks_device = False
+    description = ("Run the static contract checker (device-sync, "
+                   "compile-ledger, durability, fault-point and lock "
+                   "discipline)")
+
+    @classmethod
+    def configure(cls, parser: argparse.ArgumentParser) -> None:
+        from adam_tpu_torch.staticcheck import cli as check_cli
+
+        check_cli.configure(parser)
+
+    @classmethod
+    def run(cls, args: argparse.Namespace) -> int:
+        from adam_tpu_torch.staticcheck import cli as check_cli
+
+        return check_cli.run(args)
 
 
 class Perf(Command):
@@ -97,4 +122,4 @@ class Perf(Command):
         return 0
 
 
-COMMANDS = [Perf]
+COMMANDS = [Check, Perf]

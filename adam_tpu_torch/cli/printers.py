@@ -280,6 +280,85 @@ class Analyze(Command):
         return 0
 
 
+class Top(Command):
+    """Live dashboard over a streamed run's ``--progress`` heartbeat
+    file (utils/top.py): the interactive half of the observability
+    layer — tails the NDJSON stream, renders a refreshing one-screen
+    view (progress bar, reads/s, tunnel bytes, HBM, per-device
+    in-flight depth, retry/evict counters, ETA), and exits cleanly on
+    the final ``done=true`` line.  Read-only: attach/detach freely
+    while the run is live."""
+
+    name = "top"
+    checks_device = False
+    description = ("Live terminal dashboard tailing a streamed run's "
+                   "--progress heartbeat file, or a serve run-root "
+                   "directory for the multi-job view (exits on done)")
+
+    @classmethod
+    def configure(cls, p):
+        p.add_argument(
+            "heartbeat", metavar="HEARTBEAT.ndjson|RUN_ROOT",
+            nargs="?", default=None,
+            help="the NDJSON file a streamed transform is writing via "
+            "--progress PATH (or ADAM_TPU_PROGRESS=PATH); may not "
+            "exist yet — top waits for the first line.  A DIRECTORY "
+            "(a 'serve' run-root) switches to the multi-job "
+            "view: every <job>/heartbeat.ndjson under it aggregates "
+            "into one dashboard with per-job rows + pool totals, "
+            "tolerating jobs appearing and finishing mid-watch",
+        )
+        p.add_argument(
+            "--url", dest="url", default=None, metavar="URL",
+            help="tail a REMOTE serve run-root through its HTTP "
+            "gateway (http://host:port, from 'serve --listen'): "
+            "the same multi-job dashboard, fed by the "
+            "gateway's cursor-resumable NDJSON event streams instead "
+            "of local files; exit codes keep the 0/1/2 contract",
+        )
+        p.add_argument(
+            "-interval", type=float, default=0.5,
+            help="refresh period in seconds (default 0.5)",
+        )
+        p.add_argument(
+            "-once", "--once", dest="once", action="store_true",
+            help="render a single frame from the newest line and exit "
+            "(scripting/CI mode; exit 2 when the file has no lines) — "
+            "the usual 0/1/2 codes, so CI legs and incident-bundle "
+            "captures can gate on it",
+        )
+        p.add_argument(
+            "-max_wait", type=float, default=None, metavar="S",
+            help="give up (exit 2) when no done=true arrives within S "
+            "seconds (default: follow forever)",
+        )
+
+    @classmethod
+    def run(cls, args):
+        import os
+
+        from adam_tpu_torch.utils import top as top_mod
+
+        if (args.heartbeat is None) == (args.url is None):
+            print("top: give exactly one of HEARTBEAT.ndjson|RUN_ROOT "
+                  "or --url", file=sys.stderr)
+            return 2
+        if args.url is not None:
+            return top_mod.follow_url(
+                args.url, interval=max(0.05, args.interval),
+                once=args.once, max_wait_s=args.max_wait,
+            )
+        if os.path.isdir(args.heartbeat):
+            return top_mod.follow_root(
+                args.heartbeat, interval=max(0.05, args.interval),
+                once=args.once, max_wait_s=args.max_wait,
+            )
+        return top_mod.follow(
+            args.heartbeat, interval=max(0.05, args.interval),
+            once=args.once, max_wait_s=args.max_wait,
+        )
+
+
 class Incidents(Command):
     """List the anomaly-triggered incident bundles a run (or serve
     run-root) recorded (utils/incidents.py): one row per bundle —
@@ -354,6 +433,7 @@ COMMANDS = [
     BuildInformation,
     View,
     Analyze,
+    Top,
     Incidents,
 ]
 

@@ -104,6 +104,7 @@ def flagstat(b: ReadBatch, device: str = "cuda") -> tuple[FlagStatMetrics, FlagS
     b = b.to_numpy()
     cols = [torch.from_numpy(np.ascontiguousarray(getattr(b, f))).to(dev)
             for f in ("flags", "contig_idx", "mate_contig_idx", "mapq", "valid")]
+    # adam-tpu: noqa[host-sync] reason=the JAX package's flagstat fetches its counts outside device_fetch too (FlagStatMetrics.to_ints); one 2x18 count matrix per report
     counts = flagstat_device(*cols).cpu().numpy()
     return to_metrics(counts[0]), to_metrics(counts[1])
 

@@ -81,6 +81,7 @@ def merge_intervals(contig, start, end, adjacent: bool = True):
                             cummax_e[:-1]])
     boundary = s_keys > prev_reach if adjacent else s_keys >= prev_reach
     group_sorted = torch.cumsum(boundary, dim=0) - 1
+    # adam-tpu: noqa[host-sync] reason=a data-dependent output size: torch sizes the merged intervals from a host int, where the JAX package merges on the host with numpy (no fetch to route)
     n_groups = int(group_sorted[-1]) + 1
     m_contig = c[boundary]
     m_start = s[boundary]
@@ -118,6 +119,7 @@ def expand_ranges(lo, hi):
     dev = lo.device
     hi = _i64(hi, dev)
     counts = hi - lo
+    # adam-tpu: noqa[host-sync] reason=a data-dependent output size: repeat_interleave's output_size is a host int, where the JAX package expands the ranges on the host with numpy (no fetch to route)
     total = int(counts.sum()) if counts.numel() else 0
     if total == 0:
         return _empty(dev), _empty(dev)

@@ -291,7 +291,9 @@ class ResidentWindow:
     def host_arrays(b, g: int, gl: int) -> dict:
         """Batch ``b``'s five columns padded to the ``[g, gl]`` grid."""
         return {
+            # adam-tpu: noqa[residency] reason=the host side of the ingest placement: make_resident_window and mesh_resident_window place these under pass_scope('ingest'); the other callers are fallbacks (the SDC audit's CPU reference, the coalescer's re-ship of a released window in serve/batching._resident_cols)
             "bases": pad_rows_np(b.bases, g, schema.BASE_PAD, cols=gl),
+            # adam-tpu: noqa[residency] reason=as for bases above: the ingest placement's host-side pad
             "quals": pad_rows_np(b.quals, g, schema.QUAL_PAD, cols=gl),
             "lengths": pad_rows_np(b.lengths, g, 0),
             "flags": pad_rows_np(b.flags, g, schema.FLAG_UNMAPPED),

@@ -149,6 +149,7 @@ def _route(mesh, per_shard: list, cap: int) -> tuple:
             fits = slot_in < cap
             dropped.append((~fits).sum().to(torch.int64).reshape(1))
             kept = order[fits]
+            # adam-tpu: noqa[host-sync] reason=torch.split needs the per-destination sizes as host ints; the JAX package's collective runs at a static capacity and fetches nothing here
             kept_counts = torch.clamp(counts, max=cap).cpu().tolist()
             moved = [leaf[kept] for leaf in leaves]
         sends.append([

@@ -31,6 +31,7 @@ def five_prime_positions(b, device) -> np.ndarray:
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    # adam-tpu: noqa[host-sync] reason=the JAX package's shuffle computes the 5' positions on the host (no device work, no fetch to route); one i64 vector per streamed batch
     return cigar_ops.five_prime_position(
         put(b.start), put(b.end), put(b.flags), put(b.cigar_ops),
         put(b.cigar_lens), put(b.cigar_n),

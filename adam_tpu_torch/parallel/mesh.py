@@ -146,13 +146,14 @@ class ProcessMesh:
         (chunks,) = xs
         dev = self._slot.device
         tail = tuple(chunks[0].shape[1:])
-        send_n = torch.tensor([int(c.shape[0]) for c in chunks], dtype=torch.int64,
-                              device=dev)
+        send_sizes = [int(c.shape[0]) for c in chunks]
+        send_n = torch.tensor(send_sizes, dtype=torch.int64, device=dev)
+        # adam-tpu: noqa[host-sync] reason=the receive split sizes are an argument of torch.distributed.all_to_all_single, host ints by its API; the JAX package's collectives run at static shapes and fetch nothing here
         recv_n = self._sizes(send_n).cpu().tolist()
         send = torch.cat([c.reshape((-1,) + tail) for c in chunks], 0).contiguous()
         recv = torch.empty((int(sum(recv_n)),) + tail, dtype=send.dtype, device=dev)
         dist.all_to_all_single(recv, send, output_split_sizes=recv_n,
-                               input_split_sizes=send_n.cpu().tolist(),
+                               input_split_sizes=send_sizes,
                                group=self.group)
         return [list(torch.split(recv, recv_n, 0))]
 

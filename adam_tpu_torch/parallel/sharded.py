@@ -186,8 +186,9 @@ def transform_sharded(
             counts.append(b.n_rows)
             if mark_duplicates:
                 five, score = md_mod.markdup_columns(b, ResidentWindow.place(b, dev))
-                summaries.append(md_mod.row_summary(ds, five.cpu().numpy(),
-                                                    score.cpu().numpy()))
+                # adam-tpu: noqa[host-sync] reason=the JAX package computes the shard's row summary on the host (no device work, no fetch to route); the port reduces on the card and copies the two row vectors home once per shard
+                five, score = five.cpu().numpy(), score.cpu().numpy()
+                summaries.append(md_mod.row_summary(ds, five, score))
             if realign:
                 events.append(realign_mod.extract_indel_event_arrays(b, max_indel_size=mis))
         stats["n_reads"] = int(sum(counts))

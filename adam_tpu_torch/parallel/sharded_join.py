@@ -147,6 +147,7 @@ def streamed_depth(batches: Iterable, sites: IntervalArrays,
     rows = in_dictionary(sites, seq_dict)
     site_bin = torch.full((len(sites),), -1, dtype=torch.int64, device=dev)
     site_bin[rows] = bin_ranges(bins, sites.take(rows))[0]
+    # adam-tpu: noqa[host-sync] reason=the JAX package bins the sites with numpy on the host (no fetch to route); one i64 vector per depth call
     site_bin = site_bin.cpu().numpy()
     try:
         for b in spill.touched_bins():
@@ -181,9 +182,10 @@ def streamed_overlap_join(batches: Iterable, right: IntervalArrays,
     rr = rr[r_order]
     try:
         for b in spill.touched_bins():
-            lo = int(torch.searchsorted(rbin_sorted, torch.tensor([b], device=dev)))
-            hi = int(torch.searchsorted(rbin_sorted, torch.tensor([b], device=dev),
-                                        right=True))
+            probe = torch.tensor([b], device=dev)
+            # adam-tpu: noqa[host-sync] reason=the bin's slice bounds are host ints for Python slicing; the JAX package searches with numpy on the host (no fetch to route)
+            lo, hi = torch.cat([torch.searchsorted(rbin_sorted, probe),
+                                torch.searchsorted(rbin_sorted, probe, right=True)]).tolist()
             if lo == hi:
                 continue
             rsel = r_keep[rr[lo:hi]]

@@ -298,6 +298,7 @@ def merge_observations(parts: list[tuple], window_ids=None,
 
 
 def _host(a) -> np.ndarray:
+    # adam-tpu: noqa[host-sync] reason=recalibrate_kernel's f64 host solve (bit for bit the JAX package's, which its tests hold to the same host twin): the JAX package solves on the device and fetches nothing here
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
@@ -669,11 +670,14 @@ def apply_reference(ds: AlignmentDataset, table: np.ndarray):
     g, gl = grid_rows(b.n_rows), grid_cols(b.lmax)
     res = [torch.from_numpy(a) for a in ResidentWindow.host_arrays(b, g, gl).values()]
     hq, v = (torch.from_numpy(a) for a in _apply_host_masks(b, g))
+    # adam-tpu: noqa[dispatch-ledger] reason=the SDC audit's CPU reference: every input is torch.from_numpy, so the plain versions run on the CPU and no card dispatch happens
     pq, pb = apply_pack2_body(*res, hq, v, torch.from_numpy(np.ascontiguousarray(table)),
                               gl, g * gl)
     lens_q = pack_lengths(b.lengths, b.valid, b.has_qual)
     lens_b = pack_lengths(b.lengths, b.valid)
+    # adam-tpu: noqa[host-sync] reason=the audit reference's tensors are on the CPU (above): numpy() is a view, no d2h
     return PackedColumns(quals=PackedQuals(pq[: int(lens_q.sum())].numpy(), lens_q),
+                         # adam-tpu: noqa[host-sync] reason=as for quals above: a CPU tensor's view
                          bases=PackedQuals(pb[: int(lens_b.sum())].numpy(), lens_b))
 
 
@@ -807,6 +811,7 @@ def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset
 
         n_rg, _, n_cyc, _ = table_dev.shape
         with _tele.TRACE.span(_tele.SPAN_BQSR_APPLY_DISPATCH, backend="device"):
+            # adam-tpu: noqa[dispatch-ledger] reason=the dataset-level apply runs without a device pool, so no prewarm precedes it and its first launch is in-window by design (the single-device path's "default" ledger key); the JAX package's bqsr.apply entry warms its streamed unpacked apply, which the port does not have
             new_q = _dispatch(
                 ("bqsr.apply", rw.g, rw.gl, n_rg, n_cyc), rw, None,
                 lambda: apply_table_body(

@@ -408,7 +408,8 @@ def mark_duplicates(ds: AlignmentDataset, device: str = "cuda") -> AlignmentData
     if b.n_rows == 0:
         return ds
     dev = resolve_device(device)
-    five, score = markdup_columns(b, ResidentWindow.place(b, dev))
-    s = row_summary(ds, five.cpu().numpy(), score.cpu().numpy())
+    five, score = fetch_columns(markdup_columns(b, ResidentWindow.place(b, dev)),
+                                b.n_rows)
+    s = row_summary(ds, five, score)
     dup = resolve_duplicates(s, device=dev)
     return ds.with_batch(b.replace(flags=apply_duplicate_flags(np.asarray(b.flags), dup)))

@@ -140,14 +140,18 @@ def shuffle_region_join(left: IntervalArrays, right: IntervalArrays,
     ri_rep, r_bin = iv.expand_ranges(*bin_ranges(bins, right))
     # per-bin independent joins over the bins both sides touch
     l_uniq = torch.unique(l_bin)
+    # adam-tpu: noqa[host-sync] reason=the per-bin loop below runs over host ints; the JAX package finds the shared bins with numpy on the host (no fetch to route)
     active = l_uniq[torch.isin(l_uniq, r_bin)].cpu().tolist()
     l_bin_sorted, l_order = torch.sort(l_bin, stable=True)
     r_bin_sorted, r_order = torch.sort(r_bin, stable=True)
     probe = torch.tensor(active, dtype=torch.int64, device=dev)
-    l_lo = torch.searchsorted(l_bin_sorted, probe).cpu().tolist()
-    l_hi = torch.searchsorted(l_bin_sorted, probe, right=True).cpu().tolist()
-    r_lo = torch.searchsorted(r_bin_sorted, probe).cpu().tolist()
-    r_hi = torch.searchsorted(r_bin_sorted, probe, right=True).cpu().tolist()
+    # adam-tpu: noqa[host-sync] reason=each bin's slice bounds, host ints for Python slicing; the JAX package searches with numpy on the host (no fetch to route)
+    l_lo, l_hi, r_lo, r_hi = torch.stack([
+        torch.searchsorted(l_bin_sorted, probe),
+        torch.searchsorted(l_bin_sorted, probe, right=True),
+        torch.searchsorted(r_bin_sorted, probe),
+        torch.searchsorted(r_bin_sorted, probe, right=True),
+    ]).cpu().tolist()
     out_l, out_r = [], []
     for k, b in enumerate(active):
         lsel = li_rep[l_order[l_lo[k]:l_hi[k]]]

@@ -33,6 +33,7 @@ from adam_tpu_torch.device import resolve_device
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch
 from adam_tpu_torch.ops.phred import PHRED_TO_SUCCESS
+from adam_tpu_torch.utils.transfer import device_fetch
 
 #: log success probability per phred value (f64; phred 0 gives -inf)
 with np.errstate(divide="ignore"):
@@ -68,8 +69,9 @@ def quality_profile(batch: ReadBatch, n_rg: int, device: str = "cuda"):
     def put(name):
         return torch.from_numpy(np.ascontiguousarray(getattr(b, name))).to(dev)
 
-    hist = quality_histogram(put("quals"), put("lengths"), put("read_group_idx"),
-                             put("valid"), put("has_qual"), n_rg).cpu().numpy()
+    hist = device_fetch(quality_histogram(put("quals"), put("lengths"),
+                                          put("read_group_idx"), put("valid"),
+                                          put("has_qual"), n_rg))
     counts = hist.sum(axis=2)
     with np.errstate(invalid="ignore"):  # 0 * -inf where phred 0 never occurs
         terms = np.where(hist > 0, hist * _LOG_SUCCESS[None, None, :], 0.0)

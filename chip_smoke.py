@@ -175,6 +175,21 @@ Phases, each of which fails the script on any error:
    groups (tickets, g, n_rg) and ``device.compile.in_window`` printed;
    no fallback in (ii) and (iii), at least one in (v), and fewer kernel-1
    launches in (ii) than in (i);
+4q. the tooling: (a) ``utils/kernelbench.run_kernelbench`` on the card at
+   grids 256 x 128 and 262,144 x 128, 5 timed calls, n_rg 3: 16 rows (4
+   kernels x cuda/plain x 2 grids), none an error row, the run's launches
+   of kernels 1 and 2 those of its cuda rows, then each row's thunk once
+   more with the counts read around it (per call: observe 1 x kernel 1,
+   pack 1 x kernel 2, apply 2 x kernel 2, fused_bc 1 x kernel 1 + 2 x
+   kernel 2; plain rows none) and the cuda thunks' outputs bit-equal to
+   the plain thunks'; the document is printed with each row's launches;
+   (b) phase 4's command with ``--progress HB`` in a child process and
+   ``python -m adam_tpu_torch top HB -interval 0.2 -max_wait 600``
+   beside it: top exits 0 after at least 3 frames, the last one the done
+   frame with the card's memory on its hbm line, and the run's parts
+   phase 4's; (c) ``top -once`` over 4p's batched leg's run root: exit 0,
+   one DONE row per job; (d) ``python -m adam_tpu_torch check --json``:
+   exit 0, ``ok`` true;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -2545,7 +2560,7 @@ def check_service(work: str, sams: dict, smi: str) -> dict:
          f"{SERVICE_LANES} read groups): total_s {solo_s}")
     out = {"solo_total_s": solo_s}
 
-    def leg(name, batching, run, spec=None):
+    def leg(name, batching, run, spec=None, keep=False):
         root = os.path.join(work, f"svc.{name}")
         _reset_telemetry()
         kernels.reset_launches()
@@ -2588,7 +2603,10 @@ def check_service(work: str, sams: dict, smi: str) -> dict:
              f"sched.batch {rec['batch']}; largest fused groups {groups}; "
              f"device.compile.in_window {rec['compile_in_window']}"
              + (f"; {extra}" if extra else "") + "; every job's parts are its solo run's")
-        shutil.rmtree(root)
+        if keep:  # 4q's directory-mode top reads it, then removes it
+            rec["root"] = root
+        else:
+            shutil.rmtree(root)
         return rec
 
     def submit_all(svc, root):
@@ -2631,7 +2649,7 @@ def check_service(work: str, sams: dict, smi: str) -> dict:
                 "largest_group": groups}
 
     out["unbatched"] = leg("i.unbatched", False, submit_all)
-    out["batched"] = leg("ii.batched", True, submit_all)
+    out["batched"] = leg("ii.batched", True, submit_all, keep=True)
     out["gateway"] = leg("iii.gateway", True, through_gateway)
     out["drain_recover"] = leg("iv.drain_recover", True, drain_then_recover)
     out["batch_fault"] = leg("v.batch_fault", True, submit_all, spec="sched.batch=transient,times=1")
@@ -2682,6 +2700,158 @@ def check_parity_service(sams: dict, work: str) -> dict:
     _log(f"card vs CPU (service, 2 jobs of {PARITY_SERVICE_READS} reads, batched and "
          f"unbatched): {n} parts byte-identical across the four runs")
     return {"parts": n}
+
+
+# ---------------------------------------------------------------------------
+# 4q. the tooling: the per-kernel microbench, the top dashboard, the checker
+# ---------------------------------------------------------------------------
+KB_GRIDS = ((256, 128), (WINDOW_READS, 128))  # the bench's default, the main path's window
+KB_ITERS = 5
+#: kernelbench kernel -> launches of (observe_hist, pack_rows) per call of a cuda row
+KB_LAUNCHES = {"observe": (1, 0), "pack": (0, 1), "apply": (0, 2), "fused_bc": (1, 2)}
+TOP_INTERVAL_S = "0.2"
+TOP_HEARTBEAT_S = "1"  # 4q's live run samples its heartbeat every second
+TOP_HEADER = "adam-tpu top — "
+
+
+def check_kernelbench(dev) -> dict:
+    """4q (a): ``run_kernelbench`` as a user calls it, both backends at
+    KB_GRIDS, with the launches of the whole run checked against
+    KB_LAUNCHES; then each row's thunk called once more with the counts
+    read around it (cuda rows launch KB_LAUNCHES, plain rows none) and
+    each cuda thunk's outputs held bit-equal to the plain thunk's."""
+    import torch
+
+    from adam_tpu_torch.ops import kernels
+    from adam_tpu_torch.utils import kernelbench as kb
+
+    t0 = time.monotonic()
+    kernels.reset_launches()
+    doc = kb.run_kernelbench(grids=KB_GRIDS, iters=KB_ITERS, n_rg=3)
+    total = kernels.launches()
+    wall = time.monotonic() - t0
+    rows = doc["rows"]
+    if len(rows) != len(kb.KERNELS) * len(kb.BACKENDS) * len(KB_GRIDS) or any(
+            "error" in r for r in rows):
+        raise AssertionError(f"4q kernelbench: {rows}")
+    want = [0, 0]
+    for r in rows:
+        if r["backend"] == "cuda":
+            for i, n in enumerate(KB_LAUNCHES[r["kernel"]]):
+                want[i] += (KB_ITERS + 1) * n
+    if [total["observe_hist"], total["pack_rows"]] != want:
+        raise AssertionError(f"4q kernelbench launched {total}, expected {want}")
+    outputs = {}
+    for g, gl in KB_GRIDS:
+        placed = kb.place(g, gl, 3, dev)
+        for r in rows:
+            if (r["g"], r["gl"]) != (g, gl):
+                continue
+            thunk = kb._build(r["kernel"], r["backend"], g, gl, 3, dev, placed)
+            kernels.reset_launches()
+            got = thunk()
+            torch.cuda.synchronize(dev)
+            n = kernels.launches()
+            per_call = (n["observe_hist"], n["pack_rows"])
+            expect = KB_LAUNCHES[r["kernel"]] if r["backend"] == "cuda" else (0, 0)
+            if per_call != expect:
+                raise AssertionError(f"4q kernelbench {r['kernel']}/{r['backend']} at "
+                                     f"{g}x{gl}: {per_call} launches per call, not {expect}")
+            r["launches_per_call"] = {"observe_hist": per_call[0], "pack_rows": per_call[1]}
+            outputs[(r["kernel"], r["backend"])] = got if isinstance(got, tuple) else (got,)
+        for kernel in kb.KERNELS:
+            a, b = outputs.pop((kernel, "cuda")), outputs.pop((kernel, "plain"))
+            if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"4q kernelbench {kernel} at {g}x{gl}: the cuda "
+                                     "thunk's outputs differ from the plain thunk's")
+        del placed
+        torch.cuda.empty_cache()
+    kernels.reset_launches()
+    return {"doc": doc, "wall_s": wall, "launches": total}
+
+
+def check_top_live(work: str, sam: str, main_hashes: dict) -> dict:
+    """4q (b): phase 4's command with ``--progress`` in a child process,
+    and ``top`` on its heartbeat in another, beside it: top exits 0 after
+    at least 3 frames, its last frame the done frame with the card's
+    memory on the hbm line, and the run's parts phase 4's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    hb = os.path.join(work, "top.heartbeat.ndjson")
+    out = os.path.join(work, "top.adam")
+    logs = {k: open(os.path.join(work, f"top.run.{k}"), "w+") for k in ("out", "err")}
+    env = dict(os.environ, ADAM_TPU_PROGRESS_INTERVAL_S=TOP_HEARTBEAT_S)
+    t0 = time.monotonic()
+    run = subprocess.Popen(
+        [sys.executable, "-m", "adam_tpu_torch",
+         *_transform_argv(sam, out, "cuda", extra=("--progress", hb))],
+        cwd=here, env=env, stdout=logs["out"], stderr=logs["err"])
+    top = subprocess.Popen(
+        [sys.executable, "-m", "adam_tpu_torch", "top", hb, "-interval", TOP_INTERVAL_S,
+         "-max_wait", "600"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        top_out, top_err = top.communicate(timeout=700)
+        run_rc = run.wait(timeout=700)
+    finally:
+        for proc in (top, run):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs.values():
+            fh.seek(0)
+        run_err = logs["err"].read()
+        run_out = logs["out"].read()
+        for fh in logs.values():
+            fh.close()
+    wall = time.monotonic() - t0
+    if run_rc != 0 or top.returncode != 0:
+        raise AssertionError(f"4q top: transform exited {run_rc}, top {top.returncode}: "
+                             f"{run_err[-2000:]} {top_err[-2000:]}")
+    frames = [f for f in top_out.split("\n\n") if f.startswith(TOP_HEADER)]
+    last = frames[-1].splitlines() if frames else []
+    hbm = [ln for ln in last if ln.startswith("hbm ")]
+    if (len(frames) < 3 or not any(ln.startswith("state    DONE") for ln in last)
+            or "run complete — output is final" not in last
+            or len(hbm) != 1 or not hbm[0].split()[1].startswith("0:")
+            or "unsupported" in hbm[0]):
+        raise AssertionError(f"4q top: {len(frames)} frames, the last:\n" + "\n".join(last))
+    if _part_hashes(out) != main_hashes:
+        raise AssertionError("4q top: the watched run's parts differ from phase 4's")
+    stats = json.loads(run_out.strip().splitlines()[-1])
+    shutil.rmtree(out)
+    return {"frames": len(frames), "last_frame": last, "wall_s": wall,
+            "run_total_s": stats["total_s"], "reads_per_s": stats["reads_per_s"]}
+
+
+def check_top_root(root: str, jobs) -> dict:
+    """4q (c): ``top -once`` over a finished service run root: exit 0 and
+    one row per job."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-m", "adam_tpu_torch", "top", root, "-once"],
+                         cwd=here, capture_output=True, text=True, timeout=300)
+    lines = res.stdout.splitlines()
+    rows = [ln for ln in lines if ln.split()[:1] and ln.split()[0] in jobs]
+    if (res.returncode != 0 or sorted(r.split()[0] for r in rows) != sorted(jobs)
+            or not all(r.split()[1] == "DONE" for r in rows)):
+        raise AssertionError(f"4q top -once {root}: rc {res.returncode}\n{res.stdout}"
+                             f"\n{res.stderr[-2000:]}")
+    return {"rows": rows, "frame": lines}
+
+
+def check_static(work: str) -> dict:
+    """4q (d): ``check --json`` on the checkout: exit 0, ``ok`` true."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(work, "check.json")
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "adam_tpu_torch", "check", "--json", path,
+                          "--quiet"], cwd=here, capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    with open(path) as fh:
+        doc = json.load(fh)
+    if res.returncode != 0 or doc.get("ok") is not True or doc["counts"]["new"] != 0:
+        raise AssertionError(f"4q check: rc {res.returncode}, {doc.get('counts')}: "
+                             f"{res.stderr[-2000:]}")
+    return {"counts": doc["counts"], "rules": doc["rules"], "wall_s": wall}
 
 
 def _part_hashes(d: str) -> dict:
@@ -2928,6 +3098,34 @@ def main() -> int:
         for jid, *_ in SERVICE_JOBS:
             os.unlink(svc_sams[jid])
 
+        # ---- 4q. the tooling: kernelbench, top, the checker -----------------
+        t0 = time.monotonic()
+        tooling = {"kernelbench": check_kernelbench(dev)}
+        kb_doc = tooling["kernelbench"]["doc"]
+        _log(f"4q kernelbench ({smi}, {tooling['kernelbench']['wall_s']:.1f} s, launches "
+             f"{tooling['kernelbench']['launches']}): " + json.dumps(kb_doc, sort_keys=True))
+        tooling["top_live"] = check_top_live(work, sam, main_hashes)
+        _log(f"4q top on a live run: {tooling['top_live']['frames']} frames in "
+             f"{tooling['top_live']['wall_s']:.1f} s (the run {tooling['top_live']['run_total_s']:.3f}"
+             f" s, parts phase 4's); last frame: "
+             + " | ".join(tooling["top_live"]["last_frame"]))
+        svc_root = service["batched"].pop("root")
+        tooling["top_root"] = check_top_root(svc_root, [j for j, *_ in SERVICE_JOBS])
+        shutil.rmtree(svc_root)
+        _log("4q top -once over 4p's run root: " + " | ".join(tooling["top_root"]["frame"]))
+        tooling["check"] = check_static(work)
+        _log(f"4q check: {tooling['check']['counts']} in {tooling['check']['wall_s']:.1f} s")
+        tooling["phase_s"] = time.monotonic() - t0
+        _log(f"4q: {tooling['phase_s']:.1f} s in all")
+        kb_launches = {}
+        for r in kb_doc["rows"]:
+            if r["backend"] == "cuda":
+                for name in ("observe_hist", "pack_rows"):
+                    kb_launches.setdefault(name, {})[f"{r['kernel']}.g{r['g']}x{r['gl']}"] = \
+                        (KB_ITERS + 1) * r["launches_per_call"][name]
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_kernelbench"] = kb_launches[name]
+
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
         if SW_READS != MAIN_READS:
@@ -3171,6 +3369,7 @@ def main() -> int:
         "observability": observ,
         "multi_device": multi,
         "service": service,
+        "tooling": tooling,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

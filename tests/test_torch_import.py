@@ -233,7 +233,11 @@ def test_realign_names_the_next_slice():
                                     "adam_tpu_torch.parallel.dist",
                                     "adam_tpu_torch.utils.health",
                                     "adam_tpu_torch.utils.transfer",
-                                    "adam_tpu_torch.utils.compile_ledger"])
+                                    "adam_tpu_torch.utils.compile_ledger",
+                                    "adam_tpu_torch.staticcheck",
+                                    "adam_tpu_torch.utils.top",
+                                    "adam_tpu_torch.utils.kernelbench",
+                                    "adam_tpu_torch.cli.devtools"])
 def test_realign_modules_load_no_jax(module):
     code = textwrap.dedent(f"""
         import sys
@@ -241,6 +245,26 @@ def test_realign_modules_load_no_jax(module):
         bad = sorted(n for n in sys.modules
                      if n == "jax" or n.startswith("jax.")
                      or n == "adam_tpu" or n.startswith("adam_tpu."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_checker_imports_no_torch_and_no_numpy():
+    """The static checker only parses source: it runs on the whole tree,
+    and its CLI, in an interpreter that never loads torch or numpy (nor
+    JAX or the JAX package)."""
+    code = textwrap.dedent("""
+        import sys
+        from adam_tpu_torch.staticcheck import cli, core
+        rep = core.run_checks(".")
+        assert rep.ok, rep.new_findings
+        assert cli.main(["--quiet", "--rules", "durability"]) == 0
+        bad = sorted(n for n in sys.modules if n.split(".")[0] in
+                     ("torch", "numpy", "jax", "adam_tpu"))
         assert not bad, bad
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
