@@ -198,6 +198,13 @@ class ReadBatch:
 
         return ReadBatch(**{k: move(v) for k, v in self.arrays().items()})
 
+    def to_device(self, device="cuda") -> "ReadBatch":
+        """Every field as a tensor on ``device`` (default: the card; JAX's
+        ``to_device`` places on its default device)."""
+        from adam_tpu_torch.device import resolve_device
+
+        return self.to(resolve_device(device))
+
     @staticmethod
     def empty(n: int = 0, lmax: int = 0, cmax: int = 0) -> "ReadBatch":
         return ReadBatch(

@@ -163,6 +163,27 @@ class StringColumn:
             mat[rows, pos] = self.buf[flat]
         return mat.view(f"S{w}").ravel()
 
+    def unique_inverse(self) -> tuple[np.ndarray, np.ndarray]:
+        """-> (unique S-array, inverse i64[N]), exact."""
+        u, inv = np.unique(self.to_fixed_bytes(), return_inverse=True)
+        return u, inv
+
+    @staticmethod
+    def from_matrix(mat: np.ndarray, lens: np.ndarray,
+                    valid: Optional[np.ndarray] = None) -> "StringColumn":
+        """Build from a padded byte matrix [N, W] and per-row lengths."""
+        mat = np.ascontiguousarray(mat, dtype=np.uint8)
+        lens = np.asarray(lens, dtype=np.int64)
+        n, w = mat.shape
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        if n and (lens == w).all():
+            # uniform full-width rows: the buffer is the matrix
+            return StringColumn(mat.reshape(-1).copy(), offsets, valid)
+        mask = np.arange(w)[None, :] < lens[:, None]
+        # row-major: the rows' prefixes concatenated in order
+        return StringColumn(mat[mask], offsets, valid)
+
     @staticmethod
     def where(cond: np.ndarray, a: "StringColumn",
               b: "StringColumn") -> "StringColumn":

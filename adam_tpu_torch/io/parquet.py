@@ -53,8 +53,13 @@ PART_NAME_FORMAT = "part-r-{:05d}.parquet"
 _PART_NAME_RE = re.compile(r"^part-r-(\d{5,})\.parquet$")
 
 
+def part_name(idx: int) -> str:
+    """The canonical part file name for window/part index ``idx``."""
+    return PART_NAME_FORMAT.format(idx)
+
+
 def part_path(out_dir: str, idx: int) -> str:
-    return os.path.join(out_dir, PART_NAME_FORMAT.format(idx))
+    return os.path.join(out_dir, part_name(idx))
 
 
 def part_index(path: str) -> Optional[int]:
@@ -62,6 +67,17 @@ def part_index(path: str) -> Optional[int]:
     not a canonical part file name (staging or sidecar files)."""
     m = _PART_NAME_RE.match(os.path.basename(path))
     return int(m.group(1)) if m else None
+
+
+#: the full alignment column list, in the Parquet schema's order (the
+#: AlignmentRecordField analog; ``formats.fields.ALIGNMENT_FIELDS`` is
+#: the same names as a set)
+ALIGNMENT_FIELDS = [
+    "readName", "sequence", "qual", "flags", "contig", "start", "end",
+    "mapq", "cigar", "mateContig", "mateAlignmentStart", "inferredInsertSize",
+    "recordGroupName", "attributes", "mismatchingPositions", "origQual",
+    "basesTrimmedFromStart", "basesTrimmedFromEnd",
+]
 
 
 def purge_stale_staging(out_dir: str) -> None:
@@ -628,18 +644,19 @@ ESSENTIAL_FIELDS = {"sequence", "qual", "flags", "cigar", "start", "contig"}
 
 
 def load_alignments(
-    path: str, projection=None, predicate=None,
+    path: str, projection=None, predicate=None, round_rows_to: int = 1,
 ) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     """Load a part file or part directory, with an optional column
     ``projection`` (the essential columns are always read) and a pyarrow
-    ``filters``-style ``predicate``."""
+    ``filters``-style ``predicate``; the batch's rows pad up to a multiple
+    of ``round_rows_to``."""
     import pyarrow.parquet as pq
 
     cols = None
     if projection is not None:
         cols = sorted(set(projection) | ESSENTIAL_FIELDS)
     table = pq.read_table(path, columns=cols, filters=predicate)
-    return from_arrow_alignments(table)
+    return from_arrow_alignments(table, round_rows_to=round_rows_to)
 
 
 def _string_column_or(table, name: str, n: int, default=None):
@@ -713,11 +730,13 @@ def _codes_matrix(col, lut: np.ndarray | None, pad: int):
     return np.full((n, w), pad, np.uint8), lens.astype(np.int32)
 
 
-def from_arrow_alignments(table) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+def from_arrow_alignments(table, round_rows_to: int = 1
+                          ) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     """Arrow Table in the AlignmentRecord layout -> host batch, sidecar
     and header (the header from the schema metadata): LUT passes for the
     sequences and qualities, the native CIGAR parse, dictionary-indexed
-    name columns."""
+    name columns.  The batch's rows (not the sidecar's, as in JAX) pad up
+    to a multiple of ``round_rows_to``."""
     from adam_tpu_torch import native
 
     header = _header_from_meta(table.schema.metadata)
@@ -800,6 +819,9 @@ def from_arrow_alignments(table) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
         trimmed_from_start=_int_col(table, "basesTrimmedFromStart", n, 0, np.int32),
         trimmed_from_end=_int_col(table, "basesTrimmedFromEnd", n, 0, np.int32),
     )
+    g = ((n + round_rows_to - 1) // round_rows_to) * round_rows_to
+    if g != n:
+        batch = batch.pad_rows(g)
     return batch, side, header
 
 

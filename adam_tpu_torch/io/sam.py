@@ -143,8 +143,11 @@ def iter_sam_records(text_lines: Iterable[str], header: SamHeader) -> Iterator[d
         )
 
 
-def _columns_to_batch(out: dict) -> tuple[ReadBatch, ReadSidecar]:
-    """Native tokenizer columns -> (ReadBatch, ReadSidecar)."""
+def _columns_to_batch(out: dict, round_rows_to: int = 1
+                      ) -> tuple[ReadBatch, ReadSidecar]:
+    """Native tokenizer columns -> (ReadBatch, ReadSidecar), the rows
+    padded (invalid, empty sidecar strings) up to a multiple of
+    ``round_rows_to``."""
     from adam_tpu_torch.formats.strings import StringColumn
 
     n = out["n"]
@@ -179,6 +182,13 @@ def _columns_to_batch(out: dict) -> tuple[ReadBatch, ReadSidecar]:
             out["oq_buf"], out["oq_off"], out["oq_present"].astype(bool)
         ),
     )
+    nrows = ((n + round_rows_to - 1) // round_rows_to) * round_rows_to
+    if nrows != n:
+        batch = batch.pad_rows(nrows)
+        pad = nrows - n
+        side = ReadSidecar.concat(
+            [side, ReadSidecar(names=[""] * pad, attrs=[""] * pad,
+                               md=[None] * pad, orig_quals=[None] * pad)])
     return batch, side
 
 
@@ -245,8 +255,10 @@ def iter_sam_batches(path: str, batch_reads: int = 262_144):
         yield batch, side, header
 
 
-def read_sam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
-    """Whole-file SAM (or ``.sam.gz``) read through the native tokenizer."""
+def read_sam(path: str, round_rows_to: int = 1
+             ) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Whole-file SAM (or ``.sam.gz``) read through the native tokenizer;
+    the rows pad up to a multiple of ``round_rows_to``."""
     from adam_tpu_torch import native
 
     opener = gzip.open if str(path).endswith(".gz") else open
@@ -259,7 +271,7 @@ def read_sam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     )
     if out is None:
         raise ValueError(f"{path}: malformed SAM records")
-    batch, side = _columns_to_batch(out)
+    batch, side = _columns_to_batch(out, round_rows_to)
     return batch, side, header
 
 
@@ -401,8 +413,10 @@ def iter_bam_batches(
                     break
 
 
-def read_bam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
-    """Whole-file BAM read: inflate, parse the preamble, tokenize."""
+def read_bam(path: str, round_rows_to: int = 1
+             ) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
+    """Whole-file BAM read: inflate, parse the preamble, tokenize; the
+    rows pad up to a multiple of ``round_rows_to``."""
     from adam_tpu_torch import native
 
     with open(path, "rb") as fh:
@@ -412,7 +426,7 @@ def read_bam(path: str) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     if out is None:
         raise ValueError(f"{path}: malformed BAM records")
     out.pop("consumed")
-    batch, side = _columns_to_batch(out)
+    batch, side = _columns_to_batch(out, round_rows_to)
     return batch, side, header
 
 

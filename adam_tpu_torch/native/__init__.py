@@ -271,6 +271,11 @@ def lib() -> ct.CDLL:
 
 
 def _nthreads() -> int:
+    """The tokenizers' thread count: ``ADAM_TPU_NATIVE_THREADS`` when set
+    (at least 1), else the cores up to 16."""
+    env = os.environ.get("ADAM_TPU_NATIVE_THREADS")
+    if env:
+        return max(1, int(env))
     return max(1, min(16, os.cpu_count() or 1))
 
 

@@ -5,12 +5,12 @@ The metric definitions are the reference's ``rdd/read/FlagStat.scala``
 (FlagStatMetrics / DuplicateMetrics, split by the vendor-quality flag).
 Each metric is a masked i64 sum over the batch's flag columns, computed
 on ``device`` (the JAX package's ``flagstat_device`` jit body as torch);
-all of them come home in one fetch.
+:func:`flagstat` brings all of them home in one fetch.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ class DuplicateMetrics:
     only_read_mapped: int
     cross_chromosome: int
 
+    def __add__(self, other):
+        return _add(self, other)
+
 
 @dataclass(frozen=True)
 class FlagStatMetrics:
@@ -42,6 +45,32 @@ class FlagStatMetrics:
     singleton: int
     with_mate_mapped_to_diff_chromosome: int
     with_mate_mapped_to_diff_chromosome_mapq5: int
+
+    def __add__(self, other):
+        return _add(self, other)
+
+    def to_ints(self) -> "FlagStatMetrics":
+        """Every count as a Python int (the counts of
+        :func:`flagstat_device` come home in one fetch)."""
+        leaves = _leaves(self)
+        if any(isinstance(x, torch.Tensor) for x in leaves):
+            # adam-tpu: noqa[host-sync] reason=the JAX package's to_ints fetches its metric structs outside device_fetch too; 36 scalars in one copy
+            leaves = torch.stack([torch.as_tensor(x) for x in leaves]).cpu().tolist()
+        return to_metrics(leaves)
+
+
+def _add(a, b):
+    """Field-wise sum of two metric structs (nested structs recurse)."""
+    return type(a)(*(getattr(a, f.name) + getattr(b, f.name) for f in fields(a)))
+
+
+def _leaves(m) -> list:
+    """The 18 counts of one FlagStatMetrics, in field order."""
+    out = []
+    for f in fields(m):
+        v = getattr(m, f.name)
+        out.extend(_leaves(v) if isinstance(v, DuplicateMetrics) else [v])
+    return out
 
 
 def _metric_masks(flags, contig_idx, mate_contig_idx, mapq) -> list:
@@ -82,19 +111,38 @@ def _metric_masks(flags, contig_idx, mate_contig_idx, mapq) -> list:
 
 
 def to_metrics(counts) -> FlagStatMetrics:
-    """One row of :func:`flagstat_device`'s counts -> its metrics."""
+    """One row of :func:`flagstat_counts` -> its metrics."""
     c = [int(x) for x in counts]
+    return _struct(c)
+
+
+def _struct(c) -> FlagStatMetrics:
     return FlagStatMetrics(c[0], DuplicateMetrics(*c[1:5]), DuplicateMetrics(*c[5:9]),
                            *c[9:])
 
 
-def flagstat_device(flags, contig_idx, mate_contig_idx, mapq, valid):
+def flagstat_counts(flags, contig_idx, mate_contig_idx, mapq, valid):
     """Tensors of one batch -> i64[2, 18] counts: row 0 over the reads that
     failed vendor QC, row 1 over those that passed (valid rows only)."""
     failed = (flags & schema.FLAG_FAILED_QC) != 0
     select = torch.stack([failed & valid, ~failed & valid])
     masks = torch.stack(_metric_masks(flags, contig_idx, mate_contig_idx, mapq))
     return (masks[None, :, :] & select[:, None, :]).sum(dim=2, dtype=torch.int64)
+
+
+def flagstat_device(b: ReadBatch, device: str = "cuda"
+                    ) -> tuple[FlagStatMetrics, FlagStatMetrics]:
+    """-> (failed_vendor_quality, passed_vendor_quality) metric structs
+    whose counts are 0-d i64 tensors on ``device`` (default: the card),
+    as JAX's ``flagstat_device`` leaves them on its device. They sum with
+    ``+``; ``to_ints()`` brings them home."""
+    dev = resolve_device(device)
+    cols = [getattr(b, f) for f in ("flags", "contig_idx", "mate_contig_idx", "mapq",
+                                    "valid")]
+    cols = [(c if isinstance(c, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(c)))
+            .to(dev) for c in cols]
+    counts = flagstat_counts(*cols)
+    return _struct(list(counts[0])), _struct(list(counts[1]))
 
 
 def flagstat(b: ReadBatch, device: str = "cuda") -> tuple[FlagStatMetrics, FlagStatMetrics]:
@@ -105,7 +153,7 @@ def flagstat(b: ReadBatch, device: str = "cuda") -> tuple[FlagStatMetrics, FlagS
     cols = [torch.from_numpy(np.ascontiguousarray(getattr(b, f))).to(dev)
             for f in ("flags", "contig_idx", "mate_contig_idx", "mapq", "valid")]
     # adam-tpu: noqa[host-sync] reason=the JAX package's flagstat fetches its counts outside device_fetch too (FlagStatMetrics.to_ints); one 2x18 count matrix per report
-    counts = flagstat_device(*cols).cpu().numpy()
+    counts = flagstat_counts(*cols).cpu().numpy()
     return to_metrics(counts[0]), to_metrics(counts[1])
 
 

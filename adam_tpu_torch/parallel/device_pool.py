@@ -245,9 +245,13 @@ class ResidentWindow:
     the host batch: the kernels read ``flags`` for the orientation bits,
     which duplicate marking never touches.
 
-    The streamed run frees it (:meth:`release`) after the window's pass-C
-    fetch, or on the fault path (eviction, a mesh degrade), after which the
-    window re-ships from its host copy."""
+    Refcounted: the streamed run holds one reference per window and
+    releases it after the window's pass-C fetch, so device memory frees
+    window by window; :meth:`retain` pins the window for a consumer
+    across a concurrent boundary, and :meth:`release` frees only when the
+    count reaches zero.  :meth:`drop` is the fault path (eviction, a mesh
+    degrade): it frees whatever the count, after which the window
+    re-ships from its host copy."""
 
     FIELDS = ("bases", "quals", "lengths", "flags", "read_group_idx")
 
@@ -259,6 +263,7 @@ class ResidentWindow:
         self.gl = gl
         self.nbytes = nbytes
         self._t = tensors
+        self._refs = 1
         self._lock = threading.Lock()
 
     @property
@@ -280,11 +285,30 @@ class ResidentWindow:
         """The five resident tensors, in kernel-argument order."""
         return tuple(self.get(f) for f in self.FIELDS)
 
+    def retain(self) -> None:
+        """Add a reference (a no-op once freed)."""
+        with self._lock:
+            if self._t is not None:
+                self._refs += 1
+
     def release(self) -> bool:
-        """Free the tensors; True when they were still held."""
+        """Drop one reference; True when this call freed the tensors."""
+        with self._lock:
+            if self._t is None:
+                return False
+            self._refs -= 1
+            if self._refs > 0:
+                return False
+            self._t = None
+            return True
+
+    def drop(self) -> bool:
+        """Free the tensors whatever the count; True when they were still
+        held."""
         with self._lock:
             held = self._t is not None
             self._t = None
+            self._refs = 0
             return held
 
     @staticmethod
@@ -311,6 +335,26 @@ class ResidentWindow:
         put = putter(slot)
         return ResidentWindow(window, slot, {k: put(a) for k, a in host.items()},
                               g, gl, sum(int(a.nbytes) for a in host.values()))
+
+
+def make_resident_window(b, window: int, device="cuda") -> ResidentWindow:
+    """Place one window's resident payload on ``device`` (a device or a
+    pool slot; default: the card) -> its :class:`ResidentWindow`.  ``b``
+    is the window batch's host view; the arrays pad to the row and lane
+    grid that a per-pass dispatch would have shipped."""
+    from adam_tpu_torch.device import resolve_device
+
+    return ResidentWindow.place(
+        b, device if isinstance(device, Slot) else resolve_device(device), window=window)
+
+
+def resident_windows_enabled(default: bool = True) -> bool:
+    """The ``ADAM_TPU_RESIDENT`` toggle (``utils/retry.env_toggle``):
+    ``auto``/unset -> ``default``; ``1/on/true`` and ``0/off/false``
+    force; a typo warns and keeps the default.  Off, the streamed run
+    places no resident window: every pass re-ships its window from the
+    host copy, the route a released window already takes."""
+    return retry_mod.env_toggle("ADAM_TPU_RESIDENT", default)
 
 
 # --------------------------------------------------------------------------

@@ -25,7 +25,7 @@ code drives two CPU slots, two slots on one card and N processes.  A
 result every shard holds (a ``psum``) comes back once; a result sharded
 by destination comes back as host arrays, one row per *local* shard (all
 ``n`` of them in a ``LocalMesh``).  The single-device lexsort of this
-family is ``pipelines/markdup.device_lexsort``.
+family is :func:`device_lexsort`, which the duplicate resolve calls.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ from adam_tpu_torch.formats.batch import ReadBatch
 from adam_tpu_torch.ops import flagstat as fs
 from adam_tpu_torch.ops import kmer as kmer_ops
 from adam_tpu_torch.parallel.device_pool import putter
-from adam_tpu_torch.pipelines.markdup import device_lexsort  # noqa: F401  (the family's single-device member)
 from adam_tpu_torch.utils.transfer import device_fetch
 
 _I64_MAX = np.iinfo(np.int64).max
@@ -74,6 +73,48 @@ def _fetch(x, mesh, k):
     return device_fetch(x, mesh.slot(k))
 
 
+def device_lexsort(keys, device="cuda", info=None) -> np.ndarray:
+    """``np.lexsort(keys)`` on ``device`` (a device or a pool slot; None is
+    the card, as JAX's None is its default device) -> i64[n] permutation.
+
+    ``keys`` follows the np.lexsort convention (last key primary).  The
+    keys ship as one i64 stack padded to the row grid, with a last,
+    most significant validity key that sorts the padding after every real
+    row (JAX's layout).  A cascade of stable sorts from the least
+    significant key up, ``perm = perm[sort(k[perm], stable=True)]``,
+    reproduces THE unique stable permutation, so ``perm[:n]`` is bitwise
+    ``np.lexsort``'s.
+
+    ``info``: an optional dict that receives ``{"device_sort": bool}``,
+    True once the device delivered the permutation (the port has no host
+    fallback: a failure raises)."""
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.formats.batch import grid_rows
+    from adam_tpu_torch.parallel.device_pool import Slot, as_slot
+
+    if info is not None:
+        info["device_sort"] = False
+    slot = as_slot(device if isinstance(device, Slot) else resolve_device(device))
+    keys = [np.ascontiguousarray(k, np.int64) for k in keys]
+    n = keys[0].shape[0] if keys else 0
+    if n == 0:
+        return np.zeros(0, np.int64)
+    g = grid_rows(n)
+    stack = np.zeros((len(keys) + 1, g), np.int64)
+    for i, k in enumerate(keys):
+        stack[i, :n] = k
+    stack[len(keys), n:] = 1
+    ks = putter(slot)(stack)
+    with slot.scope():
+        perm = torch.arange(g, device=slot.device)
+        for i in range(len(keys) + 1):
+            perm = perm[torch.sort(ks[i][perm], stable=True).indices]
+    out = np.asarray(device_fetch(perm[:n], slot), np.int64)
+    if info is not None:
+        info["device_sort"] = True
+    return out
+
+
 # --------------------------------------------------------------------------
 # Aggregates (psum)
 # --------------------------------------------------------------------------
@@ -87,7 +128,7 @@ def distributed_flagstat(batch: ReadBatch, mesh=None):
         cols = _shard_cols(mesh, b, k, ("flags", "contig_idx", "mate_contig_idx",
                                         "mapq", "valid"))
         with mesh.slot(k).scope():
-            counts.append(fs.flagstat_device(*cols))
+            counts.append(fs.flagstat_counts(*cols))
     k0 = mesh.local_shards()[0]
     total = _fetch(mesh.psum(counts)[0], mesh, k0)
     return fs.to_metrics(total[0]), fs.to_metrics(total[1])
@@ -344,8 +385,8 @@ def distributed_markdup(ds, mesh=None):
     k0 = mesh.local_shards()[0]
     five = np.concatenate([_fetch(x, mesh, k0) for x in mesh.all_gather(fives)[0]])[:n]
     score = np.concatenate([_fetch(x, mesh, k0) for x in mesh.all_gather(scores)[0]])[:n]
-    s = md.row_summary(ds, five, score)
-    dup = md.resolve_duplicates(s, device=mesh.slot(k0))
+    s = md.row_summary(ds, five_prime=five, score=score)
+    dup = md.resolve_duplicates(s, sort_device=mesh.slot(k0))
     return ds.with_batch(b.replace(flags=md.apply_duplicate_flags(np.asarray(b.flags), dup)))
 
 

@@ -140,6 +140,31 @@ def shard_rows_by_position(seq_dict: SequenceDictionary, contig_idx, pos,
     return [np.flatnonzero(part == s) for s in range(n_shards)]
 
 
+def partition_by_contig(contig_idx, n_partitions: Optional[int] = None) -> np.ndarray:
+    """Partition rows by contig (the reference's ReferencePartitioner):
+    every row of a contig lands on the same partition.
+
+    -> i32[N] partition ids in [0, n_partitions); unplaced rows (-1
+    contig) go to the last partition. Defaults to one partition per
+    contig present, plus that last one."""
+    contig_idx = np.asarray(contig_idx)
+    uniq = np.unique(contig_idx[contig_idx >= 0])
+    if n_partitions is None:
+        n_partitions = max(1, len(uniq)) + 1
+    # contig ids may be sparse: the modulo takes their ranks, so distinct
+    # contigs do not collide while partitions sit empty
+    rank = np.searchsorted(uniq, np.clip(contig_idx, 0, None))
+    part = np.where(contig_idx >= 0, rank % max(1, n_partitions - 1),
+                    n_partitions - 1)
+    return part.astype(np.int32)
+
+
+def shard_rows_by_contig(contig_idx, n_shards: int) -> list[np.ndarray]:
+    """Row indices per shard under contig partitioning."""
+    part = partition_by_contig(contig_idx, n_shards)
+    return [np.flatnonzero(part == s) for s in range(n_shards)]
+
+
 # --------------------------------------------------------------------------
 # The mesh half: the streamed run's SPMD execution mode
 # --------------------------------------------------------------------------

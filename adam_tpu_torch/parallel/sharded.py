@@ -188,7 +188,7 @@ def transform_sharded(
                 five, score = md_mod.markdup_columns(b, ResidentWindow.place(b, dev))
                 # adam-tpu: noqa[host-sync] reason=the JAX package computes the shard's row summary on the host (no device work, no fetch to route); the port reduces on the card and copies the two row vectors home once per shard
                 five, score = five.cpu().numpy(), score.cpu().numpy()
-                summaries.append(md_mod.row_summary(ds, five, score))
+                summaries.append(md_mod.row_summary(ds, five_prime=five, score=score))
             if realign:
                 events.append(realign_mod.extract_indel_event_arrays(b, max_indel_size=mis))
         stats["n_reads"] = int(sum(counts))
@@ -199,7 +199,7 @@ def transform_sharded(
         t = time.perf_counter()
         dup_slices = [None] * len(shard_paths)
         if mark_duplicates and summaries:
-            dup = md_mod.resolve_duplicates(md_mod.concat_summaries(summaries), device=dev)
+            dup = md_mod.resolve_duplicates(md_mod.concat_summaries(summaries), sort_device=dev)
             off = 0
             for si, n in enumerate(counts):
                 dup_slices[si] = dup[off: off + n]

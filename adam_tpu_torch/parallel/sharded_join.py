@@ -80,6 +80,9 @@ class BinnedIntervalSpill:
                 fh.write(mat.astype("<i8", copy=False).tobytes())
             self._counts[b] += len(rows)
 
+    def close(self) -> None:
+        """Nothing to close: appends hold no persistent handles."""
+
     def touched_bins(self) -> list[int]:
         return sorted(self._counts)
 

@@ -467,18 +467,32 @@ def stash_orig_quals(ds: AlignmentDataset, b) -> AlignmentDataset:
 # --------------------------------------------------------------------------
 # Windows: observe, apply, and the fused B->C tier
 # --------------------------------------------------------------------------
-def _observe_host_masks(ds: AlignmentDataset, b, g: int, gl: int,
-                        known_snps) -> tuple:
-    """Host side of one window's observe: the MD walk, the read and
-    residue filters (known SNPs masked), bit-packed and padded to the
-    ``[g, gl]`` grid -> (res_bits, mm_bits, read_ok) numpy arrays."""
-    from adam_tpu_torch.formats.batch import pad_rows_np
-    from adam_tpu_torch.ops.colpack import pack_mask_bits
+def _observe_masks(ds: AlignmentDataset, b, known_snps) -> tuple:
+    """The MD walk and the read and residue filters (known SNPs masked) of
+    host batch ``b`` -> (read_ok, residue_ok, is_mm)."""
     from adam_tpu_torch.ops.mdtag import batch_md_arrays
 
     is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
-    read_ok = observe_read_mask(b, has_md)
-    residue_ok = observe_residue_mask(ds, b, known_snps)
+    return observe_read_mask(b, has_md), observe_residue_mask(ds, b, known_snps), is_mm
+
+
+def observe_inputs(ds: AlignmentDataset, known_snps=None) -> tuple:
+    """Host-side observe inputs for one window -> ``(b, read_ok,
+    residue_ok, is_mm, n_rg)``: the arrays kernel 1's keys and masks are
+    built from (JAX's ``observe_inputs``)."""
+    b = ds.batch.to_numpy()
+    return (b, *_observe_masks(ds, b, known_snps), len(ds.read_groups) + 1)
+
+
+def _observe_host_masks(ds: AlignmentDataset, b, g: int, gl: int,
+                        known_snps) -> tuple:
+    """Host side of one window's observe (:func:`_observe_masks`),
+    bit-packed and padded to the ``[g, gl]`` grid -> (res_bits, mm_bits,
+    read_ok) numpy arrays."""
+    from adam_tpu_torch.formats.batch import pad_rows_np
+    from adam_tpu_torch.ops.colpack import pack_mask_bits
+
+    read_ok, residue_ok, is_mm = _observe_masks(ds, b, known_snps)
     return (pack_mask_bits(pad_rows_np(residue_ok, g, False, cols=gl)),
             pack_mask_bits(pad_rows_np(is_mm, g, False, cols=gl)),
             pad_rows_np(read_ok, g, False))
@@ -798,10 +812,24 @@ def apply_placed(placed: list, table_dev) -> AlignmentDataset:
     """Gather a solved table into every placed chunk -> the recalibrated
     dataset (the chunks concatenated back in order)."""
     return AlignmentDataset.concat(
-        [apply_recalibration(c, rw, table_dev) for c, rw in placed])
+        [apply_recalibration_placed(c, rw, table_dev) for c, rw in placed])
 
 
-def apply_recalibration(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset:
+def apply_recalibration(ds: AlignmentDataset, phred_table: np.ndarray, gl: int,
+                        device: str = "cuda") -> AlignmentDataset:
+    """Apply a solved host table (u8 ``[n_rg, 94, 2*gl+1, 17]``) to a
+    dataset, JAX's call: the rows and the table are placed on ``device``
+    (default: the card) here, then :func:`apply_placed` gathers.  ``gl``
+    is the table's lane count; the gather centres on the table's own
+    cycle axis, as JAX's device gather does."""
+    from adam_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    table_dev = torch.from_numpy(np.ascontiguousarray(phred_table, np.uint8)).to(dev)
+    return apply_placed(place_chunks(ds, dev), table_dev)
+
+
+def apply_recalibration_placed(ds: AlignmentDataset, rw, table_dev) -> AlignmentDataset:
     """Gather a solved table into one placed dataset's quals (reported
     quality >= Q5 only) and stash the pre-recalibration quals as OQ ->
     the recalibrated dataset."""

@@ -481,6 +481,9 @@ class RunJournal:
         })
 
     # ---- observe-histogram / table sidecars ----------------------------
+    def has_observation(self, win: int) -> bool:
+        return os.path.isfile(self.observation_path(win))
+
     @staticmethod
     def _npz_bytes(**arrays) -> bytes:
         import io

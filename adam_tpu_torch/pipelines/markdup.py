@@ -20,6 +20,7 @@ from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import pad_rows_np
 from adam_tpu_torch.formats.strings import StringColumn
 from adam_tpu_torch.ops import cigar as cigar_ops
+from adam_tpu_torch.parallel.dist import device_lexsort
 
 
 def markdup_columns_local(start, end, flags, ops, lens, n_ops, quals,
@@ -92,39 +93,6 @@ def fetch_columns(cols, n: int, slot=None, mesh=None) -> tuple:
     return device_fetch(five, slot), device_fetch(score, slot)
 
 
-def device_lexsort(keys, device) -> np.ndarray:
-    """``np.lexsort(keys)`` on ``device`` (a device or a pool slot) -> i64[n]
-    permutation.
-
-    ``keys`` follows the np.lexsort convention (last key primary).  The
-    keys ship as one i64 stack padded to the row grid, with a last,
-    most significant validity key that sorts the padding after every real
-    row (JAX's layout).  A cascade of stable sorts from the least
-    significant key up, ``perm = perm[sort(k[perm], stable=True)]``,
-    reproduces THE unique stable permutation, so ``perm[:n]`` is bitwise
-    ``np.lexsort``'s."""
-    from adam_tpu_torch.formats.batch import grid_rows
-    from adam_tpu_torch.parallel.device_pool import as_slot, putter
-    from adam_tpu_torch.utils.transfer import device_fetch
-
-    keys = [np.ascontiguousarray(k, np.int64) for k in keys]
-    n = keys[0].shape[0]
-    if n == 0:
-        return np.zeros(0, np.int64)
-    g = grid_rows(n)
-    stack = np.zeros((len(keys) + 1, g), np.int64)
-    for i, k in enumerate(keys):
-        stack[i, :n] = k
-    stack[len(keys), n:] = 1
-    slot = as_slot(device)
-    ks = putter(slot)(stack)
-    with slot.scope():
-        perm = torch.arange(g, device=slot.device)
-        for i in range(len(keys) + 1):
-            perm = perm[torch.sort(ks[i][perm], stable=True).indices]
-    return np.asarray(device_fetch(perm[:n], slot), np.int64)
-
-
 def _sequence_hashes(bases: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Deterministic per-read sequence hash (unmapped-read grouping key).
 
@@ -141,19 +109,42 @@ def _sequence_hashes(bases: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return h & 0x7FFFFFFFFFFFFFFF
 
 
-def row_summary(ds: AlignmentDataset, five_prime: np.ndarray,
-                score: np.ndarray) -> dict:
+def markdup_columns_device(batch, device="cuda") -> tuple:
+    """One batch's markdup reductions on ``device`` (default: the card),
+    blocking -> host (five i64[N], score i32[N])."""
+    from adam_tpu_torch.device import resolve_device
+    from adam_tpu_torch.parallel.device_pool import ResidentWindow
+
+    b = batch.to_numpy()
+    rw = ResidentWindow.place(b, resolve_device(device))
+    return fetch_columns(markdup_columns(b, rw), b.n_rows)
+
+
+def row_summary(ds: AlignmentDataset, b=None, five_prime=None,
+                score=None) -> dict:
     """Compact per-row duplicate-marking summary (host numpy).
 
     Everything :func:`resolve_duplicates` needs, and nothing [N, L]-
-    shaped: the 5'-clipped position and quality score (from
-    :func:`markdup_columns`), the row key columns, the bucket key
-    inputs (read-group, name bytes), and the library id.  Windows of a
-    streamed ingest each produce one of these; :func:`concat_summaries`
-    splices them for the global resolve.
+    shaped except the transient reductions here: the 5'-clipped position
+    and quality score (from :func:`markdup_columns`), the row key
+    columns, the bucket key inputs (read-group, name bytes), and the
+    library id.  Windows of a streamed ingest each produce one of these;
+    :func:`concat_summaries` splices them for the global resolve.  Pass
+    ``b`` when the batch is already on the host, and ``five_prime`` /
+    ``score`` when the [N, L] reductions already ran (on the card); an
+    omitted one is computed here on the host, as JAX's ``row_summary``
+    does.
     """
-    b = ds.batch.to_numpy()
+    b = (ds.batch if b is None else b).to_numpy()
     n = b.n_rows
+    if five_prime is None:
+        cols = [torch.from_numpy(np.ascontiguousarray(getattr(b, f)))
+                for f in ("start", "end", "flags", "cigar_ops", "cigar_lens", "cigar_n")]
+        five_prime = cigar_ops.five_prime_position(*cols).numpy()
+    if score is None:
+        quals = np.asarray(b.quals)
+        in_read = np.arange(b.lmax)[None, :] < np.asarray(b.lengths)[:, None]
+        score = np.where(in_read & (quals >= 15), quals, 0).sum(axis=1, dtype=np.int32)
 
     flags = np.asarray(b.flags)
     valid = np.asarray(b.valid)
@@ -245,15 +236,19 @@ def _unique_inverse_fixed_bytes(names: np.ndarray) -> np.ndarray:
     return inv
 
 
-def resolve_duplicates(s: dict, device="cuda") -> np.ndarray:
+def resolve_duplicates(s: dict, sort_device="cuda",
+                       sort_info: dict | None = None) -> np.ndarray:
     """Global group-subgroup-argmax cascade over row summaries -> bool[N]
     duplicate mask.  One lexsort over the bucket table; row order across
     windows is the tie-break order, matching the reference's partition
     concatenation.
 
-    The 9-key lexsort runs on ``device`` (:func:`device_lexsort`, a
-    cascade of stable torch sorts: bitwise ``np.lexsort``'s
-    permutation)."""
+    The 9-key lexsort runs on ``sort_device`` (a device, a pool slot, or
+    ``"default"`` for the card; :func:`parallel.dist.device_lexsort`, a
+    cascade of stable torch sorts: bitwise ``np.lexsort``'s permutation);
+    ``None`` sorts on the host with ``np.lexsort``, as JAX's ``None``
+    does.  ``sort_info`` receives ``{"device_sort": bool}``: whether the
+    device sort delivered the permutation."""
     flags = s["flags"]
     valid = s["valid"]
     n = len(flags)
@@ -332,7 +327,14 @@ def resolve_duplicates(s: dict, device="cuda") -> np.ndarray:
     k3 = (left_arr[:, 2] << 3) | (left_arr[:, 3] << 2) | right_arr[:, 0]
     k5 = (right_arr[:, 2] << 1) | right_arr[:, 3]
     sort_keys = (k5, right_arr[:, 1], k3, left_arr[:, 1], k1)
-    group_order = device_lexsort(sort_keys, device)
+    if sort_device is None:
+        group_order = np.lexsort(sort_keys)
+        if sort_info is not None:
+            sort_info["device_sort"] = False
+    else:
+        group_order = device_lexsort(
+            sort_keys, "cuda" if sort_device == "default" else sort_device,
+            info=sort_info)
     go = group_order
     sl = np.concatenate([bucket_lib[go, None], left_arr[go]], axis=1)
     sr = right_arr[go]
@@ -402,14 +404,12 @@ def mark_duplicates(ds: AlignmentDataset, device: str = "cuda") -> AlignmentData
     ``device`` over the dataset placed there once, then the row summary,
     the global resolve (its lexsort on ``device``) and the flags."""
     from adam_tpu_torch.device import resolve_device
-    from adam_tpu_torch.parallel.device_pool import ResidentWindow
 
     b = ds.batch.to_numpy()
     if b.n_rows == 0:
         return ds
     dev = resolve_device(device)
-    five, score = fetch_columns(markdup_columns(b, ResidentWindow.place(b, dev)),
-                                b.n_rows)
-    s = row_summary(ds, five, score)
-    dup = resolve_duplicates(s, device=dev)
+    five, score = markdup_columns_device(b, dev)
+    s = row_summary(ds, b, five_prime=five, score=score)
+    dup = resolve_duplicates(s, sort_device=dev)
     return ds.with_batch(b.replace(flags=apply_duplicate_flags(np.asarray(b.flags), dup)))

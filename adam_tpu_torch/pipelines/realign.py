@@ -307,7 +307,7 @@ def resolve_tuning(
 
 
 def merge_events(
-    ev,
+    events,
     names: list[str],
     max_target_size: int = MAX_TARGET_SIZE,
 ):
@@ -317,6 +317,7 @@ def merge_events(
     targets (the global barrier of the streamed path: per-window event
     arrays concatenate here, so targets spanning window edges merge
     exactly as in the single-batch path)."""
+    ev = events
     if not isinstance(ev, np.ndarray):
         ev = np.array([[t.contig_idx, t.var_start, t.var_end, t.range_start,
                         t.range_end] for t in ev], np.int64).reshape(-1, 5)

@@ -179,9 +179,11 @@ def _start_heartbeat(tr: tele.Tracer, progress: Optional[str],
     nothing is constructed).  As in the JAX package it samples the run
     tracer and the global ``TRACE`` (the fault counter lands on the
     latter); when no other sink already switched global recording on, it
-    is switched on for the heartbeat's life and :func:`_stop_heartbeat`
-    restores the flag and resets the tracer, so back-to-back runs in one
-    process cannot sum each other's counters into a beat.
+    is switched on for the heartbeat's life, from an empty tracer (what
+    it holds was left by earlier work while recording was off), and
+    :func:`_stop_heartbeat` restores the flag and resets the tracer, so
+    back-to-back runs in one process cannot sum each other's counters
+    into a beat.
     ``include_global=False`` (a service job) samples the run tracer
     alone: concurrent jobs fold their tracers into ``TRACE`` as they
     finish, and a survivor's beat must not count its neighbours' work."""
@@ -191,6 +193,7 @@ def _start_heartbeat(tr: tele.Tracer, progress: Optional[str],
     hb = tele.Heartbeat([tr, tele.TRACE] if include_global else [tr], sink)
     hb._hb_restore_recording = include_global and not tele.TRACE.recording
     if hb._hb_restore_recording:
+        tele.TRACE.reset()
         tele.TRACE.recording = True
     hb.start()
     return hb
@@ -377,6 +380,18 @@ def transform_streamed(
             incidents.uninstall()
 
 
+def _resolve_sort_mode() -> str:
+    """Where barrier 1's duplicate-resolve lexsort runs:
+    ``ADAM_TPU_RESOLVE_SORT={device,host}`` (default ``device``; a typo
+    warns and keeps the default)."""
+    mode = os.environ.get("ADAM_TPU_RESOLVE_SORT", "").strip().lower()
+    if mode and mode not in ("device", "host"):
+        log.warning("ADAM_TPU_RESOLVE_SORT=%r is not one of ('device', 'host'); "
+                    "using the device default", mode)
+        mode = ""
+    return mode or "device"
+
+
 def _inflight_per_device(queues: list, solo_key: str) -> dict:
     """Heartbeat provider body: in-flight depth per slot id (the solo
     path's one device under its key), sampled from the live deques whose
@@ -551,9 +566,12 @@ def _transform_streamed_impl(
         left)."""
         return dpool.device(win) if dpool is not None else solo
 
+    resident_enabled = dp.resident_windows_enabled()
+
     def make_resident(win, ds):
-        """Place window ``win``'s payload once (on its slot, or as the
-        mesh's row blocks) and register it."""
+        """Place window ``win``'s payload (on its slot, or as the mesh's row
+        blocks) and register it -> the placement.  With ``ADAM_TPU_RESIDENT``
+        off it is not registered: the caller uses it for one pass."""
         b = ds.batch.to_numpy()
         mp = exec_state["mesh"]
         with tele.pass_scope("ingest"):
@@ -561,18 +579,24 @@ def _transform_streamed_impl(
                 rw = part_mod.mesh_resident_window(b, win, mp)
             else:
                 rw = ResidentWindow.place(b, pick_slot(win), window=win)
+        if not resident_enabled:
+            return rw
         resident_map[win] = rw
         resident_live["bytes"] += rw.nbytes
         resident_live["made"] += 1
         tr.count(tele.C_RESIDENT_WINDOWS)
         tr.count(tele.C_RESIDENT_BYTES, rw.nbytes)
         tr.gauge(tele.G_RESIDENT_LIVE, resident_live["bytes"])
+        return rw
 
     def release_resident(win, drop=False):
         rw = resident_map.pop(win, None)
         if rw is None:
             return
-        rw.release()
+        if drop:
+            rw.drop()
+        else:
+            rw.release()
         resident_live["bytes"] -= rw.nbytes
         tr.count(tele.C_RESIDENT_EVICTED if drop else tele.C_RESIDENT_RELEASED)
         tr.gauge(tele.G_RESIDENT_LIVE, resident_live["bytes"])
@@ -768,7 +792,8 @@ def _transform_streamed_impl(
                             "dispatching on the job's own path", win, e)
         if mp is not None:
             try:
-                cols = md.markdup_columns(batch, resident_map[win], mesh=mp)
+                rw = resident_map.get(win) or make_resident(win, windows[win])
+                cols = md.markdup_columns(batch, rw, mesh=mp)
                 tr.count(tele.C_DEVICE_DISPATCHED)
                 tr.count(tele.C_MESH_DISPATCHED)
                 return mp, cols
@@ -795,7 +820,7 @@ def _transform_streamed_impl(
                             "own dispatch (%s)", win, e)
                 where, cols = md_dispatch(win, windows[win].batch, coalesce=False)
             else:
-                summaries.append(md.row_summary(windows[win], five, score))
+                summaries.append(md.row_summary(windows[win], five_prime=five, score=score))
                 return
         while True:
             on_mesh = not isinstance(where, dp.Slot)
@@ -818,7 +843,7 @@ def _transform_streamed_impl(
                         evict_or_raise(where, e)
                     where, cols = md_dispatch(win, windows[win].batch)
         tr.count(tele.C_DEVICE_FETCHED)
-        summaries.append(md.row_summary(windows[win], five, score))
+        summaries.append(md.row_summary(windows[win], five_prime=five, score=score))
 
     with tr.span(tele.SPAN_PASS_A), tele.pass_scope("a"):
         try:
@@ -845,7 +870,8 @@ def _transform_streamed_impl(
                 if pacer is not None:
                     pacer("pass_a", win, win_nbytes(batch))
                 prewarm_window_shapes(windows[win])
-                make_resident(win, windows[win])
+                if resident_enabled:
+                    make_resident(win, windows[win])
                 if mark_duplicates:
                     # window i's reductions run on its slot while earlier
                     # windows' columns are fetched and summarized
@@ -883,12 +909,16 @@ def _transform_streamed_impl(
     with tr.span(tele.SPAN_RESOLVE), tele.pass_scope("resolve"):
         if mark_duplicates and summaries:
             # the lexsort of the packed summary keys runs on the device: the
-            # mesh's first slot, the pool's first placeable one, or the one
+            # mesh's first slot, the pool's first placeable one, or the one;
+            # ADAM_TPU_RESOLVE_SORT=host sorts on the host instead
             mp = exec_state["mesh"]
-            sort_slot = (mp.devices[0] if mp is not None
-                         else dpool.alive_devices()[0] if dpool is not None else solo)
-            tr.gauge(tele.G_RESOLVE_DEVICE_SORT, 1)
-            dup = md.resolve_duplicates(md.concat_summaries(summaries), device=sort_slot)
+            sort_slot = None if _resolve_sort_mode() == "host" else (
+                mp.devices[0] if mp is not None
+                else dpool.alive_devices()[0] if dpool is not None else solo)
+            sort_info: dict = {}
+            dup = md.resolve_duplicates(md.concat_summaries(summaries),
+                                        sort_device=sort_slot, sort_info=sort_info)
+            tr.gauge(tele.G_RESOLVE_DEVICE_SORT, 1 if sort_info.get("device_sort") else 0)
             off = 0
             for i, w in enumerate(windows):
                 b = w.batch.to_numpy()
@@ -963,8 +993,7 @@ def _transform_streamed_impl(
         if mp is not None:
             rw = resident_map.get(i)
             if rw is None or not rw.alive or rw.slot != "mesh":
-                make_resident(i, w)
-                rw = resident_map[i]
+                rw = make_resident(i, w)
             try:
                 with tele.pass_scope("observe"):
                     got = None
@@ -1091,7 +1120,8 @@ def _transform_streamed_impl(
         del cand
         if recalibrate and realigned.batch.n_rows and resume_table is None:
             prewarm_observe_shape(realigned)
-            make_resident(n_win, realigned)
+            if resident_enabled:
+                make_resident(n_win, realigned)
             got = observe_window(n_win, realigned)
             if got is not None:
                 add_part(n_win, got)
@@ -1413,8 +1443,7 @@ def _transform_streamed_impl(
                     rw = resident_map.get(i)
                     try:
                         if rw is None or not rw.alive or rw.slot != "mesh":
-                            make_resident(i, windows[i])
-                            rw = resident_map[i]
+                            rw = make_resident(i, windows[i])
                         with tr.span(tele.SPAN_APPLY_DISPATCH, window=i, device="mesh"):
                             h = bqsr.apply_dispatch(windows[i], rw, tbl, mesh=mp)
                     except Exception as e:

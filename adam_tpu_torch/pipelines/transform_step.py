@@ -67,7 +67,7 @@ def transform_step(batch: ReadBatch, residue_ok, is_mismatch, n_rg: int, lmax: i
         b.bases, b.quals, b.lengths, flags, b.read_group_idx, b.has_qual, b.valid,
         total, mism, lmax)
     # adam-tpu: noqa[host-sync] reason=the JAX package's transform_step leaves the flagstat structs on device for its caller's to_ints (no device_fetch there either); one 2x18 count matrix per step
-    counts = fs.flagstat_device(flags, b.contig_idx, b.mate_contig_idx, b.mapq,
+    counts = fs.flagstat_counts(flags, b.contig_idx, b.mate_contig_idx, b.mapq,
                                 b.valid).cpu().numpy()
     aux = dict(
         five_prime=five_prime,

@@ -77,11 +77,16 @@ def _copy_home(x: torch.Tensor, stream) -> np.ndarray:
     return out.numpy()
 
 
-def device_fetch(x, slot=None, deadline_s: float | None = None) -> np.ndarray:
+def device_fetch(x, slot=None, deadline_s: float | None = None,
+                 threads: int | None = None) -> np.ndarray:
     """Fetch a tensor to host numpy (module docstring).  ``slot`` is the
     pool slot whose stream produced ``x`` (default: the stream current on
     ``x``'s device in the calling thread); ``deadline_s`` overrides
-    ``ADAM_TPU_FETCH_TIMEOUT_S`` for this call."""
+    ``ADAM_TPU_FETCH_TIMEOUT_S`` for this call.  ``threads`` is taken for
+    JAX's call and has no effect: JAX sizes a pool of blocking chunk
+    fetches with it, while here the chunks are asynchronous copies on one
+    stream, so there is no pool to size (nor is ``ADAM_TPU_FETCH_THREADS``
+    read)."""
     if isinstance(x, np.ndarray):
         return x
     from adam_tpu_torch.utils import telemetry as tele

@@ -190,6 +190,17 @@ Phases, each of which fails the script on any error:
    phase 4's; (c) ``top -once`` over 4p's batched leg's run root: exit 0,
    one DONE row per job; (d) ``python -m adam_tpu_torch check --json``:
    exit 0, ``ok`` true;
+4r. JAX's call signatures and the operator knobs: (i) the main path on
+   65,536 reads (phase 5's seed) in windows of 16,384 through the CLI
+   with its defaults, with ``ADAM_TPU_RESIDENT=0`` (no resident window:
+   every pass re-ships kernels 1 and 2's inputs) and with
+   ``ADAM_TPU_RESOLVE_SORT=host``, twice each in turns (A B C C B A),
+   every leg's parts the defaults leg's,
+   the resolve-sort gauge 1 and 0, reads/s and launches printed; (ii)
+   ``apply_recalibration(ds, phred_table, gl)`` with a table solved on
+   the card, card against CPU; (iii) ``flagstat_device(b)`` of two
+   halves summed against the whole and the CPU; (iv) ``device_fetch`` of
+   64 MiB with ``threads=1`` and ``threads=4``, bit-equal to ``x.cpu()``;
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
@@ -2854,6 +2865,148 @@ def check_static(work: str) -> dict:
     return {"counts": doc["counts"], "rules": doc["rules"], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# 4r. JAX's call signatures and the operator knobs on the card
+# ---------------------------------------------------------------------------
+KNOB_READS = 65_536   # 4r: the input of phase 5's size, from phase 5's seed
+KNOB_WINDOW = 16_384  # 4r: four windows and the realigned part
+#: 4r (i)'s legs: name -> the environment it runs under
+KNOB_LEGS = (("defaults", {}), ("resident_off", {"ADAM_TPU_RESIDENT": "0"}),
+             ("resolve_sort_host", {"ADAM_TPU_RESOLVE_SORT": "host"}))
+FETCH_ROWS = 1 << 23  # 4r (iv): an i64 column of 64 MiB, eight 8-MiB chunks
+
+
+def _knob_leg(name: str, sam: str, out_dir: str, env: dict) -> dict:
+    """One 4r (i) leg: phase 4's command on the knob input, in windows of
+    ``KNOB_WINDOW`` with ``--metrics-json``, under ``env`` -> its stats,
+    launches, resolve-sort gauge and part hashes."""
+    from adam_tpu_torch.ops import kernels
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    m_json = out_dir + ".metrics.json"
+    _reset_telemetry()
+    kernels.reset_launches()
+    try:
+        stats = run_transform(sam, out_dir, "cuda", extra=(
+            "-window_reads", str(KNOB_WINDOW), "--metrics-json", m_json))
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launched = kernels.launches()
+    _reset_telemetry()
+    with open(m_json) as fh:
+        gauges = json.load(fh)["gauges"]
+    out = {"stats": stats, "launches": launched, "hashes": _part_hashes(out_dir),
+           "resolve_device_sort": gauges["streamed.resolve.device_sort"]["last"]}
+    shutil.rmtree(out_dir)
+    os.unlink(m_json)
+    return out
+
+
+def check_surface_knobs(work: str, dev, smi: str) -> dict:
+    """4r: (i) the main path on 65,536 reads in windows of 16,384 with its
+    defaults, with ``ADAM_TPU_RESIDENT=0`` (no resident window: every
+    pass re-ships kernels 1 and 2's inputs from the host copy) and with
+    ``ADAM_TPU_RESOLVE_SORT=host`` (barrier 1's lexsort on the host), each
+    leg's parts the defaults leg's; (ii) JAX's ``apply_recalibration(ds,
+    phred_table, gl)`` call with a solved host table on the card against
+    the same call on the CPU; (iii) ``flagstat_device(b)`` of the two
+    halves summed against the whole, on the card, and against the CPU;
+    (iv) ``device_fetch(x, threads=1)`` and ``threads=4`` bit-equal."""
+    import numpy as np
+    import torch
+
+    from make_wgs_sam import make_wgs
+
+    from adam_tpu_torch.io.context import load_alignments
+    from adam_tpu_torch.ops import flagstat as fs
+    from adam_tpu_torch.pipelines import bqsr
+    from adam_tpu_torch.utils.transfer import device_fetch
+
+    out: dict = {"card": smi}
+    sam = os.path.join(work, "knobs.sam")
+    make_wgs(sam, KNOB_READS, 100, seed=SEED + 1)
+    # in turns (A B C C B A): a leg's position in the process moves reads/s
+    runs: dict = {}
+    for name, env in KNOB_LEGS + KNOB_LEGS[::-1]:
+        leg = _knob_leg(name, sam, os.path.join(work, f"knobs.{name}.adam"), env)
+        runs.setdefault(name, []).append(leg)
+        _log(f"4r (i) {name} ({smi}): {leg['stats']['reads_per_s']:.0f} reads/s, "
+             f"kernel 1 {leg['launches']['observe_hist']} and kernel 2 "
+             f"{leg['launches']['pack_rows']} launches, resident windows "
+             f"{leg['stats']['resident_windows']}, resolve device sort "
+             f"{leg['resolve_device_sort']}, {len(leg['hashes'])} parts")
+    base = runs["defaults"][0]
+    n_parts = base["stats"]["n_windows"] + 1
+    if len(base["hashes"]) != n_parts or base["stats"]["resident_windows"] == 0:
+        raise AssertionError(f"4r defaults leg: {base['stats']}")
+    want = {"defaults": (True, 1), "resident_off": (False, 1), "resolve_sort_host": (True, 0)}
+    for name, legs in runs.items():
+        for leg in legs:
+            if leg["hashes"] != base["hashes"]:
+                raise AssertionError(f"4r {name}: the parts differ from the defaults leg's")
+            if (leg["launches"]["observe_hist"] < n_parts
+                    or leg["launches"]["pack_rows"] != 2 * n_parts):
+                raise AssertionError(f"4r {name}: launches {leg['launches']} for {n_parts} "
+                                     "parts")
+            got = (leg["stats"]["resident_windows"] > 0, leg["resolve_device_sort"])
+            if got != want[name]:
+                raise AssertionError(f"4r {name}: (resident windows placed, resolve device "
+                                     f"sort) {got}, expected {want[name]}")
+    out["legs"] = {name: {"reads_per_s": [x["stats"]["reads_per_s"] for x in legs],
+                          "total_s": [x["stats"]["total_s"] for x in legs],
+                          "launches": legs[0]["launches"],
+                          "resident_windows": legs[0]["stats"]["resident_windows"],
+                          "resolve_device_sort": legs[0]["resolve_device_sort"]}
+                   for name, legs in runs.items()}
+
+    # (ii) a solved host table, applied by JAX's call on the card and on the CPU
+    ds = load_alignments(sam)
+    os.unlink(sam)
+    obs = bqsr.build_observation_table(ds, device="cuda")
+    table = bqsr.solve_recalibration_table(obs.total, obs.mismatches)
+    gl = (table.shape[2] - 1) // 2
+    got = {d: bqsr.apply_recalibration(ds, table, gl, device=d) for d in ("cuda", "cpu")}
+    for field in ("quals", "flags", "valid"):
+        if not np.array_equal(np.asarray(getattr(got["cuda"].batch, field)),
+                              np.asarray(getattr(got["cpu"].batch, field))):
+            raise AssertionError(f"4r apply_recalibration: {field} differs card vs CPU")
+    if list(got["cuda"].sidecar.orig_quals) != list(got["cpu"].sidecar.orig_quals):
+        raise AssertionError("4r apply_recalibration: OQ differs card vs CPU")
+    changed = int((np.asarray(got["cuda"].batch.quals) != np.asarray(ds.batch.quals)).sum())
+    out["apply_recalibration"] = {"table_shape": list(table.shape), "quals_changed": changed}
+    _log(f"4r (ii) apply_recalibration(ds, phred_table, gl) with a {list(table.shape)} host "
+         f"table: card == CPU, {changed} quals changed")
+
+    # (iii) flagstat of the halves, summed, on the card
+    n = ds.batch.n_rows
+    halves = [fs.flagstat_device(ds.take_rows(np.arange(a, b)).batch, device="cuda")
+              for a, b in ((0, n // 2), (n // 2, n))]
+    whole = [m.to_ints() for m in fs.flagstat_device(ds.batch, device="cuda")]
+    summed = [(halves[0][i] + halves[1][i]).to_ints() for i in (0, 1)]
+    cpu = list(fs.flagstat(ds.batch, device="cpu"))
+    if not (summed == whole == cpu) or whole[1].total + whole[0].total != n:
+        raise AssertionError(f"4r flagstat: halves {summed}, whole {whole}, cpu {cpu}")
+    out["flagstat"] = {"passed_total": whole[1].total, "failed_total": whole[0].total}
+    _log(f"4r (iii) flagstat_device halves summed == whole == CPU ({whole[1].total} + "
+         f"{whole[0].total} reads)")
+
+    # (iv) device_fetch with JAX's threads= keyword, which has no effect
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 1 << 62, FETCH_ROWS, dtype=np.int64)).to(dev)
+    want = x.cpu().numpy()
+    for threads in (1, 4):
+        if not np.array_equal(device_fetch(x, threads=threads), want):
+            raise AssertionError(f"4r device_fetch(threads={threads}) differs from x.cpu()")
+    _log(f"4r (iv) device_fetch of {FETCH_ROWS * 8} B with threads=1 and threads=4: "
+         "bit-equal to x.cpu()")
+    return out
+
+
 def _part_hashes(d: str) -> dict:
     out = {}
     for f in sorted(os.listdir(d)):
@@ -3126,6 +3279,15 @@ def main() -> int:
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_kernelbench"] = kb_launches[name]
 
+        # ---- 4r. JAX's call signatures and the operator knobs --------------
+        t0 = time.monotonic()
+        knobs = check_surface_knobs(work, dev, smi)
+        knobs["phase_s"] = time.monotonic() - t0
+        _log(f"4r: {knobs['phase_s']:.1f} s in all ({smi})")
+        for name in ("observe_hist", "pack_rows"):
+            by_name[name]["launches_knobs"] = {
+                leg: v["launches"][name] for leg, v in knobs["legs"].items()}
+
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
         if SW_READS != MAIN_READS:
@@ -3370,6 +3532,7 @@ def main() -> int:
         "multi_device": multi,
         "service": service,
         "tooling": tooling,
+        "knobs": knobs,
         "issue_rate": rate,
         "card_vs_cpu_parts": parity,
     }}), flush=True)

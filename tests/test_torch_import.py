@@ -271,3 +271,50 @@ def test_the_checker_imports_no_torch_and_no_numpy():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_surface_entry_points_default_to_the_card():
+    """The entry points that take JAX's call (a host table, a host batch,
+    keys) default to the card and raise without one; importing the
+    modules that hold them loads neither JAX nor the JAX package."""
+    import inspect
+
+    import numpy as np
+
+    from adam_tpu_torch.api.datasets import AlignmentDataset
+    from adam_tpu_torch.formats.batch import ReadBatch, ReadSidecar
+    from adam_tpu_torch.io.sam import SamHeader
+    from adam_tpu_torch.ops.flagstat import flagstat_device
+    from adam_tpu_torch.parallel.device_pool import make_resident_window
+    from adam_tpu_torch.parallel.dist import device_lexsort
+    from adam_tpu_torch.pipelines.bqsr import apply_recalibration
+    from adam_tpu_torch.pipelines.markdup import markdup_columns_device
+
+    fns = (apply_recalibration, make_resident_window, flagstat_device, device_lexsort,
+           markdup_columns_device, ReadBatch.to_device)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        b = ReadBatch.empty(4, 8, 2)
+        ds = AlignmentDataset(b, ReadSidecar(names=[""] * 4), SamHeader())
+        table = np.zeros((1, 94, 17, 17), np.uint8)
+        for call in (lambda: apply_recalibration(ds, table, 8),
+                     lambda: make_resident_window(b, 0),
+                     lambda: flagstat_device(b),
+                     lambda: device_lexsort([np.arange(3)]),
+                     lambda: markdup_columns_device(b),
+                     lambda: b.to_device()):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    code = textwrap.dedent("""
+        import sys
+        import adam_tpu_torch.ops.flagstat, adam_tpu_torch.parallel.dist
+        import adam_tpu_torch.parallel.device_pool, adam_tpu_torch.pipelines.bqsr
+        import adam_tpu_torch.pipelines.markdup, adam_tpu_torch.utils.transfer
+        bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "adam_tpu"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

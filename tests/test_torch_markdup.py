@@ -96,9 +96,10 @@ def test_duplicate_flags_equal_jax(windows):
     for jd, pd in zip(*windows):
         five, score = _jax_columns(jd)
         jax_parts.append(jax_md.row_summary(jd, jd.batch, five_prime=five, score=score))
-        port_parts.append(md.row_summary(pd, *_port_columns(jd)))
+        pfive, pscore = _port_columns(jd)
+        port_parts.append(md.row_summary(pd, five_prime=pfive, score=pscore))
     want = jax_md.resolve_duplicates(jax_md.concat_summaries(jax_parts))
-    got = md.resolve_duplicates(md.concat_summaries(port_parts), device="cpu")
+    got = md.resolve_duplicates(md.concat_summaries(port_parts), sort_device="cpu")
     np.testing.assert_array_equal(got, want)
     assert 0 < int(got.sum()) < len(got)
     flags = np.concatenate([np.asarray(pd.batch.flags) for pd in windows[1]])
