@@ -133,6 +133,7 @@ import sys
 
 from adam_tpu_torch.cli.main import Command
 from adam_tpu_torch.utils import instrumentation as ins
+from adam_tpu_torch.utils import telemetry as tele
 
 
 class CalculateDepth(Command):
@@ -1127,12 +1128,13 @@ def _known_sites(args) -> tuple:
     if args.known_snps or args.known_indels:
         from adam_tpu_torch.io.context import load_header
 
-        names = load_header(args.input).seq_dict.names
-        if args.known_snps:
-            known = GenotypeDataset.load(args.known_snps, contig_names=names).snp_table()
-        if args.known_indels:
-            indels = GenotypeDataset.load(args.known_indels,
-                                          contig_names=names).indel_table()
+        with tele.TRACE.span(tele.SPAN_KNOWN_SITES):
+            names = load_header(args.input).seq_dict.names
+            if args.known_snps:
+                known = GenotypeDataset.load(args.known_snps, contig_names=names).snp_table()
+            if args.known_indels:
+                indels = GenotypeDataset.load(args.known_indels,
+                                              contig_names=names).indel_table()
     return known, indels
 
 
@@ -1265,7 +1267,6 @@ def _transform_streamed(args) -> int:
         # the analyzer view of this run, from the trace of the global
         # tracer (main() switched recording on for --report)
         from adam_tpu_torch.utils import analyzer
-        from adam_tpu_torch.utils import telemetry as tele
 
         report = analyzer.analyze(tele.TRACE.to_chrome_trace())
         try:

@@ -14,7 +14,7 @@ Each prints what the JAX verb prints, byte for byte, on the same input:
     python -m adam_tpu_torch buildinfo
     python -m adam_tpu_torch view INPUT [OUTPUT] [-f N] [-F N] [-g N] [-G N]
         [-c] [-o OUTPUT] [--device cuda|cpu]
-    python -m adam_tpu_torch analyze ARTIFACT [-json PATH]
+    python -m adam_tpu_torch analyze ARTIFACT [-json PATH] [--device-trace XPROF]
 
 ``flagstat`` is the samtools-style report (a ``.adam`` or ``.parquet``
 input is read with the flag columns projected), its masked sums on the
@@ -26,7 +26,10 @@ port's version, torch's, CUDA's, Python's and the device kind (the card's
 name when there is one, else ``cpu``); it checks no device.  ``analyze``
 renders the run report of a ``--metrics-json`` snapshot or a
 ``--trace-out`` Chrome trace of either package (``utils/analyzer.py``);
-it checks no device either.
+it checks no device either.  With ``--device-trace`` (this package's
+option) it adds a section from the ``--xprof-dir`` trace of the same
+run: the device's busy share over the run window and its ten longest
+idle gaps, each named by the main-thread span that covers it.
 """
 
 from __future__ import annotations
@@ -257,6 +260,13 @@ class Analyze(Command):
         )
         p.add_argument("-json", dest="json_out", default=None, metavar="PATH",
                        help="also write the analysis as machine-readable JSON")
+        p.add_argument("--device-trace", dest="device_trace", default=None,
+                       metavar="XPROF",
+                       help="the --xprof-dir trace of the same run "
+                       "(DIR/trace-<pid>.json): adds the device's busy share "
+                       "over the run and its longest idle gaps, each named by "
+                       "the main-thread span of the ARTIFACT (a --trace-out "
+                       "file) that covers it")
 
     @classmethod
     def run(cls, args):
@@ -266,10 +276,17 @@ class Analyze(Command):
             # incident bundles, SLO_BUDGET.json and PERF_LEDGER.ndjson
             # beside the artifact fold into their report sections
             report = analyzer.analyze_path(args.input)
+            if args.device_trace:
+                report["device_trace"] = analyzer.device_trace_report(
+                    analyzer.load_document(args.input),
+                    analyzer.load_document(args.device_trace))
         except (OSError, ValueError) as e:
             print(f"analyze: {e}", file=sys.stderr)
             return 2
         print(analyzer.render_report(report))
+        if "device_trace" in report:
+            print()
+            print(analyzer.render_device_trace(report["device_trace"]))
         if args.json_out:
             try:
                 with open(args.json_out, "w") as fh:

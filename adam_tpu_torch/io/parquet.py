@@ -652,11 +652,15 @@ def load_alignments(
     of ``round_rows_to``."""
     import pyarrow.parquet as pq
 
+    from adam_tpu_torch.utils import telemetry as tele
+
     cols = None
     if projection is not None:
         cols = sorted(set(projection) | ESSENTIAL_FIELDS)
-    table = pq.read_table(path, columns=cols, filters=predicate)
-    return from_arrow_alignments(table, round_rows_to=round_rows_to)
+    with tele.TRACE.span(tele.SPAN_PARQUET_READ):
+        table = pq.read_table(path, columns=cols, filters=predicate)
+    with tele.TRACE.span(tele.SPAN_PARQUET_FROM_ARROW):
+        return from_arrow_alignments(table, round_rows_to=round_rows_to)
 
 
 def _string_column_or(table, name: str, n: int, default=None):

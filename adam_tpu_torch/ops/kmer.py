@@ -122,12 +122,15 @@ def _device_columns(batch: ReadBatch, device, names) -> list[torch.Tensor]:
 def histogram_to_dict(bases, lengths, valid, k: int) -> dict[str, int]:
     """Run the device histogram over a padded batch's columns and decode
     the (k-mer string -> count) table, in sorted key order."""
+    from adam_tpu_torch.utils import telemetry as tele
     from adam_tpu_torch.utils.transfer import device_fetch
 
-    s, run_counts, is_head = device_kmer_histogram(bases, lengths, valid, k)
-    keys = device_fetch(s[is_head])
-    counts = device_fetch(run_counts[is_head])
-    return dict(zip(_unpack_kmers(keys, k), counts.tolist()))
+    with tele.TRACE.span(tele.SPAN_KMERS_HISTOGRAM):
+        s, run_counts, is_head = device_kmer_histogram(bases, lengths, valid, k)
+        keys = device_fetch(s[is_head])
+        counts = device_fetch(run_counts[is_head])
+    with tele.TRACE.span(tele.SPAN_KMERS_DECODE):
+        return dict(zip(_unpack_kmers(keys, k), counts.tolist()))
 
 
 def count_kmers(batch: ReadBatch, k: int, device: str = "cuda") -> dict[str, int]:

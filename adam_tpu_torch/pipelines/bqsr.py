@@ -142,9 +142,10 @@ def observe_residue_mask(ds: AlignmentDataset, b, known_snps=None) -> np.ndarray
         & (np.asarray(b.bases) < 4) & (ref_pos >= 0)
     )
     if known_snps is not None and len(known_snps):
-        rok &= ~known_snps.mask_positions(
-            ds.seq_dict.names, np.asarray(b.contig_idx), ref_pos
-        )
+        with _tele.TRACE.span(_tele.SPAN_OBSERVE_SNP_MASK):
+            rok &= ~known_snps.mask_positions(
+                ds.seq_dict.names, np.asarray(b.contig_idx), ref_pos
+            )
     return rok
 
 
@@ -449,19 +450,20 @@ def stash_orig_quals(ds: AlignmentDataset, b) -> AlignmentDataset:
     from adam_tpu_torch import native
     from adam_tpu_torch.formats.strings import StringColumn
 
-    side = ds.sidecar
-    old_oq = StringColumn.of(side.orig_quals)
-    set_mask = np.asarray(b.valid) & np.asarray(b.has_qual) & ~old_oq.valid
-    stash_lens = np.where(set_mask, np.asarray(b.lengths), 0)
-    buf, off = native.lut_compact_rows(
-        np.asarray(b.quals), stash_lens, schema.QUAL_SANGER_LUT256
-    )
-    stashed = StringColumn(buf, off, set_mask.copy())
-    if not old_oq.valid.any():
-        merged = stashed
-    else:
-        merged = StringColumn.where(set_mask, stashed, old_oq)
-    return ds.with_batch(b, dc_replace(side, orig_quals=merged))
+    with _tele.TRACE.span(_tele.SPAN_OQ_STASH):
+        side = ds.sidecar
+        old_oq = StringColumn.of(side.orig_quals)
+        set_mask = np.asarray(b.valid) & np.asarray(b.has_qual) & ~old_oq.valid
+        stash_lens = np.where(set_mask, np.asarray(b.lengths), 0)
+        buf, off = native.lut_compact_rows(
+            np.asarray(b.quals), stash_lens, schema.QUAL_SANGER_LUT256
+        )
+        stashed = StringColumn(buf, off, set_mask.copy())
+        if not old_oq.valid.any():
+            merged = stashed
+        else:
+            merged = StringColumn.where(set_mask, stashed, old_oq)
+        return ds.with_batch(b, dc_replace(side, orig_quals=merged))
 
 
 # --------------------------------------------------------------------------
@@ -472,8 +474,10 @@ def _observe_masks(ds: AlignmentDataset, b, known_snps) -> tuple:
     host batch ``b`` -> (read_ok, residue_ok, is_mm)."""
     from adam_tpu_torch.ops.mdtag import batch_md_arrays
 
-    is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
-    return observe_read_mask(b, has_md), observe_residue_mask(ds, b, known_snps), is_mm
+    with _tele.TRACE.span(_tele.SPAN_OBSERVE_MD_WALK):
+        is_mm, _, has_md = batch_md_arrays(b, ds.sidecar, need_ref_codes=False)
+        read_ok = observe_read_mask(b, has_md)
+    return read_ok, observe_residue_mask(ds, b, known_snps), is_mm
 
 
 def observe_inputs(ds: AlignmentDataset, known_snps=None) -> tuple:

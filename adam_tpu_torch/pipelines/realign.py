@@ -68,6 +68,7 @@ from adam_tpu_torch.formats.strings import StringColumn, with_overrides
 from adam_tpu_torch.models.positions import ReferenceRegion
 from adam_tpu_torch.ops.mdtag import MdTag, batch_md_arrays, parse_cigar
 from adam_tpu_torch.ops.smith_waterman import smith_waterman_many
+from adam_tpu_torch.utils import telemetry as _tele
 
 MAX_INDEL_SIZE = 500
 MAX_CONSENSUS_NUMBER = 30
@@ -1299,6 +1300,18 @@ def _pow2_vec(n: np.ndarray, minimum: int) -> np.ndarray:
     return np.maximum(table[idx], minimum)
 
 
+#: The span each phase's wall joins beside its named-timer row (the
+#: overlapped host work is pass B's, which records its own spans).
+_PHASE_SPANS = {
+    "Realign: target map/group": _tele.SPAN_REALIGN_PREP,
+    "Realign: native prep": _tele.SPAN_REALIGN_PREP,
+    "Realign: consensus + tiles": _tele.SPAN_REALIGN_PREP,
+    "Realign: sweep dispatch (host assembly)": _tele.SPAN_REALIGN_SWEEP,
+    "Realign: sweep fetch": _tele.SPAN_REALIGN_SWEEP,
+    "Realign: decisions + rewrite": _tele.SPAN_REALIGN_DECIDE,
+}
+
+
 def _realign_indels_native(
     ds: AlignmentDataset,
     consensus_model: str,
@@ -1319,19 +1332,23 @@ def _realign_indels_native(
     with the per-read host work (MD parse / reference rebuild /
     left-normalization / consensus generation / MD rewrite) in C++
     (``native/realign.cpp``) and the sweep tiles batched on ``device``.
-    Its phase walls go to the named-timer registry under the JAX package's
-    labels (no-ops unless recording is on)."""
+    Each phase wall is measured once and goes both to the named-timer
+    registry under the JAX package's label and to ``TRACE`` as the span
+    of :data:`_PHASE_SPANS` (no-ops unless recording is on)."""
     import time
 
     from adam_tpu_torch import native
     from adam_tpu_torch.utils import instrumentation as _ins
 
-    t_phase = time.perf_counter()
+    t_phase = time.monotonic_ns()
 
     def _phase(label):
         nonlocal t_phase
-        now = time.perf_counter()
-        _ins.TIMERS.add(label, int((now - t_phase) * 1e9))
+        now = time.monotonic_ns()
+        _ins.TIMERS.add(label, now - t_phase)
+        span = _PHASE_SPANS.get(label)
+        if span is not None:
+            _tele.TRACE.add_span(span, t_phase, now - t_phase)
         t_phase = now
 
     b = ds.batch.to_numpy()

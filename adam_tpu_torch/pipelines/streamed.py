@@ -845,12 +845,17 @@ def _transform_streamed_impl(
         tr.count(tele.C_DEVICE_FETCHED)
         summaries.append(md.row_summary(windows[win], five_prime=five, score=score))
 
+    # set-up ends where pass A first waits on the ingest queue
+    tr.add_span(tele.SPAN_SETUP, t_start_ns, time.monotonic_ns() - t_start_ns)
     with tr.span(tele.SPAN_PASS_A), tele.pass_scope("a"):
         try:
             while True:
+                t_wait = time.monotonic_ns()
                 item = in_q.get()
                 if item is _SENTINEL:
                     break
+                tr.add_span(tele.SPAN_PASS_A_WAIT, t_wait, time.monotonic_ns() - t_wait,
+                            window=len(windows))
                 if isinstance(item, BaseException):
                     raise item
                 batch, side, header = item
@@ -1543,6 +1548,7 @@ def _transform_streamed_impl(
     except BaseException:
         pool.close(abort=True)
         raise
+    t_finish_ns = time.monotonic_ns()
     for win in list(resident_map):
         release_resident(win)
     stats["resident_windows"] = resident_live["made"]
@@ -1550,10 +1556,14 @@ def _transform_streamed_impl(
     stats["writer_shards"] = pool.n_io
     stats["writer_inflight_bound"] = pool.inflight_bound
     stats["n_parts"] = len(parts)
-    tr.add_span(tele.SPAN_TOTAL, t_start_ns, time.monotonic_ns() - t_start_ns)
+    t_end_ns = time.monotonic_ns()
+    tr.add_span(tele.SPAN_FINISH, t_finish_ns, t_end_ns - t_finish_ns)
+    tr.add_span(tele.SPAN_TOTAL, t_start_ns, t_end_ns - t_start_ns)
 
     # the stage walls are a derived view of the run tracer's spans
-    stats.update(tele.streamed_stats_view(tr.snapshot()))
+    snap = tr.snapshot()
+    stats.update(tele.streamed_stats_view(snap))
+    stats["unattributed_s"] = tele.streamed_unattributed_s(snap)
     stats["obs_merge_s"] = stats.get("obs_merge_fetch_s", 0.0)
     stats["apply_s"] = tr.span_seconds()[tele.SPAN_PASS_C]
     stats["reads_per_s"] = n_reads / stats["total_s"] if stats["total_s"] else 0.0

@@ -1179,3 +1179,112 @@ def analyze_path(path: str) -> dict:
         doc = dict(doc)
         doc.update(extra)
     return analyze(doc)
+
+
+# --------------------------------------------------------------------------
+# The program's spans on a device trace's clock (``analyze --device-trace``;
+# this package only)
+# --------------------------------------------------------------------------
+#: Profiler event categories that are device work: kernels, copies, sets.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _main_thread_spans(doc: dict) -> tuple:
+    """A ``--trace-out`` export -> ([(name, t0_ns, t1_ns)] of the thread
+    that recorded ``streamed.total``, else of ``MainThread``, on
+    ``time.monotonic_ns``; the ``streamed.total`` entry or None)."""
+    epoch = doc.get("epoch_ns")
+    if epoch is None:
+        raise ValueError("the program trace has no epoch_ns: record it with "
+                         "this package's --trace-out")
+    evs = doc.get("traceEvents", [])
+    xs = [e for e in evs if e.get("ph") == "X" and e.get("cat") != tele.CHROME_MIRROR_CAT]
+    total = next((e for e in xs if e.get("name") == tele.SPAN_TOTAL), None)
+    if total is not None:
+        tid = total["tid"]
+    else:
+        tid = next((e["tid"] for e in evs if e.get("ph") == "M"
+                    and e.get("name") == "thread_name"
+                    and (e.get("args") or {}).get("name") == "MainThread"), None)
+
+    def span(e):
+        t0 = epoch + e["ts"] * 1e3
+        return e["name"], t0, t0 + e.get("dur", 0.0) * 1e3
+
+    spans = [span(e) for e in xs if e.get("tid") == tid]
+    return spans, (span(total) if total is not None else None)
+
+
+def device_trace_report(doc: dict, device_doc: dict) -> dict:
+    """A ``--trace-out`` export and the ``--xprof-dir`` trace of the same
+    run -> the device's busy share over the run window (the union of
+    kernel, copy and set intervals) and the ten longest idle gaps, each
+    with the innermost span of the program's main thread that covers
+    its midpoint (``None`` where none does)."""
+    from adam_tpu_torch.utils import instrumentation as ins
+
+    mark_ns = device_doc.get(ins.DEVICE_TRACE_MARK_NS)
+    evs = [e for e in device_doc.get("traceEvents", []) if e.get("ph") == "X" and "ts" in e]
+    mark_us = next((float(e["ts"]) for e in evs if e.get("name") == ins.DEVICE_TRACE_MARK),
+                   None)
+    if mark_ns is None or mark_us is None:
+        raise ValueError("the device trace has no start marker: record it with "
+                         "this package's --xprof-dir")
+    spans, total = _main_thread_spans(doc)
+
+    def on_device_clock(ns: float) -> float:  # seconds on the profiler's clock
+        return ((ns - float(mark_ns)) / 1e3 + mark_us) / 1e6
+
+    prog = [(n, on_device_clock(a), on_device_clock(b)) for n, a, b in spans]
+    dev = sorted((float(e["ts"]) / 1e6, (float(e["ts"]) + float(e.get("dur", 0.0))) / 1e6)
+                 for e in evs if e.get("cat") in DEVICE_CATS)
+    if total is not None:
+        lo, hi = on_device_clock(total[1]), on_device_clock(total[2])
+        window_of = tele.SPAN_TOTAL
+    elif prog:
+        lo, hi = min(p[1] for p in prog), max(p[2] for p in prog)
+        window_of = "main-thread spans"
+    else:
+        raise ValueError("the program trace has no span of its main thread")
+    busy = _union_seconds(dev, lo, hi)
+    gaps, cur = [], lo
+    for s0, s1 in dev:
+        if s1 <= lo or s0 >= hi:
+            continue
+        if s0 > cur:
+            gaps.append((cur, s0))
+        cur = max(cur, s1)
+    if hi > cur:
+        gaps.append((cur, hi))
+    top = []
+    for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:10]:
+        mid = 0.5 * (g0 + g1)
+        inner = [(b - a, n) for n, a, b in prog if a <= mid <= b]
+        top.append({"seconds": g1 - g0, "at_s": g0 - lo,
+                    "span": min(inner)[1] if inner else None})
+    window = hi - lo
+    return {
+        "window_s": window,
+        "window_of": window_of,
+        "busy_s": busy,
+        "busy_share": busy / window if window > 0 else None,
+        "device_events": len(dev),
+        "idle_gaps": top,
+    }
+
+
+def render_device_trace(dt: dict) -> str:
+    """The ``analyze --device-trace`` section, printed after the report."""
+    share = dt["busy_share"]
+    out = ["Device trace", "============",
+           f"  run window   {dt['window_s']:.6f} s ({dt['window_of']})",
+           f"  device busy  {dt['busy_s']:.6f} s"
+           + (f" ({100 * share:.3f}% of the window; idle {100 - 100 * share:.3f}%)"
+              if share is not None else ""),
+           f"  device events {dt['device_events']}",
+           "  Longest idle gaps, by the main-thread span that covers each:",
+           f"    {'seconds':>12}  {'at (s)':>12}  span"]
+    for g in dt["idle_gaps"]:
+        out.append(f"    {g['seconds']:>12.6f}  {g['at_s']:>12.6f}  "
+                   f"{g['span'] or '(no main-thread span)'}")
+    return "\n".join(out)

@@ -148,6 +148,13 @@ OBSERVE_WALK = "BQSR Observe Walk (native)"
 APPLY_WALK = "BQSR Apply Walk (native)"
 
 
+#: The ``record_function`` marker :func:`device_trace` records at its
+#: start, and the trace's metadata key that holds the ``time.monotonic_ns()``
+#: noted at that marker: together they put the program's spans (a
+#: ``--trace-out`` export) on the profiler's clock.
+DEVICE_TRACE_MARK = "adam_tpu_torch.device_trace.mark"
+DEVICE_TRACE_MARK_NS = "adam_tpu_torch_mark_monotonic_ns"
+
 # torch.profiler supports ONE active profile per process; a second
 # concurrent start raises deep inside the profiler.  The flag makes
 # device_trace reentrant-safe: nested/concurrent entries warn + no-op.
@@ -162,7 +169,10 @@ def device_trace(log_dir: str):
     verb).  Profiles the CPU, and CUDA when a card is visible, and
     writes one Chrome-trace JSON file into ``log_dir``
     (``trace-<pid>.json``, loadable in Perfetto or chrome://tracing;
-    no tensorboard package is needed).
+    no tensorboard package is needed).  A :data:`DEVICE_TRACE_MARK`
+    marker at the start, with its ``time.monotonic_ns()`` under
+    :data:`DEVICE_TRACE_MARK_NS` in the trace's metadata, ties the trace
+    to the program's spans (``analyze --device-trace``).
 
     Reentrant-safe: when a trace is already active in this process the
     inner entry logs a warning and no-ops instead of crashing the
@@ -188,13 +198,17 @@ def device_trace(log_dir: str):
         return
     try:
         import torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(log_dir, exist_ok=True)
         with profile(activities=activities) as prof:
+            mark_ns = time.monotonic_ns()
+            with record_function(DEVICE_TRACE_MARK):
+                pass
+            prof.add_metadata_json(DEVICE_TRACE_MARK_NS, str(mark_ns))
             yield
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace-{os.getpid()}.json")

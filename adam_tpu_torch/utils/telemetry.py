@@ -49,9 +49,13 @@ disagree; the run tracer is absorbed into the global :data:`TRACE`
 when recording is on.
 
 Every span/counter/gauge name is declared here (the ``_span``/
-``_metric`` registrations below), the same set as the JAX package's — a
-**stable contract** held by ``tests/test_torch_telemetry.py`` (equal
-names, and every name the port's code records is registered).
+``_metric`` registrations below): the JAX package's set plus the spans
+of :data:`PORT_ONLY_SPANS`, which split the port's host time finer — a
+**stable contract** held by ``tests/test_torch_telemetry.py`` (exactly
+JAX's names plus that list, and every name the port's code records is
+registered).  :meth:`Tracer.to_chrome_trace` also writes the trace's
+epoch (``epoch_ns``), so ``analyze --device-trace`` can put its spans on
+a ``--xprof-dir`` trace's clock.
 """
 
 from __future__ import annotations
@@ -177,6 +181,33 @@ for _n in (
     _ins.OBSERVE_WALK, _ins.APPLY_WALK,
 ):
     _span(_n)
+
+# ---- spans of this package only (PORT_ONLY_SPANS): where the host time
+# of a streamed transform and of count_kmers goes below the stage spans.
+# The streamed run's own (setup, pass-A wait, finish) go on its run
+# tracer; the library's go on TRACE (one branch each when recording is
+# off).  Every other name is the JAX package's. ----
+SPAN_KNOWN_SITES = _span("transform.known_sites.load")  # cli/actions._known_sites
+SPAN_SETUP = _span("streamed.setup")          # run start -> pass A's first queue get
+SPAN_PASS_A_WAIT = _span("streamed.pass_a.wait")  # pass A blocked on the ingest queue
+SPAN_FINISH = _span("streamed.finish")        # after the write wait -> streamed.total's end
+SPAN_OBSERVE_MD_WALK = _span("bqsr.observe.md_walk")    # MD walk + read mask
+SPAN_OBSERVE_SNP_MASK = _span("bqsr.observe.snp_mask")  # SnpTable.mask_positions
+SPAN_REALIGN_PREP = _span("realign.prep")      # targets, native prep, consensuses, tiles
+SPAN_REALIGN_SWEEP = _span("realign.sweep")    # sweep dispatch; the fetch wait
+SPAN_REALIGN_DECIDE = _span("realign.decide")  # scoring, rewrite decisions, write-back
+SPAN_OQ_STASH = _span("bqsr.apply.oq_stash")
+SPAN_PARQUET_READ = _span("parquet.read_table")    # io/parquet.load_alignments
+SPAN_PARQUET_FROM_ARROW = _span("parquet.from_arrow")
+SPAN_KMERS_HISTOGRAM = _span("kmers.histogram")  # device sort + run lengths + fetch
+SPAN_KMERS_DECODE = _span("kmers.decode")        # keys -> the dict of strings
+PORT_ONLY_SPANS = frozenset({
+    SPAN_KNOWN_SITES, SPAN_SETUP, SPAN_PASS_A_WAIT, SPAN_FINISH,
+    SPAN_OBSERVE_MD_WALK, SPAN_OBSERVE_SNP_MASK, SPAN_REALIGN_PREP,
+    SPAN_REALIGN_SWEEP, SPAN_REALIGN_DECIDE, SPAN_OQ_STASH,
+    SPAN_PARQUET_READ, SPAN_PARQUET_FROM_ARROW, SPAN_KMERS_HISTOGRAM,
+    SPAN_KMERS_DECODE,
+})
 
 # ---- counters ----
 C_READS_INGESTED = _metric("reads.ingested")
@@ -1511,6 +1542,9 @@ class Tracer:
             "traces": trace_aggs,
             "events_recorded": n_rec,
             "events_evicted": n_rec - n_ret,
+            # the monotonic_ns origin of every ``ts``: ties the spans to a
+            # --xprof-dir trace (utils/analyzer.device_trace_report)
+            "epoch_ns": _EPOCH_NS,
         }
 
     def dump_json(self, path: str, timers=None,
@@ -1660,6 +1694,25 @@ def streamed_stats_view(snap: dict) -> dict:
             - (prewarm_c or 0.0),
         )
     return out
+
+
+#: The streamed run's top-level stage spans: one after another on the
+#: run's own thread (the others nest inside them), so their totals add up
+#: without overlap.
+STREAMED_STAGE_SPANS = (
+    SPAN_SETUP, SPAN_PASS_A, SPAN_RESOLVE, SPAN_SPLIT, SPAN_TAIL,
+    SPAN_OBS_MERGE, SPAN_SOLVE, SPAN_PASS_C, SPAN_WRITE_WAIT, SPAN_FINISH,
+)
+
+
+def streamed_unattributed_s(snap: dict) -> float:
+    """Seconds of ``streamed.total`` under none of
+    :data:`STREAMED_STAGE_SPANS` (the stats line's ``unattributed_s``),
+    from a streamed run's :meth:`Tracer.snapshot`: its span totals
+    outlive the ring's eviction."""
+    spans = snap["spans"]
+    covered = sum(spans[n]["total_s"] for n in STREAMED_STAGE_SPANS if n in spans)
+    return max(0.0, spans[SPAN_TOTAL]["total_s"] - covered)
 
 
 def key_stable_snapshot(tr: Tracer | None = None) -> dict:

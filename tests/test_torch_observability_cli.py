@@ -26,6 +26,19 @@ JAX_ONLY_TIMERS: set = set()
 #: not record: none since ROADMAP queue 1 item 4 (the device pool, the
 #: transfer and compile ledgers, the resident windows).
 JAX_ONLY_METRICS: set = set()
+#: Histogram rows the port prints and JAX does not: the automatic
+#: duration histograms of the port's own spans (``telemetry.PORT_ONLY_SPANS``,
+#: which split its host time finer), per verb.
+_STREAMED_PORT_ROWS = {"streamed.setup", "streamed.pass_a.wait", "streamed.finish",
+                       "bqsr.observe.md_walk", "realign.prep", "realign.sweep",
+                       "realign.decide", "bqsr.apply.oq_stash"}
+PORT_ONLY_ROWS = {
+    "flagstat": set(),
+    "count_kmers": {"kmers.histogram", "kmers.decode"},
+    "bam2adam": set(),
+    "transform": {"bqsr.observe.md_walk", "bqsr.apply.oq_stash"},
+    "transform_streamed": _STREAMED_PORT_ROWS,
+}
 #: The device ledger's byte totals: the port places a table once per slot,
 #: fetches packed columns at their exact size and sweeps unpadded chunks,
 #: so the bytes differ by design (``tests/test_torch_telemetry.py``
@@ -145,6 +158,10 @@ def test_print_metrics_tables_equal_jax_with_times_masked(inputs, tmp_path, verb
     jax = {k: _drop(v, JAX_ONLY_TIMERS | JAX_ONLY_METRICS)
            for k, v in tables["jax"].items()}
     jax = {k: v for k, v in jax.items() if v}  # a section of JAX-only rows
+    hists = "Histograms (seconds)"
+    port_rows = {r[0] for r in tables["torch"].get(hists, [])} - {r[0] for r in jax.get(hists, [])}
+    assert port_rows == PORT_ONLY_ROWS[verb]
+    tables["torch"][hists] = _drop(tables["torch"][hists], port_rows)
     assert tables["torch"] == jax
     assert len(jax["Timings"]) >= 2
 

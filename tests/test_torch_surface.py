@@ -497,6 +497,13 @@ def test_verb_list_is_jax_and_the_ports():
     assert sorted(_jax_commands()) == port == sorted(_VERBS)
 
 
+#: Options only the port's verbs have, beside ``--device``.
+PORT_ONLY_OPTIONS = {
+    # the --xprof-dir trace of the run, read beside its --trace-out export
+    "analyze": [("--device-trace",)],
+}
+
+
 @pytest.mark.parametrize("verb", _VERBS)
 def test_verb_options_are_jax_and_device(verb):
     from adam_tpu.cli.main import add_common_args
@@ -508,6 +515,6 @@ def test_verb_options_are_jax_and_device(verb):
     _jax_commands()[verb].configure(jax)
     want, got = _options(jax), _options(parser_for(verb))
     extra = {k: v for k, v in got.items() if k not in want}
-    assert list(extra) == [("--device",)], extra
+    assert list(extra) == [("--device",)] + PORT_ONLY_OPTIONS.get(verb, []), extra
     assert extra[("--device",)][:3] == ("device", None, "'cuda'")
     assert {k: got.get(k) for k in want} == want

@@ -37,8 +37,12 @@ def both():
 @pytest.mark.parametrize("what", ["registered_spans", "registered_metrics",
                                   "registered_names"])
 def test_registered_names_equal_jax(both, what):
+    """Exactly JAX's names plus the port's declared ``PORT_ONLY_SPANS``."""
     jt, tt = both
-    assert getattr(tt, what)() == getattr(jt, what)()
+    port_only = tt.PORT_ONLY_SPANS if what != "registered_metrics" else frozenset()
+    assert len(tt.PORT_ONLY_SPANS) == 14
+    assert not tt.PORT_ONLY_SPANS & getattr(jt, what)()
+    assert getattr(tt, what)() == getattr(jt, what)() | port_only
 
 
 def test_constants_and_heartbeat_fields_equal_jax(both):
@@ -139,6 +143,11 @@ def test_tracer_exports_equal_jax(both, monkeypatch, export):
         if export == "to_json":
             out.append(json.dumps(tr.to_json(_timers(ins), include_events=True),
                                   sort_keys=True, default=str))
+        elif export == "to_chrome_trace" and tele is tt:
+            # the port's trace also states its epoch (analyze --device-trace)
+            doc = tr.to_chrome_trace()
+            assert doc.pop("epoch_ns") == tt._EPOCH_NS
+            out.append(json.dumps(doc, sort_keys=True, default=str))
         else:
             out.append(json.dumps(getattr(tr, export)(), sort_keys=True, default=str))
     assert out[0] == out[1]
@@ -309,6 +318,7 @@ def test_device_trace_writes_a_chrome_trace_and_nests_as_a_no_op(tmp_path, caplo
 
     from adam_tpu_torch.utils import instrumentation as tins
 
+    before = time.monotonic_ns()
     with tins.device_trace(str(tmp_path / "xp")):
         with caplog.at_level("WARNING"):
             with tins.device_trace(str(tmp_path / "inner")):
@@ -319,6 +329,9 @@ def test_device_trace_writes_a_chrome_trace_and_nests_as_a_no_op(tmp_path, caplo
     assert len(files) == 1 and files[0].suffix == ".json"
     doc = json.loads(files[0].read_text())
     assert any("cumsum" in e.get("name", "") for e in doc["traceEvents"])
+    # its start marker, and the monotonic_ns noted there (analyze --device-trace)
+    assert before <= doc[tins.DEVICE_TRACE_MARK_NS] <= time.monotonic_ns()
+    assert sum(e.get("name") == tins.DEVICE_TRACE_MARK for e in doc["traceEvents"]) == 1
     # the flag is cleared: a later trace starts again
     with tins.device_trace(str(tmp_path / "again")):
         pass
@@ -587,12 +600,29 @@ def test_streamed_transfer_ledger_equals_jax_per_pass(streamed):
     assert runs["on"]["counters"]["device.d2h.bytes"] == sum(td.values())
 
 
+#: The port's own spans (``telemetry.PORT_ONLY_SPANS``) this run records,
+#: and how many of each: one wait per window, the realign tail's six
+#: phases, one MD walk per observed window and one OQ stash per part.
+PORT_RECORDED = {"streamed.setup": 1, "streamed.pass_a.wait": 3, "streamed.finish": 1,
+                 "realign.prep": 3, "realign.sweep": 2, "realign.decide": 1,
+                 "bqsr.observe.md_walk": "bqsr.observe.window",
+                 "bqsr.apply.oq_stash": "parquet.part.write"}
+
+
 def test_streamed_span_names_are_jax_minus_the_listed(streamed):
+    """Exactly JAX's spans, less ``NOT_RECORDED``, plus ``PORT_RECORDED``:
+    JAX's with JAX's counts, the port's own with theirs."""
+    from adam_tpu_torch.utils import telemetry as tt
+
     _, runs = streamed
     j, t = set(runs["jax"]["spans"]), set(runs["on"]["spans"])
-    assert t == j - set(NOT_RECORDED["spans"])
-    for name in t:
+    assert set(PORT_RECORDED) <= tt.PORT_ONLY_SPANS
+    assert t == (j - set(NOT_RECORDED["spans"])) | set(PORT_RECORDED)
+    for name in t - set(PORT_RECORDED):
         assert runs["on"]["spans"][name]["count"] == runs["jax"]["spans"][name]["count"], name
+    for name, n in PORT_RECORDED.items():
+        want = n if isinstance(n, int) else runs["jax"]["spans"][n]["count"]
+        assert runs["on"]["spans"][name]["count"] == want, name
 
 
 def test_streamed_stats_are_the_view_of_the_snapshot(streamed):
