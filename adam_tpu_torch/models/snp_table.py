@@ -4,12 +4,17 @@
 BQSR observe pass.  ``IndelTable``: known indels, the consensuses of the
 ``knowns`` realignment model.
 
-Positions are kept as sorted i64 arrays per contig, so masking a batch
-is a vectorized ``searchsorted`` membership test on the host.
+Positions are kept as sorted i64 arrays per contig.  The observe pass
+masks a batch with one native CIGAR walk per read over its contig's
+sites (``site_index``, ``native.mask_known_sites``); ``mask_positions``
+is the vectorized ``searchsorted`` membership test over any array of
+positions.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -17,6 +22,13 @@ import numpy as np
 from adam_tpu_torch.models.positions import ReferenceRegion
 
 SITE_KEY_SHIFT = 40  # site key = contig index << 40 | position
+_NO_SITES = np.zeros(0, np.int64)
+# SnpTable -> {contig-name tuple: site_index's arrays}.  Kept out of the
+# instance, whose __dict__ the run journal's fingerprint digests (as the
+# JAX package's); locked, as the service's coalescer observes from more
+# than one thread.
+_SITE_INDEX: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_SITE_INDEX_LOCK = threading.Lock()
 
 
 class SnpTable:
@@ -66,6 +78,23 @@ class SnpTable:
         if not keys:
             return np.zeros(0, np.int64)
         return np.sort(np.concatenate(keys))
+
+    def site_index(self, contig_names: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """The flat site index in ``contig_names``' index space -> (sites
+        i64[S], offsets i64[len(contig_names) + 1]): contig ``c``'s sorted
+        positions are ``sites[offsets[c]:offsets[c + 1]]``, empty for a
+        contig absent from the table.  Built once per name tuple."""
+        key = tuple(contig_names)
+        with _SITE_INDEX_LOCK:
+            built = _SITE_INDEX.setdefault(self, {})
+            got = built.get(key)
+            if got is None:
+                arrs = [self.table.get(name, _NO_SITES) for name in key]
+                offsets = np.zeros(len(arrs) + 1, np.int64)
+                offsets[1:] = np.cumsum([len(a) for a in arrs], dtype=np.int64)
+                sites = np.concatenate(arrs) if arrs else _NO_SITES
+                got = built[key] = (sites, offsets)
+        return got
 
     def contains(self, contig: str, pos: int) -> bool:
         arr = self.table.get(contig)

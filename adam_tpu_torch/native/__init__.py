@@ -2,9 +2,11 @@
 
 ``adamtok.cpp`` and ``realign.cpp`` here are unchanged copies of the JAX
 package's sources (the tokenizer's BQSR walk links against
-``realign.cpp``'s MD parser, so the two build together).  They are
-compiled with ``g++`` at first use into ``native/_build/`` (git-ignored),
-keyed by a hash of the sources, the flags and the compiler.
+``realign.cpp``'s MD parser, so the two build together).  ``sites.cpp`` is
+the port's own source, not a copy: the known-SNP mask of the BQSR observe
+pass.  The three are compiled with ``g++`` at first use into one library
+in ``native/_build/`` (git-ignored), keyed by a hash of the sources, the
+flags and the compiler.
 
 Unlike ``adam_tpu/native``, nothing here degrades to a pure-Python codec:
 a failed build raises, and so does a binding that cannot do its work
@@ -36,7 +38,7 @@ from adam_tpu_torch.utils import instrumentation as _instr
 from adam_tpu_torch.utils import telemetry as _tele
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = [os.path.join(_DIR, "adamtok.cpp"), os.path.join(_DIR, "realign.cpp")]
+_SOURCES = [os.path.join(_DIR, f) for f in ("adamtok.cpp", "realign.cpp", "sites.cpp")]
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # -march=native first (the scan/fill/LUT loops vectorize); the plain
@@ -201,6 +203,11 @@ def _bind(lib: ct.CDLL) -> None:
     lib.ref_positions.argtypes = [
         _u8p, _i32p, _i32p, _i64p, ct.c_int64, ct.c_int64, ct.c_int64,
         _i64p, ct.c_int,
+    ]
+    lib.mask_known_sites.restype = ct.c_int64
+    lib.mask_known_sites.argtypes = [
+        _u8p, _i32p, _i32p, _i64p, _i32p, ct.c_int64, ct.c_int64, ct.c_int64,
+        _i64p, _i64p, ct.c_int64, _u8p, ct.c_int,
     ]
     lib.cigar_strings.restype = ct.c_int64
     lib.cigar_strings.argtypes = [
@@ -740,6 +747,46 @@ def ref_positions(cigar_ops, cigar_lens, cigar_n, start, lmax: int) -> np.ndarra
         out.ctypes.data_as(_i64p), ct.c_int(_nthreads()),
     )
     return out
+
+
+def mask_known_sites(residue_ok: np.ndarray, cigar_ops, cigar_lens, cigar_n,
+                     start, contig_idx, sites: np.ndarray,
+                     offsets: np.ndarray) -> int:
+    """Clear ``residue_ok`` (bool[N, L], C-contiguous, in place) at every
+    query base aligned to a known site, by one CIGAR walk per read over
+    its contig's sorted sites ``sites[offsets[c]:offsets[c + 1]]`` (the
+    positions of :func:`ref_positions`); returns the number of residues on
+    a site.  A ``contig_idx`` outside ``[0, len(offsets) - 1)`` masks
+    nothing."""
+    L_ = lib()
+    ops = np.ascontiguousarray(cigar_ops, np.uint8)
+    lens = np.ascontiguousarray(cigar_lens, np.int32)
+    n_ops = np.ascontiguousarray(cigar_n, np.int32)
+    st = np.ascontiguousarray(start, np.int64)
+    ci = np.ascontiguousarray(contig_idx, np.int32)
+    sites = np.ascontiguousarray(sites, np.int64)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    N, C = ops.shape
+    if (residue_ok.dtype != np.bool_ or residue_ok.ndim != 2
+            or not residue_ok.flags.c_contiguous or not residue_ok.flags.writeable
+            or len(residue_ok) != N or lens.shape != (N, C)
+            or n_ops.shape != (N,) or st.shape != (N,) or ci.shape != (N,)):
+        raise ValueError("mask_known_sites: residue_ok must be a writeable "
+                         f"C-contiguous bool [{N}, L] array beside [{N}] read columns")
+    if (offsets.ndim != 1 or len(offsets) < 1 or offsets[0] != 0
+            or offsets[-1] != len(sites) or (np.diff(offsets) < 0).any()):
+        raise ValueError("mask_known_sites: offsets must rise from 0 to len(sites)")
+    if not len(sites):
+        sites = np.zeros(1, np.int64)  # a pointer for the empty table
+    return int(L_.mask_known_sites(
+        _u8_ptr(ops.reshape(-1)), lens.ctypes.data_as(_i32p),
+        n_ops.ctypes.data_as(_i32p), st.ctypes.data_as(_i64p),
+        ci.ctypes.data_as(_i32p), ct.c_int64(N), ct.c_int64(C),
+        ct.c_int64(residue_ok.shape[1]),
+        sites.ctypes.data_as(_i64p), offsets.ctypes.data_as(_i64p),
+        ct.c_int64(len(offsets) - 1),
+        _u8_ptr(residue_ok.reshape(-1).view(np.uint8)), ct.c_int(_nthreads()),
+    ))
 
 
 def cigar_strings(cigar_ops, cigar_lens, cigar_n):

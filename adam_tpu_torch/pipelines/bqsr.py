@@ -19,7 +19,8 @@ dataset-level :func:`recalibrate_base_qualities`.
   and apply + pack run back to back over its resident tensors
   (:func:`fused_bc_dispatch`), and pass C only fetches.
 * **Known SNPs** are masked out of the observe's residue filter
-  (:func:`observe_residue_mask`), on the host.
+  (:func:`observe_residue_mask`), on the host, by one native CIGAR walk
+  per read over its contig's sorted sites.
 * **Dataset level** (:func:`recalibrate_base_qualities`, the
   non-streaming ``transform``): the whole dataset is observed at its own
   ``[grid_rows(N), grid_cols(L)]`` grid in one kernel launch (in row
@@ -39,6 +40,7 @@ from dataclasses import replace as dc_replace
 import numpy as np
 import torch
 
+from adam_tpu_torch import native
 from adam_tpu_torch.api.datasets import AlignmentDataset
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.ops import cigar as cigar_ops
@@ -131,8 +133,10 @@ def observe_read_mask(b, has_md: np.ndarray) -> np.ndarray:
 def observe_residue_mask(ds: AlignmentDataset, b, known_snps=None) -> np.ndarray:
     """The per-residue observe filter (q > 0, regular ACGT base, aligned
     to the reference, not a known SNP) -> bool[N, L].  ``known_snps`` (a
-    :class:`~adam_tpu_torch.models.snp_table.SnpTable`) is tested on the
-    host against each residue's reference position."""
+    :class:`~adam_tpu_torch.models.snp_table.SnpTable`) is masked on the
+    host by :func:`~adam_tpu_torch.native.mask_known_sites`, which visits
+    only the sites inside each read's aligned span (the residues on a
+    site are counted under ``bqsr.observe.snp_masked``)."""
     ref_pos = cigar_ops.reference_positions_np(
         b.cigar_ops, b.cigar_lens, b.cigar_n, b.start, b.lmax
     )
@@ -143,9 +147,12 @@ def observe_residue_mask(ds: AlignmentDataset, b, known_snps=None) -> np.ndarray
     )
     if known_snps is not None and len(known_snps):
         with _tele.TRACE.span(_tele.SPAN_OBSERVE_SNP_MASK):
-            rok &= ~known_snps.mask_positions(
-                ds.seq_dict.names, np.asarray(b.contig_idx), ref_pos
+            sites, offsets = known_snps.site_index(ds.seq_dict.names)
+            masked = native.mask_known_sites(
+                rok, b.cigar_ops, b.cigar_lens, b.cigar_n, b.start,
+                b.contig_idx, sites, offsets,
             )
+        _tele.TRACE.count(_tele.C_OBSERVE_SNP_MASKED, masked)
     return rok
 
 

@@ -50,12 +50,13 @@ when recording is on.
 
 Every span/counter/gauge name is declared here (the ``_span``/
 ``_metric`` registrations below): the JAX package's set plus the spans
-of :data:`PORT_ONLY_SPANS`, which split the port's host time finer — a
-**stable contract** held by ``tests/test_torch_telemetry.py`` (exactly
-JAX's names plus that list, and every name the port's code records is
-registered).  :meth:`Tracer.to_chrome_trace` also writes the trace's
-epoch (``epoch_ns``), so ``analyze --device-trace`` can put its spans on
-a ``--xprof-dir`` trace's clock.
+of :data:`PORT_ONLY_SPANS`, which split the port's host time finer, and
+the counters of :data:`PORT_ONLY_METRICS` — a **stable contract** held
+by ``tests/test_torch_telemetry.py`` (exactly JAX's names plus those
+lists, and every name the port's code records is registered).
+:meth:`Tracer.to_chrome_trace` also writes the trace's epoch
+(``epoch_ns``), so ``analyze --device-trace`` can put its spans on a
+``--xprof-dir`` trace's clock.
 """
 
 from __future__ import annotations
@@ -192,7 +193,7 @@ SPAN_SETUP = _span("streamed.setup")          # run start -> pass A's first queu
 SPAN_PASS_A_WAIT = _span("streamed.pass_a.wait")  # pass A blocked on the ingest queue
 SPAN_FINISH = _span("streamed.finish")        # after the write wait -> streamed.total's end
 SPAN_OBSERVE_MD_WALK = _span("bqsr.observe.md_walk")    # MD walk + read mask
-SPAN_OBSERVE_SNP_MASK = _span("bqsr.observe.snp_mask")  # SnpTable.mask_positions
+SPAN_OBSERVE_SNP_MASK = _span("bqsr.observe.snp_mask")  # native.mask_known_sites
 SPAN_REALIGN_PREP = _span("realign.prep")      # targets, native prep, consensuses, tiles
 SPAN_REALIGN_SWEEP = _span("realign.sweep")    # sweep dispatch; the fetch wait
 SPAN_REALIGN_DECIDE = _span("realign.decide")  # scoring, rewrite decisions, write-back
@@ -208,6 +209,9 @@ PORT_ONLY_SPANS = frozenset({
     SPAN_PARQUET_READ, SPAN_PARQUET_FROM_ARROW, SPAN_KMERS_HISTOGRAM,
     SPAN_KMERS_DECODE,
 })
+# the counters of this package only (PORT_ONLY_METRICS)
+C_OBSERVE_SNP_MASKED = _metric("bqsr.observe.snp_masked")  # residues on a known site
+PORT_ONLY_METRICS = frozenset({C_OBSERVE_SNP_MASKED})
 
 # ---- counters ----
 C_READS_INGESTED = _metric("reads.ingested")

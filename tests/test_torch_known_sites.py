@@ -243,6 +243,202 @@ def test_snp_table_from_file_equals_jax(inputs):
         SnpTable.from_lines(["chr17\t0\t.\tA\n"])
 
 
+# A contig of the hand cases: the sites sit on matched bases, under an
+# insertion, a soft and a hard clip, inside a deletion and a skip, at 0 and
+# at the contig's last base (999).
+_C0 = [0, 1, 4, 5, 9, 12, 13, 16, 19, 21, 25, 30, 31, 40, 60, 99, 100, 118,
+       126, 150, 200, 400, 997, 999]
+_C1 = [3, 6, 7, 8, 9, 10, 11]
+#: name -> (rows of (contig_idx, start, CIGAR), lmax, the table's
+#: (contig, position) pairs, the contig names, the CIGAR columns or None)
+_MASK_CASES = {
+    "ops": ([(0, 0, "3S10M2I5M4D6M"), (0, 8, "2H4=1X5=3H"), (0, 18, "5M100N5M"),
+             (0, 10, "1M1P1M1D1M"), (1, 3, "4M2D4M"), (0, 25, "10X"), (0, 30, ""),
+             (0, 110, "2M6I20M"), (1, 0, "3S3M3S")],
+            40, [("c0", p) for p in _C0] + [("c1", p) for p in _C1], ["c0", "c1"], None),
+    "past_lmax": ([(0, 0, "8M4I8M"), (0, 5, "20M"), (0, 2, "6S20M"), (1, 0, "11M5D3M")],
+                  12, [("c0", p) for p in _C0] + [("c1", p) for p in _C1], ["c0", "c1"], None),
+    "edges": ([(0, 0, "10M"), (0, 990, "10M"), (0, -5, "10M"), (0, 995, "2M2D2M"),
+               (0, -3, "-2M5M"), (0, 994, "3M-4D3M")],
+              16, [("c0", p) for p in _C0], ["c0"], None),
+    "ops_past_cmax": ([(0, 0, "5M2D5M3I5M"), (0, 20, "2M1D2M1D2M")], 30,
+                      [("c0", p) for p in _C0], ["c0"], 2),
+    "no_cigar_columns": ([(0, 0, ""), (0, 5, "")], 8, [("c0", p) for p in _C0], ["c0"], 0),
+    "duplicates": ([(0, 0, "20M"), (0, 990, "10M")], 20,
+                   [("c0", p) for p in _C0 + _C0[::3] + [999, 999, 0]], ["c0"], None),
+    "contig_idx_outside": ([(-1, 0, "20M"), (2, 0, "20M"), (7, 0, "20M"), (1, 0, "20M")],
+                           20, [("c0", p) for p in _C0] + [("c1", p) for p in _C1],
+                           ["c0", "c1"], None),
+    "contig_missing_from_table": ([(0, 0, "20M"), (1, 0, "20M"), (2, 0, "20M")], 20,
+                                  [("c0", p) for p in _C0] + [("c2", p) for p in _C1],
+                                  ["c0", "cZ", "c2"], None),
+    "contig_with_no_sites": ([(0, 0, "20M"), (1, 0, "20M")], 20, [("c1", p) for p in _C1],
+                             ["c0", "c1"], None),
+    "names_in_another_order": ([(0, 0, "20M"), (1, 0, "20M"), (2, 990, "10M")], 20,
+                               [("c0", p) for p in _C0] + [("c1", p) for p in _C1]
+                               + [("c2", p) for p in (1, 2, 995)], ["c2", "c0", "c1"], None),
+}
+
+
+def _cigar_columns(rows, cmax):
+    """(contig_idx, start, CIGAR) rows -> (ops u8[N, C], lens i32[N, C],
+    n_ops i32[N], start i64[N], contig_idx i32[N]); a row's ops past
+    ``cmax`` are cut while its ``n_ops`` keeps the full count."""
+    import re
+
+    from adam_tpu_torch.formats import schema
+
+    parsed = [[(int(n), schema.CIGAR_ENCODE[c])
+               for n, c in re.findall(r"(-?\d+)([MIDNSHP=X])", cig)] for _, _, cig in rows]
+    C = max(1, max(len(p) for p in parsed)) if cmax is None else cmax
+    ops = np.zeros((len(rows), C), np.uint8)
+    lens = np.zeros((len(rows), C), np.int32)
+    for i, p in enumerate(parsed):
+        for k, (n, op) in enumerate(p[:C]):
+            ops[i, k], lens[i, k] = op, n
+    return (ops, lens, np.array([len(p) for p in parsed], np.int32),
+            np.array([r[1] for r in rows], np.int64), np.array([r[0] for r in rows], np.int32))
+
+
+def _random_case(n_rows, seed=11):
+    """Random CIGARs (every op, negative lengths, more ops than columns)
+    over three contigs of 5,000 bp with a site every ~25 bp."""
+    rng = np.random.default_rng(seed)
+    C, lmax = 6, 60
+    ops = rng.choice(np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9], np.uint8), size=(n_rows, C))
+    lens = rng.integers(-2, 30, size=(n_rows, C)).astype(np.int32)
+    n_ops = rng.integers(0, C + 2, n_rows).astype(np.int32)
+    start = rng.integers(-20, 5_000, n_rows).astype(np.int64)
+    contig_idx = rng.integers(-1, 4, n_rows).astype(np.int32)
+    pairs = [(f"c{c}", int(p)) for c in range(3) for p in rng.integers(-5, 5_000, 200)]
+    return (ops, lens, n_ops, start, contig_idx), lmax, pairs, ["c0", "c1", "c2"]
+
+
+@pytest.mark.parametrize("case", [*_MASK_CASES, "random_rows", "random_rows_threaded"])
+def test_native_snp_mask_equals_jax(case):
+    """The observe's native known-SNP walk clears exactly the residues
+    JAX's ``SnpTable.mask_positions`` marks over ``reference_positions_np``
+    and returns their number; the same with every site given twice."""
+    from adam_tpu.models.snp_table import SnpTable as JSnpTable
+    from adam_tpu.ops.cigar import reference_positions_np as jref_pos
+
+    from adam_tpu_torch import native
+    from adam_tpu_torch.models.snp_table import SnpTable
+
+    if case.startswith("random"):
+        cols, lmax, pairs, names = _random_case(300 if case == "random_rows" else 6000)
+    else:
+        rows, lmax, pairs, names, cmax = _MASK_CASES[case]
+        cols = _cigar_columns(rows, cmax)
+    ops, lens, n_ops, start, contig_idx = cols
+    got_t, want_t = SnpTable.from_variants(pairs), JSnpTable.from_variants(pairs)
+    want = want_t.mask_positions(names, contig_idx, jref_pos(ops, lens, n_ops, start, lmax))
+    sites, offsets = got_t.site_index(names)
+    assert got_t.site_index(list(names)) is got_t.site_index(names)  # built once
+    for s, o in ((sites, offsets), (np.repeat(sites, 2), 2 * offsets)):
+        rok = np.ones((len(start), lmax), bool)
+        n = native.mask_known_sites(rok, ops, lens, n_ops, start, contig_idx, s, o)
+        np.testing.assert_array_equal(~rok, want)
+        assert n == int(want.sum())
+    if case in ("ops", "past_lmax", "edges", "duplicates", "random_rows_threaded"):
+        assert n > 3
+    if case == "contig_idx_outside":
+        assert want[3].sum() == n == len(_C1)  # only the read on c1
+
+
+def test_site_index_is_built_once_under_threads():
+    """Threads (more than cores, a short switch interval) asking one table
+    for its index get one object per name tuple; the index stays out of
+    the table's ``__dict__``, which the run journal's fingerprint reads."""
+    import sys
+    import threading
+
+    from adam_tpu_torch.models.snp_table import SnpTable
+    from adam_tpu_torch.pipelines.checkpoint import compose_fingerprint
+
+    keys = [("c0", "c1"), ("c1", "c0"), ("c0", "cZ", "c1")]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(5):
+            table = SnpTable({"c0": np.arange(0, 200_000, 7), "c1": [3, 1, 2]})
+            fp = compose_fingerprint({"known_snps": table})
+            got = [[] for _ in keys]
+            barrier = threading.Barrier(4 * (os.cpu_count() or 1))
+
+            def ask():
+                barrier.wait(timeout=30)
+                for k, key in enumerate(keys):
+                    got[k].append(table.site_index(list(key)))
+
+            threads = [threading.Thread(target=ask) for _ in range(barrier.parties)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+            for k in range(len(keys)):
+                assert len(got[k]) == barrier.parties
+                assert all(g is got[k][0] for g in got[k])
+            assert list(got[1][0][1]) == [0, 3, 3 + len(table.table["c0"])]
+            assert compose_fingerprint({"known_snps": table}) == fp
+    finally:
+        sys.setswitchinterval(old)
+
+
+def test_native_snp_mask_refuses_what_it_cannot_walk():
+    from adam_tpu_torch import native
+
+    ops, lens, n_ops, start, ci = _cigar_columns([(0, 0, "5M")], None)
+    sites, offsets = np.array([1, 2], np.int64), np.array([0, 2], np.int64)
+    for rok in (np.ones((1, 8), np.uint8), np.ones((1, 16), bool)[:, ::2], np.ones((2, 8), bool)):
+        with pytest.raises(ValueError, match="residue_ok"):
+            native.mask_known_sites(rok, ops, lens, n_ops, start, ci, sites, offsets)
+    for off in (np.array([0, 3]), np.array([1, 2]), np.array([0, 2, 1, 2])):
+        with pytest.raises(ValueError, match="offsets"):
+            native.mask_known_sites(np.ones((1, 8), bool), ops, lens, n_ops, start, ci,
+                                    sites, off)
+
+
+@pytest.mark.parametrize("vcf", ["snps.vcf", "snps.vcf.gz", "hand.vcf"])
+def test_observe_residue_mask_and_its_counter_equal_jax(inputs, vcf):
+    """The port's ``observe_residue_mask`` equals JAX's on the input, and
+    the ``bqsr.observe.snp_masked`` counter is the residues JAX's mask
+    marks; with recording off nothing is counted."""
+    from adam_tpu.io import load_alignments
+    from adam_tpu.ops.cigar import reference_positions_np as jref_pos
+    from adam_tpu.pipelines import bqsr as jbqsr
+
+    from adam_tpu_torch.api.datasets import AlignmentDataset
+    from adam_tpu_torch.io.sam import iter_sam_batches
+    from adam_tpu_torch.pipelines import bqsr
+    from adam_tpu_torch.utils import telemetry as tele
+
+    d = inputs
+    ks, jks = _tables(d, vcf, "snp")
+    (batch, side, header), = list(iter_sam_batches(str(d / "in.sam"), 1 << 30))
+    ds = AlignmentDataset(batch, side, header)
+    ds_j = load_alignments(str(d / "in.sam"))
+    b, bj = ds.batch.to_numpy(), ds_j.batch.to_numpy()
+    want = jks.mask_positions(
+        header.seq_dict.names, bj.contig_idx,
+        jref_pos(bj.cigar_ops, bj.cigar_lens, bj.cigar_n, bj.start, bj.lmax)).sum()
+    tele.TRACE.reset()
+    try:
+        assert bqsr.observe_residue_mask(ds, b, ks) is not None
+        assert tele.TRACE.snapshot()["counters"] == {}
+        tele.TRACE.recording = True
+        got = bqsr.observe_residue_mask(ds, b, ks)
+        snap = tele.TRACE.snapshot()
+    finally:
+        tele.TRACE.recording = False
+        tele.TRACE.reset()
+    np.testing.assert_array_equal(got, jbqsr.observe_residue_mask(ds_j, bj, jks))
+    assert snap["counters"][tele.C_OBSERVE_SNP_MASKED] == int(want)
+    assert snap["spans"][tele.SPAN_OBSERVE_SNP_MASK]["count"] == 1
+    assert (want > 100) == (vcf != "hand.vcf")
+
+
 def test_indel_table_equals_jax(inputs):
     """get_indels_in_region, by overlap and in table order, over every
     window of 300 bp (and some 1 bp) on both contigs."""

@@ -83,6 +83,38 @@ def test_a_traced_run_records_every_new_span(runs, name):
     assert set(r["metrics"]["spans"]) & tele.PORT_ONLY_SPANS == recorded
 
 
+def test_one_snp_mask_a_sites_observe_and_its_counter(runs):
+    """With known sites, one ``bqsr.observe.snp_mask`` span per observe
+    (each window's and the realigned part's, as the MD walk's), and the
+    ``bqsr.observe.snp_masked`` counter is JAX's mask summed over what the
+    observes walk: every row of the input (a window walks its candidates
+    too, masked out of its reads) and the realigned part.  Without known
+    sites, neither."""
+    from adam_tpu.io import load_alignments
+    from adam_tpu.models.snp_table import SnpTable as JSnpTable
+    from adam_tpu.ops.cigar import reference_positions_np as jref_pos
+
+    d, r = runs
+    hists = r["sites"]["trace"]["histograms"]
+    assert hists["bqsr.observe.snp_mask"]["count"] == hists["bqsr.observe.md_walk"]["count"] == 4
+    table = JSnpTable.from_file(str(d / "snps.vcf"))
+
+    def jax_mask_sum(path):
+        ds = load_alignments(path)
+        b = ds.batch.to_numpy()
+        return int(table.mask_positions(
+            ds.seq_dict.names, b.contig_idx,
+            jref_pos(b.cigar_ops, b.cigar_lens, b.cigar_n, b.start, b.lmax)).sum())
+
+    realigned = d / "sites.adam" / f"part-r-{r['sites']['stats']['n_windows']:05d}.parquet"
+    want = jax_mask_sum(str(d / "in.sam")) + jax_mask_sum(str(realigned))
+    assert r["sites"]["metrics"]["counters"]["bqsr.observe.snp_masked"] == want > 100
+    for name in ("nosites", "off"):
+        assert "bqsr.observe.snp_mask" not in r[name]["global_spans"]
+        assert r[name].get("metrics", {}).get("counters", {}).get(
+            "bqsr.observe.snp_masked", 0) == 0
+
+
 def test_the_realign_spans_nest_inside_the_tail_on_its_thread(runs):
     r = runs[1]["sites"]
     evs = [e for e in r["trace"]["traceEvents"] if e.get("ph") == "X"]

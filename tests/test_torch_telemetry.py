@@ -37,11 +37,14 @@ def both():
 @pytest.mark.parametrize("what", ["registered_spans", "registered_metrics",
                                   "registered_names"])
 def test_registered_names_equal_jax(both, what):
-    """Exactly JAX's names plus the port's declared ``PORT_ONLY_SPANS``."""
+    """Exactly JAX's names plus the port's declared ``PORT_ONLY_SPANS``
+    and ``PORT_ONLY_METRICS``."""
     jt, tt = both
-    port_only = tt.PORT_ONLY_SPANS if what != "registered_metrics" else frozenset()
-    assert len(tt.PORT_ONLY_SPANS) == 14
-    assert not tt.PORT_ONLY_SPANS & getattr(jt, what)()
+    port_only = {"registered_spans": tt.PORT_ONLY_SPANS,
+                 "registered_metrics": tt.PORT_ONLY_METRICS,
+                 "registered_names": tt.PORT_ONLY_SPANS | tt.PORT_ONLY_METRICS}[what]
+    assert len(tt.PORT_ONLY_SPANS) == 14 and len(tt.PORT_ONLY_METRICS) == 1
+    assert not port_only & getattr(jt, what)()
     assert getattr(tt, what)() == getattr(jt, what)() | port_only
 
 
