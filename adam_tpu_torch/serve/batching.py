@@ -44,6 +44,9 @@ reach the CUDA kernels, and the plain versions run only for CPU
 tensors.  The ``sched.batch`` fault point arrives once per fused
 dispatch (the pass kind in the ``device`` slot); ``proc.kill
 device=batch`` is the chaos harness's mid-batch kill phase.
+
+Each ticket's wait, from its submission to the start of its group's
+dispatch, is one ``sched.batch.ticket_wait`` span (recording on only).
 """
 
 from __future__ import annotations
@@ -523,6 +526,11 @@ class WindowCoalescer:
         its own path)."""
         grp.sort(key=self._wfq_rank)
         kind = grp[0].kind
+        now_ns = time.monotonic_ns()
+        for t in grp:  # each ticket's wait, submission -> this dispatch
+            t0_ns = int(t.t_submit * 1e9)
+            self.tracer.add_span(tele.SPAN_BATCH_TICKET_WAIT, t0_ns, now_ns - t0_ns,
+                                 kind=kind, job=t.job, window=t.window)
         links = [{"job": t.job, "window": t.window, "trace": t.trace} for t in grp]
         try:
             faults.point("sched.batch", device=kind)

@@ -23,6 +23,9 @@ makes every blocked (and future) :meth:`turn` raise
 pipeline honors at the window boundary — in-flight parts publish, the
 journal stays resumable (docs/ROBUSTNESS.md).
 
+Each turn of a registered lane, from entry to grant, is one
+``sched.pace.wait`` span on ``TRACE`` (recording on only).
+
 The port's copy of ``adam_tpu/serve/fairness.py``.
 """
 
@@ -35,6 +38,7 @@ from typing import Optional
 
 from adam_tpu_torch.pipelines.streamed import RunCancelled
 from adam_tpu_torch.utils import faults
+from adam_tpu_torch.utils import telemetry as tele
 
 #: Recheck period for blocked turns: grants notify the condition, so
 #: this only bounds recovery from a theoretical missed wakeup.
@@ -204,6 +208,7 @@ class WeightedInterleaver:
         deadlock teardown).  Raises ``RunCancelled`` once the job — or
         the whole pool — is cancelled.  ``size`` (bytes this grant
         covers) is recorded in the grant ring beside the timestamp."""
+        t0_ns = time.monotonic_ns()
         with self._lock:
             lane = self._lanes.get(job)
             if lane is None:
@@ -228,7 +233,10 @@ class WeightedInterleaver:
                             (job, time.monotonic(), int(size))
                         )
                         self._cond.notify_all()
-                        return
+                        break
                     self._cond.wait(_WAIT_S)
             finally:
                 lane.waiting_seq = None
+        tele.TRACE.add_span(tele.SPAN_PACE_WAIT, t0_ns,
+                            time.monotonic_ns() - t0_ns, job=job,
+                            tenant=lane.tenant)

@@ -9,8 +9,9 @@ the documentation it is held to is the same):
   declared in the ``adam_tpu_torch/utils/telemetry.py`` registry — a renamed
   or ad-hoc metric can't silently fork the contract;
 * every dotted registry name must appear in docs/OBSERVABILITY.md's
-  name contract (whole-token match, so a prefix can't ride on a longer
-  documented name);
+  name contract or, for a name of this package only, in its own
+  ``adam_tpu_torch/OBSERVABILITY.md`` (whole-token match, so a prefix
+  can't ride on a longer documented name);
 * every ``telemetry.HEARTBEAT_FIELDS`` member must appear in
   docs/OBSERVABILITY.md's heartbeat schema.
 
@@ -34,6 +35,8 @@ REGISTRY_MODULE = "adam_tpu_torch/utils/telemetry.py"
 #: Where the display names registered in a loop are defined.
 INSTRUMENTATION_MODULE = "adam_tpu_torch/utils/instrumentation.py"
 DOC_FILE = "docs/OBSERVABILITY.md"
+#: Where names of this package only may be documented instead.
+PORT_DOC_FILE = "adam_tpu_torch/OBSERVABILITY.md"
 
 #: Prometheus mangling contract (gateway/metrics.py mirrors
 #: utils/telemetry.prometheus_name/prometheus_name_valid; kept as
@@ -178,13 +181,14 @@ class TelemetryContractRule(Rule):
         doc = project.read_doc(DOC_FILE)
         if doc is None:
             return
+        names_doc = doc + "\n" + (project.read_doc(PORT_DOC_FILE) or "")
         for name in sorted(declared):
             if re.fullmatch(r"[a-z0-9_.]+", name) and "." in name and \
-                    not _whole_token(name, doc):
+                    not _whole_token(name, names_doc):
                 yield Finding(
                     self.name, REGISTRY_MODULE, 1, 0,
                     f"registry name '{name}' missing from {DOC_FILE}'s "
-                    "name contract",
+                    f"name contract (or {PORT_DOC_FILE}'s)",
                     "",
                 )
         for fld in heartbeat:

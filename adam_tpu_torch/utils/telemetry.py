@@ -184,10 +184,13 @@ for _n in (
     _span(_n)
 
 # ---- spans of this package only (PORT_ONLY_SPANS): where the host time
-# of a streamed transform and of count_kmers goes below the stage spans.
+# of a streamed transform, of count_kmers and of the transform service goes
+# below the stage spans.
 # The streamed run's own (setup, pass-A wait, finish) go on its run
 # tracer; the library's go on TRACE (one branch each when recording is
-# off).  Every other name is the JAX package's. ----
+# off).  Every other name is the JAX package's.  The names added from the
+# transform service's waits on are documented in adam_tpu_torch/OBSERVABILITY.md,
+# the earlier ones in docs/OBSERVABILITY.md. ----
 SPAN_KNOWN_SITES = _span("transform.known_sites.load")  # cli/actions._known_sites
 SPAN_SETUP = _span("streamed.setup")          # run start -> pass A's first queue get
 SPAN_PASS_A_WAIT = _span("streamed.pass_a.wait")  # pass A blocked on the ingest queue
@@ -202,12 +205,17 @@ SPAN_PARQUET_READ = _span("parquet.read_table")    # io/parquet.load_alignments
 SPAN_PARQUET_FROM_ARROW = _span("parquet.from_arrow")
 SPAN_KMERS_HISTOGRAM = _span("kmers.histogram")  # device sort + run lengths + fetch
 SPAN_KMERS_DECODE = _span("kmers.decode")        # keys -> the dict of strings
+# the transform service's waits, both on TRACE: a coalescer ticket from its
+# submission to its group's dispatch (recorded by the dispatch thread), and
+# a registered lane's WFQ turn from entry to grant (on the job's thread)
+SPAN_BATCH_TICKET_WAIT = _span("sched.batch.ticket_wait")
+SPAN_PACE_WAIT = _span("sched.pace.wait")
 PORT_ONLY_SPANS = frozenset({
     SPAN_KNOWN_SITES, SPAN_SETUP, SPAN_PASS_A_WAIT, SPAN_FINISH,
     SPAN_OBSERVE_MD_WALK, SPAN_OBSERVE_SNP_MASK, SPAN_REALIGN_PREP,
     SPAN_REALIGN_SWEEP, SPAN_REALIGN_DECIDE, SPAN_OQ_STASH,
     SPAN_PARQUET_READ, SPAN_PARQUET_FROM_ARROW, SPAN_KMERS_HISTOGRAM,
-    SPAN_KMERS_DECODE,
+    SPAN_KMERS_DECODE, SPAN_BATCH_TICKET_WAIT, SPAN_PACE_WAIT,
 })
 # the counters of this package only (PORT_ONLY_METRICS)
 C_OBSERVE_SNP_MASKED = _metric("bqsr.observe.snp_masked")  # residues on a known site

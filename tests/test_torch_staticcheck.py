@@ -844,6 +844,26 @@ def test_telemetry_docs_gaps(tmp_path):
     assert any("undocumented_field" in m for m in msgs)
 
 
+@pytest.mark.parametrize("port_doc,flagged", [
+    ("the port's own span `pipeline.good`\n", False),
+    ("the port's own span `pipeline.good_not`\n", True),
+    (None, True),
+])
+def test_telemetry_port_doc_documents_names(tmp_path, port_doc, flagged):
+    """A registry name documented in the package's own OBSERVABILITY.md
+    (whole token) meets the name contract; the heartbeat schema stays
+    the shared doc's."""
+    from adam_tpu_torch.staticcheck.rules import telemetry_names as rule_mod
+
+    _write(tmp_path, TELE_FILE, FIXTURE_TELE)
+    _write(tmp_path, "docs/OBSERVABILITY.md", "`schema` `undocumented_field`\n")
+    if port_doc is not None:
+        _write(tmp_path, rule_mod.PORT_DOC_FILE, port_doc)
+    msgs = [f["message"] for f in _new(_run(tmp_path, ["telemetry-contract"]))]
+    assert any("pipeline.good" in m and "name contract" in m for m in msgs) == flagged, msgs
+    assert len(msgs) == int(flagged)
+
+
 def test_telemetry_loop_registered_names_resolve_statically(tmp_path):
     """Names registered in a loop over instrumentation constants are
     declared without importing anything (the rule needs no torch)."""
