@@ -8,6 +8,13 @@ pass.  The three are compiled with ``g++`` at first use into one library
 in ``native/_build/`` (git-ignored), keyed by a hash of the sources, the
 flags and the compiler.
 
+``kmertab.cpp``, the port's second own source, builds the k-mer table's
+``{k-mer: count}`` dict out of Python objects, so it includes
+``Python.h``.  It is built the same way into a library of its own, loaded
+with ``ctypes.PyDLL`` (calls hold the GIL and return Python objects), so
+the codecs' library, which every transform loads, keeps its sources and
+flags and stays free of the Python headers.
+
 Unlike ``adam_tpu/native``, nothing here degrades to a pure-Python codec:
 a failed build raises, and so does a binding that cannot do its work
 (where the JAX package's wrappers return None for the caller to fall
@@ -28,6 +35,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import sysconfig
 import tempfile
 import threading
 from typing import Sequence
@@ -45,8 +53,11 @@ _BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # flag set is the fallback for toolchains that refuse it
 _FLAG_SETS = [_BASE_FLAGS + ["-march=native"], _BASE_FLAGS]
 
+_KMERTAB_SOURCE = os.path.join(_DIR, "kmertab.cpp")
+
 _LOCK = threading.Lock()
 _LIB: ct.CDLL | None = None
+_KMERTAB_LIB: ct.PyDLL | None = None
 
 _i64p = ct.POINTER(ct.c_int64)
 _i32p = ct.POINTER(ct.c_int32)
@@ -84,32 +95,34 @@ def _compiler() -> str:
     return res.stdout.decode("utf-8", "replace").splitlines()[0]
 
 
-def _build() -> str:
-    """Compile the sources (if not already built) -> path of the .so."""
+def _build(sources: Sequence[str], stem: str, extra_flags: Sequence[str] = (),
+           libs: Sequence[str] = ()) -> str:
+    """Compile ``sources`` (if not already built) -> path of the .so."""
     h = hashlib.sha256()
-    for path in _SOURCES:
+    for path in sources:
         with open(path, "rb") as fh:
             h.update(fh.read())
     h.update(_compiler().encode())
     errors = []
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    for flags in _FLAG_SETS:
+    for base in _FLAG_SETS:
+        flags = [*base, *extra_flags]
         hf = h.copy()
         hf.update(" ".join(flags).encode())
         if "-march=native" in flags:
             hf.update(_cpu_flags().encode())
-        so_path = os.path.join(_BUILD_DIR, f"adamtok_{hf.hexdigest()[:16]}.so")
+        so_path = os.path.join(_BUILD_DIR, f"{stem}_{hf.hexdigest()[:16]}.so")
         if os.path.exists(so_path):
             return so_path
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
-            tmp = os.path.join(td, "adamtok.so")
-            cmd = ["g++", *flags, "-o", tmp, *_SOURCES, "-lz", "-pthread"]
+            tmp = os.path.join(td, f"{stem}.so")
+            cmd = ["g++", *flags, "-o", tmp, *sources, *libs]
             res = subprocess.run(cmd, capture_output=True, timeout=600)
             if res.returncode == 0:
                 os.replace(tmp, so_path)
                 return so_path
             errors.append(res.stderr.decode("utf-8", "replace")[-2000:])
-    raise RuntimeError("building the native codecs failed:\n" + "\n".join(errors))
+    raise RuntimeError(f"building the native library {stem} failed:\n" + "\n".join(errors))
 
 
 # the tokenizers' shared output columns (samtok_fill / bamtok_fill)
@@ -271,10 +284,46 @@ def lib() -> ct.CDLL:
     if _LIB is None:
         with _LOCK:
             if _LIB is None:
-                loaded = ct.CDLL(_build())
+                loaded = ct.CDLL(_build(_SOURCES, "adamtok", libs=("-lz", "-pthread")))
                 _bind(loaded)
                 _LIB = loaded
     return _LIB
+
+
+def _kmertab_lib() -> ct.PyDLL:
+    """The k-mer table's library, built and loaded on first call."""
+    global _KMERTAB_LIB
+    if _KMERTAB_LIB is None:
+        with _LOCK:
+            if _KMERTAB_LIB is None:
+                include = sysconfig.get_paths()["include"]
+                loaded = ct.PyDLL(_build([_KMERTAB_SOURCE], "kmertab", ("-I", include)))
+                loaded.kmer_table.restype = ct.py_object
+                loaded.kmer_table.argtypes = [
+                    ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int, ct.c_int,
+                ]
+                _KMERTAB_LIB = loaded
+    return _KMERTAB_LIB
+
+
+def kmer_table(keys: np.ndarray, values: np.ndarray, k: int) -> dict:
+    """The ``{k-mer: value}`` dict of sorted packed keys (i64, 3 bits a
+    base, ACGTN = 0..4, the first base highest) in the keys' order: str
+    keys, int values for i64 ``values``, float values for f64.  Both
+    arrays are 1-D, C-contiguous and of one length; ``1 <= k <= 21``."""
+    for name, a, kinds in (("keys", keys, (np.int64,)),
+                           ("values", values, (np.int64, np.float64))):
+        if (not isinstance(a, np.ndarray) or a.ndim != 1 or a.dtype not in kinds
+                or not a.flags.c_contiguous):
+            raise ValueError(f"kmer_table: {name} must be a 1-D C-contiguous "
+                             f"{' or '.join(np.dtype(t).name for t in kinds)} array")
+    if len(keys) != len(values):
+        raise ValueError(f"kmer_table: {len(keys)} keys beside {len(values)} values")
+    if not 1 <= k <= 21:
+        raise ValueError(f"kmer_table: k={k} outside [1, 21]")
+    return _kmertab_lib().kmer_table(
+        keys.ctypes.data, values.ctypes.data, len(keys), k,
+        int(values.dtype == np.float64))
 
 
 def _nthreads() -> int:

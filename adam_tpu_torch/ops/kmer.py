@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adam_tpu_torch import native
 from adam_tpu_torch.device import resolve_device
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch
@@ -78,7 +79,8 @@ def unpack_kmer(packed: int, k: int) -> str:
 
 
 def _unpack_kmers(keys: np.ndarray, k: int) -> list[str]:
-    """:func:`unpack_kmer` over an array of keys, vectorized."""
+    """:func:`unpack_kmer` over an array of keys, vectorized: the numpy
+    decode that :func:`adam_tpu_torch.native.kmer_table` is tested against."""
     keys = np.asarray(keys, np.int64)
     chars = np.empty((len(keys), k), np.uint8)
     for i in range(k):
@@ -121,7 +123,8 @@ def _device_columns(batch: ReadBatch, device, names) -> list[torch.Tensor]:
 
 def histogram_to_dict(bases, lengths, valid, k: int) -> dict[str, int]:
     """Run the device histogram over a padded batch's columns and decode
-    the (k-mer string -> count) table, in sorted key order."""
+    the (k-mer string -> count) table, in sorted key order, with the
+    native table builder (:func:`adam_tpu_torch.native.kmer_table`)."""
     from adam_tpu_torch.utils import telemetry as tele
     from adam_tpu_torch.utils.transfer import device_fetch
 
@@ -130,7 +133,7 @@ def histogram_to_dict(bases, lengths, valid, k: int) -> dict[str, int]:
         keys = device_fetch(s[is_head])
         counts = device_fetch(run_counts[is_head])
     with tele.TRACE.span(tele.SPAN_KMERS_DECODE):
-        return dict(zip(_unpack_kmers(keys, k), counts.tolist()))
+        return native.kmer_table(keys, counts.astype(np.int64), k)
 
 
 def count_kmers(batch: ReadBatch, k: int, device: str = "cuda") -> dict[str, int]:
@@ -160,7 +163,8 @@ def device_qmer_weights(bases, quals, lengths, valid, k: int):
 def count_qmers(batch: ReadBatch, k: int, device: str = "cuda") -> dict[str, float]:
     """q-mer weights summed per k-mer, in sorted key order.  The sum runs
     on the host in the JAX package's order: a stable argsort of the keys,
-    then ``np.add.reduceat`` over each run."""
+    then ``np.add.reduceat`` over each run; the native table builder makes
+    the dict."""
     if batch.n_rows == 0:
         return {}
     cols = _device_columns(batch, device, ("bases", "quals", "lengths", "valid"))
@@ -173,4 +177,4 @@ def count_qmers(batch: ReadBatch, k: int, device: str = "cuda") -> dict[str, flo
     uniq, start_idx = np.unique(keys, return_index=True)
     sums = np.add.reduceat(weights, start_idx)
     keep = uniq >= 0
-    return dict(zip(_unpack_kmers(uniq[keep], k), sums[keep].tolist()))
+    return native.kmer_table(uniq[keep], sums[keep], k)

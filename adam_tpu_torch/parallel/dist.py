@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adam_tpu_torch import native
 from adam_tpu_torch.formats import schema
 from adam_tpu_torch.formats.batch import ReadBatch
 from adam_tpu_torch.ops import flagstat as fs
@@ -255,7 +256,7 @@ def distributed_count_kmers(batch: ReadBatch, k: int, mesh=None,
     k0 = mesh.local_shards()[0]
     for keys_all, counts_all in zip(mesh.all_gather(uniq)[0], mesh.all_gather(cnts)[0]):
         ks, cs = _fetch(keys_all, mesh, k0), _fetch(counts_all, mesh, k0)
-        out.update(zip(kmer_ops._unpack_kmers(ks, k), cs.tolist()))
+        out.update(native.kmer_table(ks, cs, k))
     return out
 
 

@@ -101,7 +101,7 @@ def inputs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("what", ["kmers", "qmers"])
-@pytest.mark.parametrize("k", [5, 21])
+@pytest.mark.parametrize("k", [1, 5, 11, 21])
 def test_counts_equal_jax(inputs, what, k):
     from adam_tpu.io import sam as jsam
     from adam_tpu.ops import kmer as jk
@@ -112,7 +112,7 @@ def test_counts_equal_jax(inputs, what, k):
     want = getattr(jk, f"count_{what}")(jsam.read_sam(str(inputs / "in.sam"))[0], k)
     got = getattr(tk, f"count_{what}")(tsam.read_sam(str(inputs / "in.sam"))[0], k,
                                        device="cpu")
-    assert len(got) > 1000
+    assert len(got) > (1000 if k > 1 else 3)
     assert list(got.items()) == list(want.items())  # same keys, order and values
     assert all(type(v) is (int if what == "kmers" else float) for v in got.values())
 
