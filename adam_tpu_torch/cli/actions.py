@@ -47,8 +47,7 @@ JAX CLI does, or with ``knowns`` when ``-known_indels`` is given (the
 (``.vcf`` or ``.vcf.gz``) load in the input header's contig index space.
 ``-known_recalibration_table`` (``-streaming`` only, as in the JAX CLI)
 is an ``.npz`` with ``table`` (``[n_rg, 94, n_cyc, 17]``, cast to u8) and
-``gl``, applied instead of the solved table; it arms the fused B->C tier
-(``ADAM_TPU_FUSED_BC=0`` is the unfused leg).  A BAM's windows follow
+``gl``, applied instead of the solved table.  A BAM's windows follow
 its compressed bytes (32 MiB at a time), as in the JAX package.
 ``--run-dir DIR`` journals the run (``pipelines/checkpoint.RunJournal``)
 and ``--resume`` resumes a killed one from it, byte-identical to an

@@ -348,15 +348,6 @@ def make_resident_window(b, window: int, device="cuda") -> ResidentWindow:
         b, device if isinstance(device, Slot) else resolve_device(device), window=window)
 
 
-def resident_windows_enabled(default: bool = True) -> bool:
-    """The ``ADAM_TPU_RESIDENT`` toggle (``utils/retry.env_toggle``):
-    ``auto``/unset -> ``default``; ``1/on/true`` and ``0/off/false``
-    force; a typo warns and keeps the default.  Off, the streamed run
-    places no resident window: every pass re-ships its window from the
-    host copy, the route a released window already takes."""
-    return retry_mod.env_toggle("ADAM_TPU_RESIDENT", default)
-
-
 # --------------------------------------------------------------------------
 # The pool
 # --------------------------------------------------------------------------
@@ -782,34 +773,12 @@ def apply_prewarm_entry(b, n_rg: int, n_cyc: int, g: Optional[int] = None) -> tu
     return (("bqsr.apply_pack2", g, gl, n_rg, n_cyc), warm)
 
 
-def fused_bc_prewarm_entry(b, n_rg: int, n_cyc: int, g: Optional[int] = None) -> tuple:
-    """Prewarm entry of the fused B->C tier at the known table's width."""
-    g = grid_rows(b.n_rows) if g is None else g
-    gl = grid_cols(b.lmax)
-
-    def warm(slot, g=g, gl=gl):
-        from adam_tpu_torch.pipelines.bqsr import N_DINUC, N_QUAL, fused_bc_body
-
-        npk = -(-gl // 8)
-        fused_bc_body(*resident_dummy(slot, g, gl),
-                      _zeros((g, npk), torch.uint8, slot),
-                      _zeros((g, npk), torch.uint8, slot),
-                      _zeros((g,), torch.bool, slot), _zeros((g,), torch.bool, slot),
-                      _zeros((g,), torch.bool, slot),
-                      _zeros((n_rg, N_QUAL, n_cyc, N_DINUC), torch.uint8, slot),
-                      n_rg, gl, g * gl)
-
-    return (("bqsr.fused_bc", g, gl, n_rg, n_cyc), warm)
-
-
 def streamed_prewarm_entries(b, n_rg: int, *, mark_duplicates: bool = True,
-                             recalibrate: bool = True,
-                             fused_n_cyc: Optional[int] = None) -> list:
+                             recalibrate: bool = True) -> list:
     """The kernel set the streamed run dispatches at batch ``b``'s grid:
-    pass A's markdup reductions, pass B's observe, pass C's apply + pack at
-    the width window ``b`` would solve (``2*gl + 1``; pass C warms again
-    at the solved table's real width) and, with ``fused_n_cyc``, the
-    fused B->C tier at the known table's width."""
+    pass A's markdup reductions, pass B's observe and pass C's apply + pack
+    at the width window ``b`` would solve (``2*gl + 1``; pass C warms again
+    at the solved table's real width)."""
     gl = grid_cols(b.lmax)
     entries = []
     if mark_duplicates:
@@ -817,8 +786,6 @@ def streamed_prewarm_entries(b, n_rg: int, *, mark_duplicates: bool = True,
     if recalibrate:
         entries.append(observe_prewarm_entry(b, n_rg))
         entries.append(apply_prewarm_entry(b, n_rg, 2 * gl + 1))
-        if fused_n_cyc is not None:
-            entries.append(fused_bc_prewarm_entry(b, n_rg, fused_n_cyc))
     return entries
 
 

@@ -21,10 +21,10 @@ round-robins whole windows over the pool's slots):
   blocks, one per slot (``parallel/mesh.LocalMesh``).  Where JAX runs a
   ``shard_map`` jit per pass (``partitioner.py:259-500``), each shard runs
   the port's own single-device body over its block on its slot: the
-  markdup reductions, the observe (covariate keys and kernel 1), the
-  apply with both packs (kernel 2, twice) and the fused B->C tier.  The
-  shards' observe histograms are summed in **i64** into a device-resident
-  accumulator on slot 0, one per grid width, so barrier 2 fetches one
+  markdup reductions, the observe (covariate keys and kernel 1) and the
+  apply with both packs (kernel 2, twice).  The shards' observe
+  histograms are summed in **i64** into a device-resident accumulator on
+  slot 0, one per grid width, so barrier 2 fetches one
   table per width instead of one per window.  A window's packed outputs
   are each shard's real bytes concatenated in shard order, which is row
   order: the single-device pack, byte for byte;
@@ -412,13 +412,3 @@ def mesh_apply_prewarm_entry(b, n_rg: int, n_cyc: int, part: MeshPartitioner) ->
     gm = _mesh_rows(b, part)
     return _mesh_entry("mesh.apply_pack2",
                        apply_prewarm_entry(b, n_rg, n_cyc, g=part.block(gm)), gm)
-
-
-def mesh_fused_bc_prewarm_entry(b, n_rg: int, n_cyc: int,
-                                part: MeshPartitioner) -> tuple:
-    """Prewarm entry of the mesh fused B->C tier at the known table's width."""
-    from adam_tpu_torch.parallel.device_pool import fused_bc_prewarm_entry
-
-    gm = _mesh_rows(b, part)
-    return _mesh_entry("mesh.fused_bc",
-                       fused_bc_prewarm_entry(b, n_rg, n_cyc, g=part.block(gm)), gm)

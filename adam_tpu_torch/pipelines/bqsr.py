@@ -15,9 +15,6 @@ dataset-level :func:`recalibrate_base_qualities`.
   quality >= Q5 only), then the SANGER encode and the row-prefix pack of
   both the recalibrated quals and the decoded bases
   (:func:`apply_pack2_body`).
-* **Fused B->C** (a table known before pass B): each window's observe
-  and apply + pack run back to back over its resident tensors
-  (:func:`fused_bc_dispatch`), and pass C only fetches.
 * **Known SNPs** are masked out of the observe's residue filter
   (:func:`observe_residue_mask`), on the host, by one native CIGAR walk
   per read over its contig's sorted sites.
@@ -474,7 +471,7 @@ def stash_orig_quals(ds: AlignmentDataset, b) -> AlignmentDataset:
 
 
 # --------------------------------------------------------------------------
-# Windows: observe, apply, and the fused B->C tier
+# Windows: observe and apply
 # --------------------------------------------------------------------------
 def _observe_masks(ds: AlignmentDataset, b, known_snps) -> tuple:
     """The MD walk and the read and residue filters (known SNPs masked) of
@@ -617,12 +614,6 @@ def observe_window(ds: AlignmentDataset, rw, known_snps=None, mesh=None) -> tupl
     return total, mism, rw.gl
 
 
-def _apply_sizes(mesh, rw) -> int:
-    """The packed buffer of one launch: the whole window's grid, or one
-    shard's block under the mesh."""
-    return (mesh.block(rw.g) if mesh is not None else rw.g) * rw.gl
-
-
 def apply_dispatch(ds: AlignmentDataset, rw, table_dev, mesh=None) -> ApplyHandle:
     """Pass C dispatch for one resident window -> handle for
     :func:`apply_finish` (the packed columns are still being computed on
@@ -633,7 +624,8 @@ def apply_dispatch(ds: AlignmentDataset, rw, table_dev, mesh=None) -> ApplyHandl
         b = ds.batch.to_numpy()
         host = _apply_host_masks(b, rw.g)
         put = _placer(rw, mesh)
-        size = _apply_sizes(mesh, rw)
+        # one launch packs the whole window's grid, or one shard's block
+        size = (mesh.block(rw.g) if mesh is not None else rw.g) * rw.gl
         n_rg, _, n_cyc, _ = (table_dev[0] if mesh is not None else table_dev).shape
 
         def run():
@@ -711,76 +703,6 @@ def packed_equal(a, b) -> bool:
     audit's verdict)."""
     return all(np.array_equal(x.buf, y.buf) and np.array_equal(x.lens, y.lens)
                for x, y in ((a.quals, b.quals), (a.bases, b.bases)))
-
-
-def fused_bc_enabled(default: bool = True) -> bool:
-    """The ``ADAM_TPU_FUSED_BC`` toggle of the fused B->C tier, parsed as
-    the JAX package parses it: ``auto``/unset -> ``default``,
-    ``1/on/true`` and ``0/off/false`` force.  The off position is the
-    unfused A/B leg."""
-    from adam_tpu_torch.utils.retry import env_toggle
-
-    return env_toggle("ADAM_TPU_FUSED_BC", default)
-
-
-def fused_bc_body(bases, quals, lengths, flags, read_group_idx,
-                  res_bits, mm_bits, read_ok, has_qual, valid,
-                  phred_table, n_rg: int, lmax: int, size: int):
-    """Fused pass B->C over one window's resident tensors, for a table
-    known before pass B: :func:`observe_packed_body` (kernel 1, on the
-    original quals, as in the unfused order) then
-    :func:`apply_pack2_body` (kernel 2, SANGER and base decode) ->
-    ``(total, mism, packed_quals, packed_bases)``, bitwise the separate
-    passes' outputs."""
-    total, mism = observe_packed_body(
-        bases, quals, lengths, flags, read_group_idx,
-        res_bits, mm_bits, read_ok, n_rg, lmax,
-    )
-    pq, pb = apply_pack2_body(
-        bases, quals, lengths, flags, read_group_idx, has_qual, valid,
-        phred_table, lmax, size,
-    )
-    return total, mism, pq, pb
-
-
-def fused_bc_dispatch(ds: AlignmentDataset, table_dev, rw, known_snps=None,
-                      mesh=None):
-    """One fused B->C dispatch for a resident window whose recalibration
-    table is already known -> ``(handle, (total, mism, gl))`` — the
-    handle is :func:`apply_dispatch`'s, finished by :func:`apply_finish`
-    without a second dispatch — or None when the window is not eligible:
-    the table must have the window's read-group bins and a cycle axis at
-    least as wide as the window's grid (``n_cyc >= 2*gl + 1``).  An
-    ineligible window takes the separate passes, as in the JAX package.
-    Under ``mesh`` the histograms are per-shard lists (for
-    ``MeshPartitioner.accumulate``) and ``table_dev`` one copy per shard."""
-    n_rg = len(ds.read_groups) + 1
-    tshape = (table_dev[0] if mesh is not None else table_dev).shape
-    if tshape[0] != n_rg or tshape[2] < 2 * rw.gl + 1:
-        return None
-    with _tele.TRACE.span(_tele.SPAN_FUSED_BC, backend="device",
-                          reads=int(ds.batch.n_rows), **_site_attrs(rw, mesh)):
-        b = ds.batch.to_numpy()
-        host = (_observe_host_masks(ds, b, rw.g, rw.gl, known_snps)
-                + _apply_host_masks(b, rw.g))
-        put = _placer(rw, mesh)
-        size = _apply_sizes(mesh, rw)
-
-        def run():
-            placed = [put(a) for a in host]
-            if mesh is None:
-                return fused_bc_body(*rw.args(), *placed, table_dev, n_rg, rw.gl, size)
-            outs = mesh.shard_map(
-                lambda k, *a: fused_bc_body(*a, n_rg, rw.gl, size),
-                *rw.args(), *placed, table_dev)
-            return tuple([o[i] for o in outs] for i in range(4))
-
-        name = "mesh.fused_bc" if mesh is not None else "bqsr.fused_bc"
-        total, mism, pq, pb = _dispatch((name, rw.g, rw.gl, n_rg, tshape[2]),
-                                        rw, mesh, run)
-    handle = ApplyHandle(ds, b, pq, pb, slot=None if mesh is not None else rw.slot,
-                         mesh=mesh, block=mesh.block(rw.g) if mesh is not None else 0)
-    return handle, (total, mism, rw.gl)
 
 
 # --------------------------------------------------------------------------

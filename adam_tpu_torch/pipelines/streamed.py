@@ -19,8 +19,6 @@ thread runs three passes with two global barriers:
              SNPs masked out) and mismatch masks, shipped to the device;
              covariate keys and the observe histogram (CUDA kernel
              ``observe_hist``) run there and stay there until the barrier.
-             With a known recalibration table (the fused B->C tier) the
-             window's apply + pack follows from the same dispatch.
   tail       realign the concatenated candidates (the sweeps, and under
              ``consensus_model="smithwaterman"`` the Smith-Waterman fill
              ``sw_fill``, on the device), with pass B running between the
@@ -33,12 +31,11 @@ thread runs three passes with two global barriers:
              table was given.
   pass C     per window: table gather, SANGER encode, base decode and
              two row-prefix packs (CUDA kernel ``pack_rows``) on the
-             device, double-buffered (a fused window only fetches); the
-             packed columns come home (``sum(lengths)`` bytes each), OQ
-             is stashed on the host and a writer pool encodes and
-             publishes the Parquet part.  The realigned part goes
-             first, as part ``n_windows``; a window whose rows were all
-             realigned away writes no part.
+             device, double-buffered; the packed columns come home
+             (``sum(lengths)`` bytes each), OQ is stashed on the host and
+             a writer pool encodes and publishes the Parquet part.  The
+             realigned part goes first, as part ``n_windows``; a window
+             whose rows were all realigned away writes no part.
 
 With ``run_dir`` the run is journaled (``pipelines/checkpoint.RunJournal``,
 the JAX package's files): the writer pool records each part after its
@@ -265,11 +262,8 @@ def transform_streamed(
     n_cyc, 17], gl)``, cast to u8 and applied in place of the barrier-2
     solve with its cycle axis centred on ``(n_cyc - 1) // 2``, as JAX's
     gather centres it (the histograms are still merged, and dumped under
-    ``dump_observations``).
-    With a known table the fused B->C tier is armed (``ADAM_TPU_FUSED_BC``,
-    on unless set to 0): each eligible window's observe and apply + pack
-    run back to back from one dispatch in pass B, and pass C only fetches
-    them.  Output bytes are the same fused or not.
+    ``dump_observations``).  Each pass has one route: pass B observes and
+    pass C applies every window, with or without a known table.
 
     ``run_dir`` turns on the run journal (``pipelines/checkpoint.RunJournal``,
     the JAX package's files): each part is recorded complete after its
@@ -279,8 +273,8 @@ def transform_streamed(
     observe, the merge and the solve; the output is byte-identical to an
     uninterrupted run, on either device.  A journal whose fingerprint
     (:func:`run_fingerprint`) differs is refused with a clean restart.
-    A ``dump_observations`` resume observes again (the CSV needs the
-    merged histograms) and arms the fused tier with the journaled table.
+    A ``dump_observations`` resume observes again, merges and solves (the
+    CSV needs the merged histograms), which gives the journaled table.
 
     Telemetry, as in the JAX package: the run records its stage spans,
     counters and gauges into a private, always-on tracer with a minted
@@ -323,8 +317,7 @@ def transform_streamed(
     this run's markdup, observe and apply dispatches to the cross-job
     coalescer, which fuses concurrent jobs' windows into one dispatch per
     pass on the card; a window whose fused dispatch fails re-dispatches on
-    this run's own path.  A coalesced run keeps pass B and pass C apart
-    (no fused B->C tier).  ``trace`` is the job's trace id (minted when
+    this run's own path.  ``trace`` is the job's trace id (minted when
     None).  With ``run_dir`` the incident recorder arms on it unless one
     is armed already (``utils/incidents.py``), and every completed run
     books its perf keys into the armed perf ledger's root, else its
@@ -378,18 +371,6 @@ def transform_streamed(
         tele.deactivate_trace(trace)
         if armed_incidents:
             incidents.uninstall()
-
-
-def _resolve_sort_mode() -> str:
-    """Where barrier 1's duplicate-resolve lexsort runs:
-    ``ADAM_TPU_RESOLVE_SORT={device,host}`` (default ``device``; a typo
-    warns and keeps the default)."""
-    mode = os.environ.get("ADAM_TPU_RESOLVE_SORT", "").strip().lower()
-    if mode and mode not in ("device", "host"):
-        log.warning("ADAM_TPU_RESOLVE_SORT=%r is not one of ('device', 'host'); "
-                    "using the device default", mode)
-        mode = ""
-    return mode or "device"
 
 
 def _inflight_per_device(queues: list, solo_key: str) -> dict:
@@ -523,40 +504,6 @@ def _transform_streamed_impl(
     known_np = None
     if recalibrate and known_table is not None:
         known_np = np.ascontiguousarray(known_table[0], np.uint8)
-    # the fused B->C tier: with the applied table known before pass B (a
-    # known table, or the journaled table of a -dump_observations resume,
-    # which observes again only for the CSV), each eligible window's
-    # observe and apply + pack run back to back
-    fused_np = None
-    if recalibrate and coalescer is None and bqsr.fused_bc_enabled():
-        if known_np is not None:
-            fused_np = known_np
-        elif journal is not None and journal.resumed and dump_observations:
-            lt = journal.load_table()
-            if lt is not None:
-                fused_np = np.ascontiguousarray(lt[0], np.uint8)
-    fused_tables: dict = {}  # slot key or "mesh" -> the fused table placed there
-
-    def placed(table_np, where, cache):
-        """``table_np`` on a slot (or one copy per shard of the mesh),
-        placed once per run and cached under its key in ``cache``."""
-        key = "mesh" if where == "mesh" else where.key
-        t = cache.get(key)
-        if t is None:
-            with tele.pass_scope("table"):
-                t = (exec_state["mesh"].put_replicated(table_np) if where == "mesh"
-                     else dp.putter(where)(table_np))
-            cache[key] = t
-        return t
-
-    def fused_table_on(where):
-        return placed(fused_np, where, fused_tables)
-
-    # window idx -> (slot | "mesh", apply handle) of a fused dispatch
-    fused_handles: dict = {}
-    stats["fused_bc"] = fused_np is not None
-    tr.gauge(tele.G_FUSED_BC, 1 if fused_np is not None else 0)
-
     # ---- resident windows: registry and lifecycle ----------------------
     resident_map: dict = {}
     resident_live = {"bytes": 0, "made": 0}
@@ -566,12 +513,9 @@ def _transform_streamed_impl(
         left)."""
         return dpool.device(win) if dpool is not None else solo
 
-    resident_enabled = dp.resident_windows_enabled()
-
     def make_resident(win, ds):
         """Place window ``win``'s payload (on its slot, or as the mesh's row
-        blocks) and register it -> the placement.  With ``ADAM_TPU_RESIDENT``
-        off it is not registered: the caller uses it for one pass."""
+        blocks) and register it -> the placement."""
         b = ds.batch.to_numpy()
         mp = exec_state["mesh"]
         with tele.pass_scope("ingest"):
@@ -579,8 +523,6 @@ def _transform_streamed_impl(
                 rw = part_mod.mesh_resident_window(b, win, mp)
             else:
                 rw = ResidentWindow.place(b, pick_slot(win), window=win)
-        if not resident_enabled:
-            return rw
         resident_map[win] = rw
         resident_live["bytes"] += rw.nbytes
         resident_live["made"] += 1
@@ -679,9 +621,6 @@ def _transform_streamed_impl(
         for win, rw in list(resident_map.items()):
             if rw.slot == "mesh":
                 release_resident(win, drop=True)
-        for i in [i for i, (tag, _h) in fused_handles.items() if tag is mp]:
-            del fused_handles[i]
-        fused_tables.pop("mesh", None)
         tr.count(tele.C_MESH_DEGRADED)
         log.error("mesh partitioner failed%s (%s); degrading to the pool path%s",
                   f" at {where}" if where else "", exc,
@@ -715,7 +654,6 @@ def _transform_streamed_impl(
             return
         seen_shapes.add(key)
         n_rg = len(ds.read_groups) + 1
-        fused_cyc = fused_np.shape[2] if fused_np is not None else None
         t_pw = time.monotonic_ns()
         try:
             if mp is not None:
@@ -724,14 +662,11 @@ def _transform_streamed_impl(
                     entries.append(part_mod.mesh_markdup_prewarm_entry(b, mp))
                 if recalibrate:
                     entries.append(part_mod.mesh_observe_prewarm_entry(b, n_rg, mp))
-                    if fused_cyc is not None:
-                        entries.append(part_mod.mesh_fused_bc_prewarm_entry(
-                            b, n_rg, fused_cyc, mp))
                 mp.prewarm(entries, tracer=tr)
             else:
                 dpool.prewarm(dp.streamed_prewarm_entries(
                     b, n_rg, mark_duplicates=mark_duplicates,
-                    recalibrate=recalibrate, fused_n_cyc=fused_cyc), tracer=tr)
+                    recalibrate=recalibrate), tracer=tr)
         finally:
             tr.add_span(tele.SPAN_POOL_PREWARM, t_pw, time.monotonic_ns() - t_pw)
 
@@ -742,20 +677,12 @@ def _transform_streamed_impl(
             return
         b = ds.batch.to_numpy()
         n_rg = len(ds.read_groups) + 1
-        fused_cyc = fused_np.shape[2] if fused_np is not None else None
         t_pw = time.monotonic_ns()
         try:
             if mp is not None:
-                entries = [part_mod.mesh_observe_prewarm_entry(b, n_rg, mp)]
-                if fused_cyc is not None:
-                    entries.append(part_mod.mesh_fused_bc_prewarm_entry(
-                        b, n_rg, fused_cyc, mp))
-                mp.prewarm(entries, tracer=tr)
+                mp.prewarm([part_mod.mesh_observe_prewarm_entry(b, n_rg, mp)], tracer=tr)
             else:
-                entries = [dp.observe_prewarm_entry(b, n_rg)]
-                if fused_cyc is not None:
-                    entries.append(dp.fused_bc_prewarm_entry(b, n_rg, fused_cyc))
-                dpool.prewarm(entries, tracer=tr)
+                dpool.prewarm([dp.observe_prewarm_entry(b, n_rg)], tracer=tr)
         finally:
             tr.add_span(tele.SPAN_POOL_PREWARM, t_pw, time.monotonic_ns() - t_pw)
 
@@ -875,8 +802,7 @@ def _transform_streamed_impl(
                 if pacer is not None:
                     pacer("pass_a", win, win_nbytes(batch))
                 prewarm_window_shapes(windows[win])
-                if resident_enabled:
-                    make_resident(win, windows[win])
+                make_resident(win, windows[win])
                 if mark_duplicates:
                     # window i's reductions run on its slot while earlier
                     # windows' columns are fetched and summarized
@@ -914,12 +840,10 @@ def _transform_streamed_impl(
     with tr.span(tele.SPAN_RESOLVE), tele.pass_scope("resolve"):
         if mark_duplicates and summaries:
             # the lexsort of the packed summary keys runs on the device: the
-            # mesh's first slot, the pool's first placeable one, or the one;
-            # ADAM_TPU_RESOLVE_SORT=host sorts on the host instead
+            # mesh's first slot, the pool's first placeable one, or the one
             mp = exec_state["mesh"]
-            sort_slot = None if _resolve_sort_mode() == "host" else (
-                mp.devices[0] if mp is not None
-                else dpool.alive_devices()[0] if dpool is not None else solo)
+            sort_slot = (mp.devices[0] if mp is not None
+                         else dpool.alive_devices()[0] if dpool is not None else solo)
             sort_info: dict = {}
             dup = md.resolve_duplicates(md.concat_summaries(summaries),
                                         sort_device=sort_slot, sort_info=sort_info)
@@ -983,17 +907,14 @@ def _transform_streamed_impl(
         """Observe window ``i`` -> ((total, mism, g), replay hook, slot), or
         None when its histograms went into the mesh's accumulator, or
         ``_DEFERRED`` when it rode the coalescer and its future waits on
-        ``defer``.  A journaled sidecar loads instead; with the fused tier
-        armed (and the window's part still to write) the window's apply +
-        pack follows from the same dispatch.  ``coalesce=False`` is the
-        fallback of a failed fused dispatch."""
+        ``defer``.  A journaled sidecar loads instead.  ``coalesce=False``
+        is the fallback of a failed fused dispatch."""
         if journal is not None and journal.resumed:
             got = journal.load_observation(i)
             if got is not None:
                 stats["resume.histograms_loaded"] += 1
                 tr.count(tele.C_RESUME_HISTOGRAMS_LOADED)
                 return got, None, None
-        fused_ok = fused_np is not None and i not in done_parts
         mp = exec_state["mesh"]
         if mp is not None:
             rw = resident_map.get(i)
@@ -1001,25 +922,13 @@ def _transform_streamed_impl(
                 rw = make_resident(i, w)
             try:
                 with tele.pass_scope("observe"):
-                    got = None
-                    if fused_ok:
-                        faults.point("proc.kill", device="fused_bc")
-                        got = bqsr.fused_bc_dispatch(w, fused_table_on("mesh"), rw,
-                                                     known_snps, mesh=mp)
-                    if got is not None:
-                        handle, (t, m, g) = got
-                    else:
-                        t, m, g = bqsr.observe_window(w, rw, known_snps, mesh=mp)
-                    mp.accumulate(t, m, g)
+                    mp.accumulate(*bqsr.observe_window(w, rw, known_snps, mesh=mp))
             except Exception as e:
                 mesh_degrade(e, "pass-B observe")
             else:
                 mesh_obs.append((i, w))
                 tr.count(tele.C_DEVICE_DISPATCHED)
                 tr.count(tele.C_MESH_DISPATCHED)
-                if got is not None:
-                    tr.count(tele.C_FUSED_DISPATCHED)
-                    fused_handles[i] = (mp, handle)
                 return None
 
         if coalesce and coalescer is not None and exec_state["mesh"] is None:
@@ -1042,17 +951,9 @@ def _transform_streamed_impl(
                                 "job's own dispatch (%s)", i, e)
 
         def on_slot(slot):
-            rw = resident_on(i, w, slot)
-            got = None
-            if fused_ok:
-                faults.point("proc.kill", device="fused_bc")
-                got = bqsr.fused_bc_dispatch(w, fused_table_on(slot), rw, known_snps)
+            got = bqsr.observe_window(w, resident_on(i, w, slot), known_snps)
             tr.count(tele.C_DEVICE_DISPATCHED)
-            if got is not None:
-                tr.count(tele.C_FUSED_DISPATCHED)
-                fused_handles[i] = (slot, got[0])
-                return got[1], obs_replay(i, w, slot), slot
-            return bqsr.observe_window(w, rw, known_snps), obs_replay(i, w, slot), slot
+            return got, obs_replay(i, w, slot), slot
 
         with tele.pass_scope("observe"):
             return on_survivors(i, on_slot)
@@ -1125,8 +1026,7 @@ def _transform_streamed_impl(
         del cand
         if recalibrate and realigned.batch.n_rows and resume_table is None:
             prewarm_observe_shape(realigned)
-            if resident_enabled:
-                make_resident(n_win, realigned)
+            make_resident(n_win, realigned)
             got = observe_window(n_win, realigned)
             if got is not None:
                 add_part(n_win, got)
@@ -1142,7 +1042,6 @@ def _transform_streamed_impl(
     tr.add_span(tele.SPAN_TAIL, t_tail_ns, time.monotonic_ns() - t_tail_ns)
     tr.gauge(tele.G_OBSERVE_HIDDEN, 1 if hidden else 0)
     stats["observe_overlap_hidden"] = hidden
-    stats["n_fused_windows"] = len(fused_handles)
 
     # ---- barrier 2: merge histograms, solve the table ------------------
     # (a known table is applied as it is, with its own gl: the merge still
@@ -1228,7 +1127,6 @@ def _transform_streamed_impl(
         if i not in keep:
             windows[i] = None
             release_resident(i)
-            fused_handles.pop(i, None)
     stats["windows_fresh"] = len(parts)
     if hb is not None:
         # the ETA extrapolates the parts written against this count
@@ -1263,7 +1161,12 @@ def _transform_streamed_impl(
     dev_tables: dict = {}  # slot key -> the table placed on that slot
 
     def table_on(slot):
-        return placed(table, slot, dev_tables)
+        """The table on ``slot``, placed once per run."""
+        t = dev_tables.get(slot.key)
+        if t is None:
+            with tele.pass_scope("table"):
+                t = dev_tables[slot.key] = dp.putter(slot)(table)
+        return t
 
     def apply_on(i, w, slot):
         """Dispatch + fetch window ``i``'s apply on ``slot`` synchronously
@@ -1441,24 +1344,20 @@ def _transform_streamed_impl(
         while k < len(plist) or pend:
             if k < len(plist) and len(pend) < 2:
                 i = plist[k]
-                fh = fused_handles.pop(i, None)
-                if fh is not None:
-                    pend.append((i, mp, fh[1]))
-                else:
-                    rw = resident_map.get(i)
-                    try:
-                        if rw is None or not rw.alive or rw.slot != "mesh":
-                            rw = make_resident(i, windows[i])
-                        with tr.span(tele.SPAN_APPLY_DISPATCH, window=i, device="mesh"):
-                            h = bqsr.apply_dispatch(windows[i], rw, tbl, mesh=mp)
-                    except Exception as e:
-                        mesh_degrade(e, "pass-C apply dispatch")
-                        rest = [j for j, _w, _h in pend] + list(plist[k:])
-                        pend.clear()
-                        return rest
-                    tr.count(tele.C_DEVICE_DISPATCHED)
-                    tr.count(tele.C_MESH_DISPATCHED)
-                    pend.append((i, mp, h))
+                rw = resident_map.get(i)
+                try:
+                    if rw is None or not rw.alive or rw.slot != "mesh":
+                        rw = make_resident(i, windows[i])
+                    with tr.span(tele.SPAN_APPLY_DISPATCH, window=i, device="mesh"):
+                        h = bqsr.apply_dispatch(windows[i], rw, tbl, mesh=mp)
+                except Exception as e:
+                    mesh_degrade(e, "pass-C apply dispatch")
+                    rest = [j for j, _w, _h in pend] + list(plist[k:])
+                    pend.clear()
+                    return rest
+                tr.count(tele.C_DEVICE_DISPATCHED)
+                tr.count(tele.C_MESH_DISPATCHED)
+                pend.append((i, mp, h))
                 tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
                 k += 1
                 continue
@@ -1498,20 +1397,16 @@ def _transform_streamed_impl(
                     if len(pend) >= apply_depth:
                         fetch_one()
                     continue
-            # a fused window's columns are already computed: fetch only
-            fh = fused_handles.pop(i, None)
-            if fh is not None and isinstance(fh[0], dp.Slot):
-                pend.append((i, fh[0], fh[1]))
-            else:
-                def dispatch(slot, i=i):
-                    with tr.span(tele.SPAN_APPLY_DISPATCH, window=i,
-                                 **dp.span_attrs(slot)):
-                        h = bqsr.apply_dispatch(windows[i], resident_on(i, windows[i], slot),
-                                                table_on(slot))
-                    tr.count(tele.C_DEVICE_DISPATCHED)
-                    return slot, h
 
-                pend.append((i,) + on_survivors(i, dispatch))
+            def dispatch(slot, i=i):
+                with tr.span(tele.SPAN_APPLY_DISPATCH, window=i,
+                             **dp.span_attrs(slot)):
+                    h = bqsr.apply_dispatch(windows[i], resident_on(i, windows[i], slot),
+                                            table_on(slot))
+                tr.count(tele.C_DEVICE_DISPATCHED)
+                return slot, h
+
+            pend.append((i,) + on_survivors(i, dispatch))
             tr.gauge(tele.G_DEVICE_INFLIGHT, len(pend))
             if len(pend) >= apply_depth:
                 fetch_one()

@@ -11,7 +11,7 @@ import fnmatch
 #: (``observe_kernel``, ``recalibrate_kernel``, the realign sweep's
 #: ``sweep_kernel_gather``...) and the bodies that launch the hand kernels
 #: or the plain PyTorch ops on their tensors' device
-#: (``observe_packed_body``, ``apply_pack2_body``, ``fused_bc_body``...).
+#: (``observe_packed_body``, ``apply_pack2_body``...).
 #: The counterpart of the JAX package's jit-compiled callables.
 DISPATCH_PATTERNS = ("*_kernel", "*_kernel_gather", "*_body")
 

@@ -33,10 +33,10 @@ same messages, and arms every site (:data:`ARMED_POINTS`):
 
 * ``proc.kill`` with the phase in the ``device`` slot: ``ingest`` (per
   tokenized window, on the ingest thread), ``pass_a`` (per pass-A
-  window), ``pass_b`` (per observed window), ``fused_bc`` (per fused B->C
-  dispatch), ``barrier2`` (at the merge's entry and after the table is
-  journaled), ``pass_c`` (per fresh part submit), ``write`` (after each
-  part's durable publish) and ``batch`` (per fused cross-job dispatch);
+  window), ``pass_b`` (per observed window), ``barrier2`` (at the
+  merge's entry and after the table is journaled), ``pass_c`` (per fresh
+  part submit), ``write`` (after each part's durable publish) and
+  ``batch`` (per fused cross-job dispatch);
 * ``parquet.encode`` (the writer pool's encoder) and ``parquet.write``
   (before a part's staging write);
 * ``device.dispatch`` (before each window's device work, attributed to

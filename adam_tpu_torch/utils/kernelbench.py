@@ -19,8 +19,9 @@ the port's names for JAX's: ``cuda`` (the hand kernels, JAX's
 A ``cuda`` row calls the pass bodies, which launch kernels 1
 (``csrc/observe_hist.cu``) and 2 (``csrc/pack_rows.cu``) through
 ``ops/kernels.launch``: per call ``observe`` launches kernel 1 once,
-``pack`` kernel 2 once, ``apply`` kernel 2 twice and ``fused_bc`` kernel
-1 once and kernel 2 twice.  A ``plain`` row calls the twins directly
+``pack`` kernel 2 once and ``apply`` kernel 2 twice.  JAX's ``fused_bc``
+row has no counterpart: the port runs pass B and pass C apart, so its
+cost is the ``observe`` row's plus the ``apply`` row's.  A ``plain`` row calls the twins directly
 (``ops/observe.observe_hist_plain``, ``ops/colpack.pack_rows_plain``) and
 launches nothing.  ``mode`` is the backend (``cuda`` or ``plain``): no
 row runs in an interpret mode, so the port's ``utils/perfledger`` reads
@@ -54,7 +55,7 @@ SCHEMA = "adam_tpu.kernelbench/1"
 #: windows' grids.
 DEFAULT_GRIDS = ((256, 128),)
 
-KERNELS = ("observe", "pack", "apply", "fused_bc")
+KERNELS = ("observe", "pack", "apply")
 BACKENDS = ("cuda", "plain")
 
 
@@ -154,15 +155,6 @@ def _build(kernel: str, backend: str, g: int, gl: int, n_rg: int, dev,
         body = bqsr.apply_pack2_body if cuda else _apply_plain
         args = row5 + (a["has_qual"], a["valid"], a["table"])
         return lambda: body(*args, gl, size)
-    if kernel == "fused_bc":
-        if cuda:
-            args = row5 + (a["res_bits"], a["mm_bits"], a["read_ok"],
-                           a["has_qual"], a["valid"], a["table"])
-            return lambda: bqsr.fused_bc_body(*args, n_rg, gl, size)
-        obs = row5 + (a["res_bits"], a["mm_bits"], a["read_ok"])
-        app = row5 + (a["has_qual"], a["valid"], a["table"])
-        return lambda: (_observe_plain(*obs, n_rg, gl)
-                        + _apply_plain(*app, gl, size))
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

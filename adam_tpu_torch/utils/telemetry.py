@@ -116,10 +116,11 @@ SPAN_BQSR_APPLY_DISPATCH = _span("bqsr.apply.dispatch")
 SPAN_BQSR_APPLY_FETCH = _span("bqsr.apply.fetch")
 SPAN_BQSR_APPLY_HOST = _span("bqsr.apply.host")
 SPAN_MD_COLUMNS = _span("markdup.columns.dispatch")
-# the megakernel tier: one fused B→C dispatch per window when
-# the recalibration table is known up front; the gauges record the
-# tier decision (streamed.fused_bc 1/0) and the resolved kernel
-# backend (kernel.backend 0=xla 1=pallas) once per run
+# the megakernel tier: one fused B→C dispatch per window when the
+# recalibration table is known up front (streamed.fused_bc 1/0).  JAX's
+# names: the port runs pass B and pass C apart, so it records none of
+# the three.  kernel.backend is the resolved kernel backend (0=xla
+# 1=pallas in JAX, 0=plain 1=cuda in the port), once per run
 SPAN_FUSED_BC = _span("bqsr.fused_bc")
 G_FUSED_BC = _metric("streamed.fused_bc")
 G_KERNEL_BACKEND = _metric("kernel.backend")

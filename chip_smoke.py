@@ -40,11 +40,9 @@ Phases, each of which fails the script on any error:
    beside the same run without the SNP VCF; both dump their
    observations, and the SNP mask must leave fewer observed residues;
    the table the port solves there is saved as an ``.npz``;
-4d. that table through ``-known_recalibration_table`` (with both VCFs),
-   once with ``ADAM_TPU_FUSED_BC=1`` and once with ``=0``: the parts of
-   the two legs and of 4c byte-identical, every observed part fused in
-   the fused leg and none in the other, kernels 1 and 2 launched once
-   per part (kernel 2 once per encode);
+4d. that table through ``-known_recalibration_table`` (with both VCFs):
+   the parts 4c's, byte for byte, kernels 1 and 2 launched once per part
+   (kernel 2 once per encode);
 4e. BAM ingest: the main path's SAM written as a BAM by the port's
    ``write_bam`` (timed), its byte windows listed (``iter_bam_batches``),
    then ``transform in.bam -streaming -mark_duplicate_reads
@@ -180,8 +178,7 @@ Phases, each of which fails the script on any error:
    kernels x cuda/plain x 2 grids), none an error row, the run's launches
    of kernels 1 and 2 those of its cuda rows, then each row's thunk once
    more with the counts read around it (per call: observe 1 x kernel 1,
-   pack 1 x kernel 2, apply 2 x kernel 2, fused_bc 1 x kernel 1 + 2 x
-   kernel 2; plain rows none) and the cuda thunks' outputs bit-equal to
+   pack 1 x kernel 2, apply 2 x kernel 2; plain rows none) and the cuda thunks' outputs bit-equal to
    the plain thunks'; the document is printed with each row's launches;
    (b) phase 4's command with ``--progress HB`` in a child process and
    ``python -m adam_tpu_torch top HB -interval 0.2 -max_wait 600``
@@ -190,13 +187,9 @@ Phases, each of which fails the script on any error:
    phase 4's; (c) ``top -once`` over 4p's batched leg's run root: exit 0,
    one DONE row per job; (d) ``python -m adam_tpu_torch check --json``:
    exit 0, ``ok`` true;
-4r. JAX's call signatures and the operator knobs: (i) the main path on
-   65,536 reads (phase 5's seed) in windows of 16,384 through the CLI
-   with its defaults, with ``ADAM_TPU_RESIDENT=0`` (no resident window:
-   every pass re-ships kernels 1 and 2's inputs) and with
-   ``ADAM_TPU_RESOLVE_SORT=host``, twice each in turns (A B C C B A),
-   every leg's parts the defaults leg's,
-   the resolve-sort gauge 1 and 0, reads/s and launches printed; (ii)
+4r. JAX's call signatures: (i) the main path on 65,536 reads (phase 5's
+   seed) in windows of 16,384 through the CLI, resident windows placed
+   and the resolve-sort gauge 1, reads/s and launches printed; (ii)
    ``apply_recalibration(ds, phred_table, gl)`` with a table solved on
    the card, card against CPU; (iii) ``flagstat_device(b)`` of two
    halves summed against the whole and the CPU; (iv) ``device_fetch`` of
@@ -204,7 +197,7 @@ Phases, each of which fails the script on any error:
 5. card vs CPU: a 65,536-read input through markdup + realign + BQSR on
    the card and on the CPU (plain versions), under both consensus
    models, on the known-sites path (known SNPs + known indels + the
-   4d table, fused) and as a BAM; the parts must be byte-identical; then
+   4d table) and as a BAM; the parts must be byte-identical; then
    ``count_kmers`` at k = 21 and ``count_kmers -countQmers`` at k = 21 on
    the BAM run's parts, whose output files must be byte-identical; the
    journaled run in windows of 8,192 reads killed on the card (pass C) and
@@ -1013,10 +1006,9 @@ def check_known_sites(work: str, sam: str, snps_vcf: str, indels_vcf: str,
     -known_indels``, both dumping observations (the SNP mask must leave
     fewer observed residues), the table the second run solves saved as
     ``known_table.npz``.  4d: that table through
-    ``-known_recalibration_table`` with both VCFs, fused and unfused; both
-    legs must write 4c's parts, the fused leg fuse every observed part and
-    the unfused leg none.  On the card each run must launch kernel 1 once
-    per part and kernel 2 once per part and encode."""
+    ``-known_recalibration_table`` with both VCFs must write 4c's parts.
+    On the card each run must launch kernel 1 once per part and kernel 2
+    once per part and encode."""
     import numpy as np
 
     from adam_tpu_torch.ops import kernels
@@ -1057,35 +1049,22 @@ def check_known_sites(work: str, sam: str, snps_vcf: str, indels_vcf: str,
     table_npz = os.path.join(work, "known_table.npz")
     np.savez(table_npz, table=table, gl=np.int64((table.shape[2] - 1) // 2))
 
-    legs = {}
-    ks_hashes = _part_hashes(out_dir)
-    for leg, flag in (("fused", "1"), ("unfused", "0")):
-        d = os.path.join(work, f"table.{leg}.adam")
-        os.environ["ADAM_TPU_FUSED_BC"] = flag
-        kernels.reset_launches()
-        try:
-            st = run_transform(sam, d, device, extra=(
-                "-known_snps", snps_vcf, "-known_indels", indels_vcf,
-                "-known_recalibration_table", table_npz))
-        finally:
-            os.environ.pop("ADAM_TPU_FUSED_BC")
-        lv, vv = launches(f"known table, {leg}", st["n_parts"])
-        want_fused = st["n_parts"] if leg == "fused" else 0
-        if st["fused_bc"] != (leg == "fused") or st["n_fused_windows"] != want_fused:
-            raise AssertionError(f"known table, {leg}: fused_bc {st['fused_bc']}, "
-                                 f"{st['n_fused_windows']} fused of {st['n_parts']} parts")
-        if _part_hashes(d) != ks_hashes:
-            raise AssertionError(f"known table, {leg}: parts differ from the known-sites run")
-        shutil.rmtree(d)
-        legs[leg] = {"stats": st, "launches": lv, "variant_launches": vv}
-        _log(f"known table ({leg}, ADAM_TPU_FUSED_BC={flag}): "
-             f"{st['reads_per_s']:.0f} reads/s, {st['n_fused_windows']} of "
-             f"{st['n_parts']} parts fused, launches {lv} {vv}; stage walls: "
-             f"{_stage_walls(st)}")
+    d = os.path.join(work, "table.adam")
+    kernels.reset_launches()
+    st = run_transform(sam, d, device, extra=(
+        "-known_snps", snps_vcf, "-known_indels", indels_vcf,
+        "-known_recalibration_table", table_npz))
+    lv, vv = launches("known table", st["n_parts"])
+    if _part_hashes(d) != _part_hashes(out_dir):
+        raise AssertionError("known table: parts differ from the known-sites run")
+    shutil.rmtree(d)
+    _log(f"known table: {st['reads_per_s']:.0f} reads/s, {st['n_parts']} parts, "
+         f"launches {lv} {vv}; stage walls: {_stage_walls(st)}")
     shutil.rmtree(out_dir)
     return {"no_snps_stats": ref_stats, "stats": ks_stats, "observed_residues": residues,
             "launches": ks_launched, "variant_launches": ks_variants,
-            "table_legs": legs, "table_npz": table_npz}
+            "table_run": {"stats": st, "launches": lv, "variant_launches": vv},
+            "table_npz": table_npz}
 
 
 def _sorted_rows(d: str):
@@ -2719,7 +2698,7 @@ def check_parity_service(sams: dict, work: str) -> dict:
 KB_GRIDS = ((256, 128), (WINDOW_READS, 128))  # the bench's default, the main path's window
 KB_ITERS = 5
 #: kernelbench kernel -> launches of (observe_hist, pack_rows) per call of a cuda row
-KB_LAUNCHES = {"observe": (1, 0), "pack": (0, 1), "apply": (0, 2), "fused_bc": (1, 2)}
+KB_LAUNCHES = {"observe": (1, 0), "pack": (0, 1), "apply": (0, 2)}
 TOP_INTERVAL_S = "0.2"
 TOP_HEARTBEAT_S = "1"  # 4q's live run samples its heartbeat every second
 TOP_HEADER = "adam-tpu top — "
@@ -2866,36 +2845,24 @@ def check_static(work: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4r. JAX's call signatures and the operator knobs on the card
+# 4r. JAX's call signatures on the card
 # ---------------------------------------------------------------------------
 KNOB_READS = 65_536   # 4r: the input of phase 5's size, from phase 5's seed
 KNOB_WINDOW = 16_384  # 4r: four windows and the realigned part
-#: 4r (i)'s legs: name -> the environment it runs under
-KNOB_LEGS = (("defaults", {}), ("resident_off", {"ADAM_TPU_RESIDENT": "0"}),
-             ("resolve_sort_host", {"ADAM_TPU_RESOLVE_SORT": "host"}))
 FETCH_ROWS = 1 << 23  # 4r (iv): an i64 column of 64 MiB, eight 8-MiB chunks
 
 
-def _knob_leg(name: str, sam: str, out_dir: str, env: dict) -> dict:
-    """One 4r (i) leg: phase 4's command on the knob input, in windows of
-    ``KNOB_WINDOW`` with ``--metrics-json``, under ``env`` -> its stats,
-    launches, resolve-sort gauge and part hashes."""
+def _knob_leg(sam: str, out_dir: str) -> dict:
+    """4r (i): phase 4's command on the knob input, in windows of
+    ``KNOB_WINDOW`` with ``--metrics-json`` -> its stats, launches,
+    resolve-sort gauge and part hashes."""
     from adam_tpu_torch.ops import kernels
 
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     m_json = out_dir + ".metrics.json"
     _reset_telemetry()
     kernels.reset_launches()
-    try:
-        stats = run_transform(sam, out_dir, "cuda", extra=(
-            "-window_reads", str(KNOB_WINDOW), "--metrics-json", m_json))
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    stats = run_transform(sam, out_dir, "cuda", extra=(
+        "-window_reads", str(KNOB_WINDOW), "--metrics-json", m_json))
     launched = kernels.launches()
     _reset_telemetry()
     with open(m_json) as fh:
@@ -2908,11 +2875,8 @@ def _knob_leg(name: str, sam: str, out_dir: str, env: dict) -> dict:
 
 
 def check_surface_knobs(work: str, dev, smi: str) -> dict:
-    """4r: (i) the main path on 65,536 reads in windows of 16,384 with its
-    defaults, with ``ADAM_TPU_RESIDENT=0`` (no resident window: every
-    pass re-ships kernels 1 and 2's inputs from the host copy) and with
-    ``ADAM_TPU_RESOLVE_SORT=host`` (barrier 1's lexsort on the host), each
-    leg's parts the defaults leg's; (ii) JAX's ``apply_recalibration(ds,
+    """4r: (i) the main path on 65,536 reads in windows of 16,384, its
+    windows placed resident and barrier 1's lexsort on the card; (ii) JAX's ``apply_recalibration(ds,
     phred_table, gl)`` call with a solved host table on the card against
     the same call on the CPU; (iii) ``flagstat_device(b)`` of the two
     halves summed against the whole, on the card, and against the CPU;
@@ -2930,39 +2894,22 @@ def check_surface_knobs(work: str, dev, smi: str) -> dict:
     out: dict = {"card": smi}
     sam = os.path.join(work, "knobs.sam")
     make_wgs(sam, KNOB_READS, 100, seed=SEED + 1)
-    # in turns (A B C C B A): a leg's position in the process moves reads/s
-    runs: dict = {}
-    for name, env in KNOB_LEGS + KNOB_LEGS[::-1]:
-        leg = _knob_leg(name, sam, os.path.join(work, f"knobs.{name}.adam"), env)
-        runs.setdefault(name, []).append(leg)
-        _log(f"4r (i) {name} ({smi}): {leg['stats']['reads_per_s']:.0f} reads/s, "
-             f"kernel 1 {leg['launches']['observe_hist']} and kernel 2 "
-             f"{leg['launches']['pack_rows']} launches, resident windows "
-             f"{leg['stats']['resident_windows']}, resolve device sort "
-             f"{leg['resolve_device_sort']}, {len(leg['hashes'])} parts")
-    base = runs["defaults"][0]
-    n_parts = base["stats"]["n_windows"] + 1
-    if len(base["hashes"]) != n_parts or base["stats"]["resident_windows"] == 0:
-        raise AssertionError(f"4r defaults leg: {base['stats']}")
-    want = {"defaults": (True, 1), "resident_off": (False, 1), "resolve_sort_host": (True, 0)}
-    for name, legs in runs.items():
-        for leg in legs:
-            if leg["hashes"] != base["hashes"]:
-                raise AssertionError(f"4r {name}: the parts differ from the defaults leg's")
-            if (leg["launches"]["observe_hist"] < n_parts
-                    or leg["launches"]["pack_rows"] != 2 * n_parts):
-                raise AssertionError(f"4r {name}: launches {leg['launches']} for {n_parts} "
-                                     "parts")
-            got = (leg["stats"]["resident_windows"] > 0, leg["resolve_device_sort"])
-            if got != want[name]:
-                raise AssertionError(f"4r {name}: (resident windows placed, resolve device "
-                                     f"sort) {got}, expected {want[name]}")
-    out["legs"] = {name: {"reads_per_s": [x["stats"]["reads_per_s"] for x in legs],
-                          "total_s": [x["stats"]["total_s"] for x in legs],
-                          "launches": legs[0]["launches"],
-                          "resident_windows": legs[0]["stats"]["resident_windows"],
-                          "resolve_device_sort": legs[0]["resolve_device_sort"]}
-                   for name, legs in runs.items()}
+    leg = _knob_leg(sam, os.path.join(work, "knobs.adam"))
+    st = leg["stats"]
+    n_parts = st["n_windows"] + 1
+    _log(f"4r (i) ({smi}): {st['reads_per_s']:.0f} reads/s, kernel 1 "
+         f"{leg['launches']['observe_hist']} and kernel 2 {leg['launches']['pack_rows']} "
+         f"launches, resident windows {st['resident_windows']}, resolve device sort "
+         f"{leg['resolve_device_sort']}, {len(leg['hashes'])} parts")
+    if (len(leg["hashes"]) != n_parts or st["resident_windows"] == 0
+            or leg["resolve_device_sort"] != 1
+            or leg["launches"]["observe_hist"] < n_parts
+            or leg["launches"]["pack_rows"] != 2 * n_parts):
+        raise AssertionError(f"4r (i): launches {leg['launches']}, resolve device sort "
+                             f"{leg['resolve_device_sort']}, stats {st}")
+    out["run"] = {"reads_per_s": st["reads_per_s"], "total_s": st["total_s"],
+                  "launches": leg["launches"], "resident_windows": st["resident_windows"],
+                  "resolve_device_sort": leg["resolve_device_sort"]}
 
     # (ii) a solved host table, applied by JAX's call on the card and on the CPU
     ds = load_alignments(sam)
@@ -3279,14 +3226,13 @@ def main() -> int:
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_kernelbench"] = kb_launches[name]
 
-        # ---- 4r. JAX's call signatures and the operator knobs --------------
+        # ---- 4r. JAX's call signatures -------------------------------------
         t0 = time.monotonic()
         knobs = check_surface_knobs(work, dev, smi)
         knobs["phase_s"] = time.monotonic() - t0
         _log(f"4r: {knobs['phase_s']:.1f} s in all ({smi})")
         for name in ("observe_hist", "pack_rows"):
-            by_name[name]["launches_knobs"] = {
-                leg: v["launches"][name] for leg, v in knobs["legs"].items()}
+            by_name[name]["launches_knobs"] = knobs["run"]["launches"][name]
 
         # ---- 4b. the smithwaterman consensus model ------------------------
         sw_sam = sam
@@ -3335,8 +3281,7 @@ def main() -> int:
         known["known_indels"] = n_indels
         for name in ("observe_hist", "pack_rows"):
             by_name[name]["launches_known_sites"] = known["launches"][name]
-            by_name[name]["launches_known_table"] = {
-                leg: v["launches"][name] for leg, v in known["table_legs"].items()}
+            by_name[name]["launches_known_table"] = known["table_run"]["launches"][name]
         by_name["pack_rows_sanger"]["launches_known_sites"] = \
             known["variant_launches"]["pack_rows:sanger"]
         table_npz = known.pop("table_npz")
@@ -3432,12 +3377,9 @@ def main() -> int:
                 elif model == "smithwaterman":
                     run_smithwaterman(sam, d, device)
                 else:
-                    st = run_transform(sam, d, device, extra=(
+                    run_transform(sam, d, device, extra=(
                         "-known_snps", p_snps, "-known_indels", p_indels,
                         "-known_recalibration_table", table_npz))
-                    if not st["fused_bc"] or st["n_fused_windows"] != st["n_parts"]:
-                        raise AssertionError(f"known-sites parity run ({device}) did not "
-                                             f"fuse every part: {st}")
                 hashes[device] = _part_hashes(d)
             if not hashes["cuda"] or hashes["cuda"] != hashes["cpu"]:
                 raise AssertionError(f"{model}: card and CPU parts differ: {hashes}")

@@ -187,9 +187,9 @@ def test_streamed_prewarm_entries_execute():
     batch, _side = pack_reads(recs)
     dp.reset_prewarm_cache()
     try:
-        entries = dp.streamed_prewarm_entries(batch.to_numpy(), 2, fused_n_cyc=65)
+        entries = dp.streamed_prewarm_entries(batch.to_numpy(), 2)
         assert [k[0] for k, _fn in entries] == [
-            "markdup.columns", "bqsr.observe_packed", "bqsr.apply_pack2", "bqsr.fused_bc"]
+            "markdup.columns", "bqsr.observe_packed", "bqsr.apply_pack2"]
         assert _cpu_pool(2).prewarm(entries) == len(entries) * 2
     finally:
         dp.reset_prewarm_cache()

@@ -6,8 +6,8 @@ streamed.py``), mirroring ``tests/test_streamed.py``'s resume tests: a
 journaled run and its resume write the journal-free run's bytes (JAX's
 bytes); deleted parts are rewritten, and only those; a changed input,
 window plan, stage flag or known table, and a torn or foreign journal, is
-refused with a clean restart; a ``-dump_observations`` resume arms the
-fused B->C tier from the journaled table; the fingerprint, the sidecars
+refused with a clean restart; a ``-dump_observations`` resume observes
+again and solves the journaled table's bytes; the fingerprint, the sidecars
 and the table are JAX's; and a run directory that JAX journaled resumes
 in the port to JAX's bytes."""
 
@@ -121,7 +121,7 @@ def test_journaled_run_and_full_resume_write_the_same_bytes(inputs, tmp_path, mo
     # a full resume observes, merges, solves and realigns nothing
     calls = []
     for mod, name in ((bqsr, "observe_window"), (bqsr, "merge_observations"),
-                      (bqsr, "fused_bc_dispatch"), (ra, "realign_indels")):
+                      (ra, "realign_indels")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k:
                             (calls.append(_n), _r(*a, **k))[1])
@@ -227,30 +227,43 @@ def test_resume_without_a_journal_starts_fresh(inputs, tmp_path):
     assert _parts(out) == _parts(d / "clean.torch")
 
 
-def test_dump_observations_resume_arms_the_fused_tier(inputs, tmp_path):
+def test_dump_observations_resume_observes_again(inputs, tmp_path, monkeypatch):
+    from adam_tpu_torch.pipelines import bqsr
+
     d, _ = inputs
     out, rd = tmp_path / "out.adam", tmp_path / "rd"
     csv1, csv2, csv_jax = tmp_path / "1.csv", tmp_path / "2.csv", tmp_path / "jax.csv"
     s1 = _port(d / "in.sam", out, run_dir=str(rd), dump_observations=str(csv1))
-    assert not s1["fused_bc"] and s1["n_fused_windows"] == 0
-    # windows whose histograms are not journaled observe again on resume:
-    # with the journaled table already known, fused with their apply
+    with np.load(str(rd / "table.npz")) as z:
+        table1 = {k: z[k] for k in z.files}
+    # windows whose histograms are not journaled observe again on resume,
+    # and the merge solves the journaled table's bytes again
     for f in ("window-00002.npz", "window-00005.npz"):
         os.unlink(rd / "obs" / f)
     for f in ("part-r-00002.parquet", "part-r-00005.parquet"):
         os.unlink(out / f)
+    calls = []
+    for name in ("observe_window", "apply_dispatch"):
+        real = getattr(bqsr, name)
+        monkeypatch.setattr(bqsr, name, lambda *a, _r=real, _n=name, **k:
+                            (calls.append(_n), _r(*a, **k))[1])
     s2 = _port(d / "in.sam", out, run_dir=str(rd), resume=True,
                dump_observations=str(csv2))
-    assert s2["fused_bc"] and s2["n_fused_windows"] == 2
+    monkeypatch.undo()
+    assert sorted(calls) == ["apply_dispatch"] * 2 + ["observe_window"] * 2
+    assert "fused_bc" not in s1 and "fused_bc" not in s2
+    with np.load(str(rd / "table.npz")) as z:
+        assert sorted(z.files) == sorted(table1)
+        for k in table1:
+            np.testing.assert_array_equal(z[k], table1[k])
     assert s2["windows_fresh"] == 2
     assert s2["resume.histograms_loaded"] == len(_parts(out)) - 2
     assert _parts(out) == _parts(d / "clean.torch")
     _jax(d / "in.sam", tmp_path / "jax.adam", dump_observations=str(csv_jax))
     assert csv2.read_text() == csv1.read_text() == csv_jax.read_text()
-    with _env(ADAM_TPU_FUSED_BC="0"):
-        s3 = _port(d / "in.sam", out, run_dir=str(rd), resume=True,
-                   dump_observations=str(csv2))
-    assert not s3["fused_bc"] and s3["windows_fresh"] == 0
+    s3 = _port(d / "in.sam", out, run_dir=str(rd), resume=True,
+               dump_observations=str(csv2))
+    assert s3["windows_fresh"] == 0
 
 
 def _known_sites(inputs, pkg):

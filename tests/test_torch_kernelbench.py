@@ -59,8 +59,10 @@ def test_document_keys_equal_jax_but_backend_and_device():
     assert doc["schema"] == jkb.SCHEMA == kb.SCHEMA == "adam_tpu.kernelbench/1"
     assert set(doc) - {"device"} == set(jdoc) - {"jax_backend"}
     assert doc["device"] == "cpu"
-    assert [set(r) for r in doc["rows"]] == [set(r) for r in jdoc["rows"]]
-    assert kb.KERNELS == jkb.KERNELS
+    # JAX's fused_bc row has no counterpart: the port runs pass B and C apart
+    assert [set(r) for r in doc["rows"]] == [
+        set(r) for r in jdoc["rows"] if r["kernel"] != "fused_bc"]
+    assert kb.KERNELS == tuple(k for k in jkb.KERNELS if k != "fused_bc")
     assert len(kb.BACKENDS) == len(jkb.BACKENDS) == 2
 
 
@@ -109,7 +111,7 @@ def test_an_error_row_keeps_the_document_and_fails_the_cli(monkeypatch, capsys):
 
     assert kb.main(["--device", "cpu", "--grids", "16x24", "--iters", "1"]) == 0
     doc = json.loads(capsys.readouterr().out)
-    assert len(doc["rows"]) == 4 and doc["device"] == "cpu"
+    assert len(doc["rows"]) == len(kb.KERNELS) == 3 and doc["device"] == "cpu"
     monkeypatch.setattr(kb, "_build", broken)
     assert kb.main(["--device", "cpu", "--grids", "16x24", "--iters", "1",
                     "--kernels", "apply,pack"]) == 1
@@ -122,8 +124,7 @@ def test_an_error_row_keeps_the_document_and_fails_the_cli(monkeypatch, capsys):
 
 
 #: kernel -> launches of (observe_hist, pack_rows) per call of its thunk
-LAUNCHES_PER_CALL = {"observe": (1, 0), "pack": (0, 1), "apply": (0, 2),
-                     "fused_bc": (1, 2)}
+LAUNCHES_PER_CALL = {"observe": (1, 0), "pack": (0, 1), "apply": (0, 2)}
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 CPU: the VCF reader, the known-SNP and known-indel tables, the known-SNP
 mask of the BQSR observe, the ``knowns`` realignment consensus model with
 a known-indel table, and the streamed transform with known SNPs, known
-indels and a known recalibration table — fused and unfused.  Exact
+indels and a known recalibration table.  Exact
 equality throughout; the JAX streamed runs use the device BQSR backend
 with resident windows, as ``tests/test_torch_streamed.py`` runs them."""
 
@@ -581,7 +581,7 @@ def test_known_sites_parts_byte_identical_to_jax(known_runs):
     assert list(got) == list(want)
     for name in want:
         assert got[name] == want[name], name
-    assert stats["n_realigned"] > 0 and stats["fused_bc"] is False
+    assert stats["n_realigned"] > 0
 
 
 def test_known_sites_observations_equal_jax(known_runs):
@@ -595,9 +595,9 @@ def _known_table(d, kind):
     """The JAX run's solved table (``rd/table.npz``) as it is, stored as
     i32, with a stored ``gl`` that disagrees with its cycle axis (the
     apply centres on the axis, as JAX's gather does), widened by 40
-    cycles each side (a cohort table), or, both ineligible for the fused
-    tier, narrowed by 30 cycles each side or with one read-group bin more
-    than the input has (the gather clamps to the table)."""
+    cycles each side (a cohort table), narrowed by 30 cycles each side,
+    or with one read-group bin more than the input has (the gather clamps
+    to the table)."""
     with np.load(str(d / "rd" / "table.npz")) as z:
         table, gl = np.asarray(z["table"], np.uint8), int(z["gl"])
     if kind == "i32":
@@ -621,22 +621,36 @@ def _known_table(d, kind):
 @pytest.fixture(scope="module", params=["own", "i32", "gl_off", "wide", "narrow",
                                         "extra_rg"])
 def table_runs(request, known_runs):
-    """Known-table runs: the port fused and unfused, JAX unfused."""
+    """Known-table runs: the port under ``ADAM_TPU_FUSED_BC=1`` and ``=0``
+    (JAX's switch of its fused B->C tier, which the port does not read),
+    each with its calls of pass B's observe and pass C's apply counted,
+    and JAX with its tier off."""
     from adam_tpu.pipelines.streamed import transform_streamed as jax_transform
 
+    from adam_tpu_torch.pipelines import bqsr
     from adam_tpu_torch.pipelines.streamed import transform_streamed
 
     d, _ = known_runs
     kind = request.param
     table = _known_table(d, kind)
     out = {}
-    for leg, flag in (("fused", "1"), ("unfused", "0")):
-        with _env(ADAM_TPU_FUSED_BC=flag):
-            out[leg] = transform_streamed(
-                str(d / "in.sam"), str(d / f"t.{kind}.{leg}"), realign=True,
-                known_table=table, window_reads=WINDOW,
-                dump_observations=str(d / f"t.{kind}.{leg}.csv"), device="cpu",
-            )
+    mp = pytest.MonkeyPatch()
+    try:
+        for leg, flag in (("on", "1"), ("off", "0")):
+            calls = {"observe_window": 0, "apply_dispatch": 0}
+            for name in calls:
+                mp.setattr(bqsr, name, lambda *a, _r=getattr(bqsr, name), _n=name, **k:
+                           (calls.__setitem__(_n, calls[_n] + 1), _r(*a, **k))[1])
+            with _env(ADAM_TPU_FUSED_BC=flag):
+                out[leg] = transform_streamed(
+                    str(d / "in.sam"), str(d / f"t.{kind}.{leg}"), realign=True,
+                    known_table=table, window_reads=WINDOW,
+                    dump_observations=str(d / f"t.{kind}.{leg}.csv"), device="cpu",
+                )
+            mp.undo()
+            out[leg]["calls"] = calls
+    finally:
+        mp.undo()
     with _jax_env(ADAM_TPU_FUSED_BC="0"):
         jax_transform(str(d / "in.sam"), str(d / f"t.{kind}.jax"), realign=True,
                       known_table=table, window_reads=WINDOW,
@@ -647,8 +661,8 @@ def table_runs(request, known_runs):
 def test_known_table_parts_byte_identical_to_jax(table_runs):
     d, kind, stats = table_runs
     want = _parts(d / f"t.{kind}.jax")
-    assert len(want) == stats["fused"]["n_parts"] == stats["fused"]["n_windows"] + 1
-    for leg in ("fused", "unfused"):
+    assert len(want) == stats["on"]["n_parts"] == stats["on"]["n_windows"] + 1
+    for leg in ("on", "off"):
         got = _parts(d / f"t.{kind}.{leg}")
         assert list(got) == list(want), leg
         for name in want:
@@ -658,58 +672,22 @@ def test_known_table_parts_byte_identical_to_jax(table_runs):
             (d / f"t.{kind}.jax.csv").read_text()
 
 
-def test_known_table_fused_tier_counts(table_runs):
-    """The fused leg fuses every observed part (windows and the realigned
-    part) when the table is eligible, none when its read groups differ
-    or its cycle axis is narrower than the windows'; the unfused leg never
-    fuses."""
-    _, kind, stats = table_runs
-    f, u = stats["fused"], stats["unfused"]
-    assert f["fused_bc"] is True and u["fused_bc"] is False
-    assert u["n_fused_windows"] == 0
-    eligible = kind in ("own", "i32", "gl_off", "wide")
-    assert f["n_fused_windows"] == (f["n_parts"] if eligible else 0)
-    assert all(n == 0 for n in f["kernel_launches"].values())
+def test_known_table_ignores_fused_bc_variable(table_runs):
+    """Whatever ``ADAM_TPU_FUSED_BC`` says, every observed part (the
+    windows and the realigned part) is observed in pass B and applied in
+    pass C, one call each, and the two legs report the same stats."""
+    _, _kind, stats = table_runs
+    on, off = stats["on"], stats["off"]
+    assert on["calls"] == off["calls"] == {"observe_window": on["n_parts"],
+                                           "apply_dispatch": on["n_parts"]}
 
+    def counts(st):
+        # walls and rates, and the writer's adaptive gate, follow the clock
+        return {k: v for k, v in st.items()
+                if not k.endswith("_s") and k not in ("writer_inflight_bound", "calls")}
 
-def test_fused_bc_body_equals_the_separate_passes():
-    """The fused body is the observe then the apply + pack, bit for bit,
-    on a window whose table is wider than its grid."""
-    from adam_tpu_torch.ops.colpack import pack_mask_bits
-    from adam_tpu_torch.pipelines import bqsr
-
-    rng = np.random.default_rng(5)
-    g, gl, n_rg = 64, 32, 3
-    lengths = rng.integers(20, gl + 1, g).astype(np.int32)
-    in_read = np.arange(gl)[None, :] < lengths[:, None]
-    quals = np.where(in_read, rng.integers(2, 41, (g, gl)), 255).astype(np.uint8)
-    t = [torch.from_numpy(a) for a in (
-        rng.integers(0, 5, (g, gl)).astype(np.uint8), quals, lengths,
-        (0x1 | rng.choice([0x40, 0x80], g) | rng.choice([0, 0x10], g)).astype(np.int32),
-        rng.integers(-1, 2, g).astype(np.int32))]
-    res = in_read & (rng.random((g, gl)) < 0.9)
-    masks = [torch.from_numpy(pack_mask_bits(res)),
-             torch.from_numpy(pack_mask_bits(res & (rng.random((g, gl)) < 0.1))),
-             torch.from_numpy(rng.random(g) < 0.9)]
-    hq, vd = torch.from_numpy(rng.random(g) < 0.95), torch.from_numpy(rng.random(g) < 0.95)
-    table = torch.from_numpy(rng.integers(0, 60, (n_rg, 94, 2 * 48 + 1, 17)).astype(np.uint8))
-    got = bqsr.fused_bc_body(*t, *masks, hq, vd, table, n_rg, gl, g * gl)
-    want = (*bqsr.observe_packed_body(*t, *masks, n_rg, gl),
-            *bqsr.apply_pack2_body(*t, hq, vd, table, gl, g * gl))
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert int(got[0].sum()) > 0
-
-
-@pytest.mark.parametrize("raw", ["", "auto", "1", "On", "true", "0", "off", "FALSE", "maybe"])
-def test_fused_bc_toggle_parses_as_jax(raw):
-    from adam_tpu.pipelines import bqsr as jbqsr
-
-    from adam_tpu_torch.pipelines import bqsr
-
-    with _env(ADAM_TPU_FUSED_BC=raw):
-        for default in (True, False):
-            assert bqsr.fused_bc_enabled(default) == jbqsr.fused_bc_enabled(default)
+    assert counts(on) == counts(off)
+    assert all(n == 0 for n in on["kernel_launches"].values())
 
 
 def test_cli_known_flags_write_the_library_parts(known_runs, tmp_path):
@@ -731,7 +709,7 @@ def test_cli_known_flags_write_the_library_parts(known_runs, tmp_path):
                    "-window_reads", str(WINDOW), "--device", "cpu"])
     assert rc == 0
     stats = json.loads(buf.getvalue().splitlines()[-1])
-    assert stats["fused_bc"] is True and stats["n_fused_windows"] == stats["n_parts"]
+    assert stats["n_parts"] == stats["n_windows"] + 1
     lib = transform_streamed(str(d / "in.sam"), str(tmp_path / "lib.adam"), realign=True,
                              known_snps=ks, known_indels=ki,
                              known_table=_known_table(d, "own"), window_reads=WINDOW,

@@ -103,13 +103,11 @@ def test_mesh_rows_and_resident_window():
     try:
         entries = [part_mod.mesh_markdup_prewarm_entry(batch.to_numpy(), part),
                    part_mod.mesh_observe_prewarm_entry(batch.to_numpy(), 2, part),
-                   part_mod.mesh_apply_prewarm_entry(batch.to_numpy(), 2, 65, part),
-                   part_mod.mesh_fused_bc_prewarm_entry(batch.to_numpy(), 2, 65, part)]
+                   part_mod.mesh_apply_prewarm_entry(batch.to_numpy(), 2, 65, part)]
         assert [k[:2] for k, _fn in entries] == [
-            ("mesh.markdup", 1026), ("mesh.observe_packed", 1026),
-            ("mesh.apply_pack2", 1026), ("mesh.fused_bc", 1026)]
+            ("mesh.markdup", 1026), ("mesh.observe_packed", 1026), ("mesh.apply_pack2", 1026)]
         tr = tele.Tracer(recording=True)
-        assert part.prewarm(entries, tracer=tr) == 4
+        assert part.prewarm(entries, tracer=tr) == 3
         assert part.prewarm(entries, tracer=tr) == 0
         assert set(tr.snapshot()["device_spans"][tele.SPAN_POOL_PREWARM_COMPILE]) == {"mesh"}
     finally:

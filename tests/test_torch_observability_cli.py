@@ -22,10 +22,11 @@ sys.path.insert(0, str(REPO / "tools"))
 #: JAX overlaps with the realign sweeps has no counterpart without the
 #: sweep fan-out (ROADMAP queue 1 item 4).
 JAX_ONLY_TIMERS: set = set()
-#: Counters and gauges of JAX's device ledger and pool that the port does
-#: not record: none since ROADMAP queue 1 item 4 (the device pool, the
-#: transfer and compile ledgers, the resident windows).
-JAX_ONLY_METRICS: set = set()
+#: Counters and gauges JAX records and the port does not: the gauge of
+#: JAX's fused B->C tier (the port has one route per pass).  The device
+#: pool's, the transfer and compile ledgers' and the resident windows'
+#: have been the port's since ROADMAP queue 1 item 4.
+JAX_ONLY_METRICS: set = {"streamed.fused_bc"}
 #: Histogram rows the port prints and JAX does not: the automatic
 #: duration histograms of the port's own spans (``telemetry.PORT_ONLY_SPANS``,
 #: which split its host time finer), per verb.

@@ -4,7 +4,7 @@
 line in a subprocess armed with a ``proc.kill`` fault
 (``adam_tpu_torch/utils/faults.py``), so it SIGKILLs itself at a chosen
 phase; then ``--resume`` finishes the run.  At every phase the port arms
-(``ingest``, ``pass_a``, ``pass_b``, ``fused_bc`` with a known table,
+(``ingest``, ``pass_a``, ``pass_b`` without and with a known table,
 ``barrier2`` at its entry and its exit, ``pass_c`` and ``write``) the
 output is byte-identical to the uninterrupted run, which is the JAX
 package's, and no staging residue is left.  The matrix has a file of its
@@ -80,15 +80,16 @@ def kill_input(tmp_path_factory):
     return d, table, base
 
 
-#: (phase, arrivals skipped before the kill, what the kill leaves): one
-#: SIGKILL at each phase the proc.kill point exposes; barrier2 arrives at
-#: its entry (after=0: nothing journaled yet) and at its exit (after=1:
-#: the table journaled)
+#: (phase, arrivals skipped before the kill): one SIGKILL at each phase
+#: the proc.kill point exposes; ``known_table`` is a kill in pass B of a
+#: ``-known_recalibration_table`` run; barrier2 arrives at its entry
+#: (after=0: nothing journaled yet) and at its exit (after=1: the table
+#: journaled)
 _MATRIX = [
-    ("ingest", 3), ("pass_a", 4), ("pass_b", 2), ("fused_bc", 1),
+    ("ingest", 3), ("pass_a", 4), ("pass_b", 2), ("known_table", 1),
     ("barrier2", 0), ("barrier2", 1), ("pass_c", 2), ("write", 1),
 ]
-_IDS = ["ingest", "pass_a", "pass_b", "fused_bc", "barrier2_entry",
+_IDS = ["ingest", "pass_a", "pass_b", "known_table", "barrier2_entry",
         "barrier2_exit", "pass_c", "write"]
 
 
@@ -96,11 +97,12 @@ _IDS = ["ingest", "pass_a", "pass_b", "fused_bc", "barrier2_entry",
 def test_sigkill_then_resume_is_byte_identical(kill_input, tmp_path, phase, after):
     d, table, base = kill_input
     out, rd = tmp_path / "out.adam", tmp_path / "rd"
-    extra = ["-known_recalibration_table", str(table)] if phase == "fused_bc" else []
+    known = phase == "known_table"
+    extra = ["-known_recalibration_table", str(table)] if known else []
     argv = ["transform", str(d / "in.sam"), str(out), *FLAGS, *extra,
             "--run-dir", str(rd), "--device", "cpu"]
-    spec = f"proc.kill=kill,device={phase},after={after},times=1"
-    env = dict(os.environ, PYTHONPATH=str(REPO), ADAM_TPU_FUSED_BC="1")
+    spec = f"proc.kill=kill,device={'pass_b' if known else phase},after={after},times=1"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     env.pop("ADAM_TPU_FAULTS", None)
     if phase == "pass_c":
         cmd = argv + ["--fault-spec", spec]  # the flag, and elsewhere the variable
@@ -115,7 +117,7 @@ def test_sigkill_then_resume_is_byte_identical(kill_input, tmp_path, phase, afte
     assert journaled == (phase in ("pass_c", "write") or (phase, after) == ("barrier2", 1))
 
     s = _cli(argv + ["--resume"])
-    want = base["known" if phase == "fused_bc" else "clean"]
+    want = base["known" if known else "clean"]
     assert _parts(out) == want, phase
     assert s["resume.refused"] == 0
     assert s["windows_resumed"] + s["windows_fresh"] == len(want)
@@ -126,8 +128,10 @@ def test_sigkill_then_resume_is_byte_identical(kill_input, tmp_path, phase, afte
     if phase == "write":
         # killed after its second publish, before that part's journal record
         assert s["windows_resumed"] >= 1
-    if phase == "fused_bc":
-        assert s["fused_bc"] and s["n_fused_windows"] > 0
+    if known:
+        # every fresh window is observed and applied apart: no fused tier
+        assert "fused_bc" not in s and "n_fused_windows" not in s
+        assert s["windows_fresh"] == len(want)
     # crash consistency: no staging residue
     assert not [f for f in os.listdir(out) if f.endswith(".tmp")]
     assert not (out / "_temporary").exists()

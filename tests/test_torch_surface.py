@@ -51,6 +51,8 @@ _PREWARM = ("a prewarm dummy of an XLA executable; the port prewarms with "
 _MESH = ("the MeshPartitioner's window methods became per-shard calls of the "
          "single-device bodies with mesh=: ")
 _JAXRULE = "a static-checker helper that reads JAX idiom; the port's checker reads torch's"
+_ONE_ROUTE = ("one route per pass (ROADMAP, Deliberate differences): the benchmark's "
+              "cells all run the other route; the parts are the same bytes")
 
 #: Every difference between the two surfaces, with its reason.
 ALLOWED: dict[str, str] = {
@@ -117,8 +119,9 @@ ALLOWED: dict[str, str] = {
         "pass C always packs on the card (ADAM_TPU_PACKED_COLS is not read)"),
     "parallel.device_pool:streamed_prewarm_entries(resident)": (
         "every dispatch reads a placed window, so every entry warms one"),
-    "parallel.device_pool:fused_bc_prewarm_entry(table_n_cyc)": (
-        "a prewarm entry parameter, named `n_cyc` in the port"),
+    "parallel.device_pool:fused_bc_prewarm_entry": _ONE_ROUTE,
+    "parallel.device_pool:streamed_prewarm_entries(fused_n_cyc)": _ONE_ROUTE,
+    "parallel.device_pool:resident_windows_enabled": _ONE_ROUTE,
     "parallel.device_pool:apply_prewarm_entry(table_n_cyc)": (
         "a prewarm entry parameter, named `n_cyc` in the port"),
     "parallel.device_pool:apply_prewarm_entry(pack)": (
@@ -170,13 +173,12 @@ ALLOWED: dict[str, str] = {
         _MESH + "`pipelines.bqsr:apply_dispatch`"),
     "parallel.partitioner:MeshPartitioner.apply_pack2_window": (
         _MESH + "`pipelines.bqsr:apply_dispatch`"),
-    "parallel.partitioner:MeshPartitioner.fused_bc_placed": (
-        _MESH + "`pipelines.bqsr:fused_bc_dispatch`"),
-    "parallel.partitioner:MeshPartitioner.fused_bc_window": (
-        _MESH + "`pipelines.bqsr:fused_bc_dispatch`"),
+    "parallel.partitioner:MeshPartitioner.fused_bc_placed": _ONE_ROUTE,
+    "parallel.partitioner:MeshPartitioner.fused_bc_window": _ONE_ROUTE,
     "parallel.partitioner:MeshPartitioner.packed_payload_slices": (
         "bucketed XLA fetch slices; the port fetches each shard's rows with "
         "`parallel.partitioner:MeshPartitioner.fetch_rows`"),
+    "parallel.partitioner:mesh_fused_bc_prewarm_entry": _ONE_ROUTE,
     "parallel.partitioner:mesh_observe_packed_prewarm_entry": (
         "one observe kernel: `parallel.partitioner:mesh_observe_prewarm_entry`"),
     "parallel.partitioner:mesh_apply_prewarm_entry(pack)": (
@@ -199,7 +201,10 @@ ALLOWED: dict[str, str] = {
         "the quals-only pack; pass C packs both columns: `pipelines.bqsr:apply_pack2_body`"),
     "pipelines.bqsr:apply_pack_kernel": _KERNEL + "; the port's is `pipelines.bqsr:apply_pack2_body`",
     "pipelines.bqsr:apply_pack2_kernel": _KERNEL + "; the port's is `pipelines.bqsr:apply_pack2_body`",
-    "pipelines.bqsr:fused_bc_kernel": _KERNEL + "; the port's is `pipelines.bqsr:fused_bc_body`",
+    "pipelines.bqsr:fused_bc_kernel": _ONE_ROUTE,
+    "pipelines.bqsr:fused_bc_body": _ONE_ROUTE,
+    "pipelines.bqsr:fused_bc_enabled": _ONE_ROUTE,
+    "pipelines.bqsr:fused_bc_dispatch": _ONE_ROUTE,
     "pipelines.bqsr:recalibrate_base_qualities(backend)": _BACKEND,
     "pipelines.bqsr:apply_recalibration(backend)": _BACKEND,
     "pipelines.bqsr:apply_recalibration_dispatch": (
@@ -208,11 +213,6 @@ ALLOWED: dict[str, str] = {
         "the placed-window fetch is `pipelines.bqsr:apply_finish`"),
     "pipelines.bqsr:apply_recalibration_finish_packed": (
         "the placed-window fetch is `pipelines.bqsr:apply_finish` (always packed)"),
-    "pipelines.bqsr:fused_bc_dispatch(phred_table)": (
-        "it takes the placed table, `table_dev`, as `pipelines.bqsr:apply_dispatch` does"),
-    "pipelines.bqsr:fused_bc_dispatch(backend)": _BACKEND,
-    "pipelines.bqsr:fused_bc_dispatch(device)": "the device is the placed window's slot (`rw`)",
-    "pipelines.bqsr:fused_bc_dispatch(resident)": "the placed window is the required `rw`",
     # ---- pipelines.markdup
     "pipelines.markdup:get_columns_jit": _KERNEL + "; the port's is `pipelines.markdup:markdup_columns_local`",
     "pipelines.markdup:markdup_columns_dispatch": (
@@ -266,6 +266,9 @@ ALLOWED: dict[str, str] = {
                                  "the card path"),
     "env:ADAM_TPU_NATIVE_CACHE": ("the port builds its native code into its "
                                   "git-ignored _build/ directories"),
+    "env:ADAM_TPU_FUSED_BC": _ONE_ROUTE,
+    "env:ADAM_TPU_RESIDENT": _ONE_ROUTE,
+    "env:ADAM_TPU_RESOLVE_SORT": _ONE_ROUTE,
     "env:ADAM_TPU_FETCH_THREADS": ("JAX sizes a pool of blocking chunk fetches with it; "
                                    "`utils.transfer:device_fetch` queues its chunks as "
                                    "asynchronous copies on one stream, so there is no pool "

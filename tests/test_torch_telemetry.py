@@ -437,15 +437,17 @@ def test_prometheus_names_are_valid_and_distinct():
 # --------------------------------------------------------------------------
 # the streamed run, port against JAX
 # --------------------------------------------------------------------------
-#: What the JAX run records and the port does not: nothing.  The device
-#: pool's, the mesh's and the ledgers' names came with ROADMAP queue 1 item
-#: 4, the service's spans (``sched.job.run``, ``sched.batch.fused``,
-#: ``gateway.job.submit``) with item 5's service part; a service run
-#: records them (``tests/test_torch_serve.py``, ``test_torch_gateway.py``).
+#: What the JAX run records and the port does not: the gauge of JAX's
+#: fused B->C tier, which the port does not have (one route per pass).
+#: The device pool's, the mesh's and the ledgers' names came with ROADMAP
+#: queue 1 item 4, the service's spans (``sched.job.run``,
+#: ``sched.batch.fused``, ``gateway.job.submit``) with item 5's service
+#: part; a service run records them (``tests/test_torch_serve.py``,
+#: ``test_torch_gateway.py``).
 NOT_RECORDED = {
     "spans": {},
     "counters": {},
-    "gauges": {},
+    "gauges": {"streamed.fused_bc": "one route per pass: no fused B->C tier"},
 }
 
 #: The device ledger's byte counters move other bytes in the port, for
@@ -562,12 +564,11 @@ def test_streamed_gauges_equal_jax_but_the_overlap(streamed):
     _, runs = streamed
     j, t = runs["jax"]["gauges"], runs["on"]["gauges"]
     assert set(j) - set(t) == set(NOT_RECORDED["gauges"]) & set(j)
-    assert set(t) == set(j)
+    assert set(t) <= set(j)
     assert j["streamed.observe_overlap_hidden"]["last"] == 1
     for k in t:  # the samples are the same; a depth's min/max follow the threads
         assert t[k]["n"] == j[k]["n"], k
-    for k in ("device.dispatch.in_flight", "streamed.fused_bc",
-              "streamed.resolve.device_sort", "streamed.observe_overlap_hidden",
+    for k in ("device.dispatch.in_flight", "streamed.resolve.device_sort", "streamed.observe_overlap_hidden",
               "device.pool.devices", "device.resident.live_bytes", "kernel.backend"):
         assert t[k] == j[k], k
 
