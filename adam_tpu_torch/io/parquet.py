@@ -694,51 +694,11 @@ def _name_index_col(col, lookup) -> np.ndarray:
     return np.where(col.valid, out, -1).astype(np.int32)
 
 
-def _codes_matrix(col, lut: np.ndarray | None, pad: int):
-    """StringColumn -> (codes u8[N, W], lengths i32[N]) in one LUT pass,
-    with the two fixed-length fast paths of the JAX package (contiguous
-    uniform rows: one reshape; uniform rows with gaps: one gather)."""
-    from adam_tpu_torch.formats.strings import (
-        _span_gather_indices,
-        _span_local_positions,
-    )
-
-    lens = np.where(col.valid, col.lengths(), 0)
-    n = len(lens)
-    w = max(1, int(lens.max()) if n else 1)
-    if n and lens.sum():
-        nz = np.flatnonzero(lens > 0)
-        u0 = lens[nz[0]]
-        uniform = (lens[nz] == u0).all()
-        if uniform and len(nz) == n and int(col.offsets[-1]) == n * int(u0) \
-                and int(u0) == w:
-            vals = col.buf[: n * w].reshape(n, w)
-            mat = lut[vals] if lut is not None else vals.copy()
-            return mat, lens.astype(np.int32)
-        mat = np.full((n, w), pad, np.uint8)
-        if uniform:
-            w0 = int(u0)
-            src = (
-                col.offsets[nz][:, None] + np.arange(w0, dtype=np.int64)
-            ).ravel()
-            vals = col.buf[src].reshape(len(nz), w0)
-            mat[nz, :w0] = lut[vals] if lut is not None else vals
-        else:
-            src = _span_gather_indices(col.offsets[:-1], lens)
-            rows = np.repeat(np.arange(n), lens)
-            pos = _span_local_positions(lens)
-            mat[rows, pos] = (
-                lut[col.buf[src]] if lut is not None else col.buf[src]
-            )
-        return mat, lens.astype(np.int32)
-    return np.full((n, w), pad, np.uint8), lens.astype(np.int32)
-
-
 def from_arrow_alignments(table, round_rows_to: int = 1
                           ) -> tuple[ReadBatch, ReadSidecar, SamHeader]:
     """Arrow Table in the AlignmentRecord layout -> host batch, sidecar
-    and header (the header from the schema metadata): LUT passes for the
-    sequences and qualities, the native CIGAR parse, dictionary-indexed
+    and header (the header from the schema metadata): one native pass
+    for the bases and qualities, the native CIGAR parse, dictionary-indexed
     name columns.  The batch's rows (not the sidecar's, as in JAX) pad up
     to a multiple of ``round_rows_to``."""
     from adam_tpu_torch import native
@@ -749,20 +709,9 @@ def from_arrow_alignments(table, round_rows_to: int = 1
 
     seq_col = _string_column_or(table, "sequence", n)
     qual_col = _string_column_or(table, "qual", n)
-    bases, lengths = _codes_matrix(seq_col, schema.BASE_ENCODE_LUT, schema.BASE_PAD)
-    lmax = bases.shape[1]
-    quals_mat, qlens = _codes_matrix(qual_col, None, 0)
-    has_qual = qual_col.valid & (qlens > 0) & ~(
-        (qlens == 1) & (quals_mat[:, 0] == ord("*"))
-    )
-    quals = np.full((n, lmax), schema.QUAL_PAD, np.uint8)
-    w = min(lmax, quals_mat.shape[1])
-    qmask = (np.arange(w)[None, :] < qlens[:, None]) & has_qual[:, None]
-    quals[:, :w][qmask] = quals_mat[:, :w][qmask] - schema.SANGER_OFFSET
-    # reads with a sequence but no qual get 0-quals over their length
-    noq = ~has_qual
-    inlen = np.arange(lmax)[None, :] < lengths[:, None]
-    quals[noq[:, None] & inlen] = 0
+    bases, quals, lengths, has_qual = native.arrow_codes(
+        seq_col.buf, seq_col.offsets, seq_col.valid,
+        qual_col.buf, qual_col.offsets, qual_col.valid)
 
     cig_col = _string_column_or(table, "cigar", n)
     cig_lens_b = np.where(cig_col.valid, cig_col.lengths(), 0)

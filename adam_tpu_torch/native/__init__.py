@@ -2,11 +2,12 @@
 
 ``adamtok.cpp`` and ``realign.cpp`` here are unchanged copies of the JAX
 package's sources (the tokenizer's BQSR walk links against
-``realign.cpp``'s MD parser, so the two build together).  ``sites.cpp`` is
-the port's own source, not a copy: the known-SNP mask of the BQSR observe
-pass.  The three are compiled with ``g++`` at first use into one library
-in ``native/_build/`` (git-ignored), keyed by a hash of the sources, the
-flags and the compiler.
+``realign.cpp``'s MD parser, so the two build together).  ``sites.cpp``
+and ``arrowcols.cpp`` are the port's own sources, not copies: the
+known-SNP mask of the BQSR observe pass, and the Parquet load's base and
+quality matrices.  The four are compiled with ``g++`` at first use into
+one library in ``native/_build/`` (git-ignored), keyed by a hash of the
+sources, the flags and the compiler.
 
 ``kmertab.cpp``, the port's second own source, builds the k-mer table's
 ``{k-mer: count}`` dict out of Python objects, so it includes
@@ -25,7 +26,9 @@ calls are bound.
 
 Each codec call is timed under the JAX package's named timer and recorded
 as a telemetry span of the same name (``utils/instrumentation.py``,
-``utils/telemetry.py``), both no-ops unless recording is on.
+``utils/telemetry.py``), both no-ops unless recording is on;
+``arrow_codes``, the port's own, uses the port's span name
+``Arrow Codes (native)``.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from adam_tpu_torch.utils import instrumentation as _instr
 from adam_tpu_torch.utils import telemetry as _tele
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = [os.path.join(_DIR, f) for f in ("adamtok.cpp", "realign.cpp", "sites.cpp")]
+_SOURCES = [os.path.join(_DIR, f)
+            for f in ("adamtok.cpp", "realign.cpp", "sites.cpp", "arrowcols.cpp")]
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # -march=native first (the scan/fill/LUT loops vectorize); the plain
@@ -221,6 +225,11 @@ def _bind(lib: ct.CDLL) -> None:
     lib.mask_known_sites.argtypes = [
         _u8p, _i32p, _i32p, _i64p, _i32p, ct.c_int64, ct.c_int64, ct.c_int64,
         _i64p, _i64p, ct.c_int64, _u8p, ct.c_int,
+    ]
+    lib.arrow_codes.restype = None
+    lib.arrow_codes.argtypes = [
+        _u8p, _i64p, _i32p, _u8p, _i64p, _u8p, ct.c_int64, ct.c_int64,
+        _u8p, ct.c_uint8, ct.c_uint8, ct.c_uint8, _u8p, _u8p, _u8p, ct.c_int,
     ]
     lib.cigar_strings.restype = ct.c_int64
     lib.cigar_strings.argtypes = [
@@ -602,6 +611,62 @@ def cigar_cols(buf: np.ndarray, offsets: np.ndarray, cmax: int):
     if rc != 0:
         raise ValueError(f"cigar_cols: a CIGAR string does not parse into {C} ops")
     return ops, lens, n_ops
+
+
+def _string_lengths(name: str, buf, offsets, valid) -> np.ndarray:
+    """A string column's byte lengths (i64[N], nulls included), after
+    checking its parts: ``buf`` u8[B], ``offsets`` i64[N + 1] ascending
+    within ``[0, B]``, ``valid`` bool[N]; raises otherwise."""
+    for part, a, dtype in (("buf", buf, np.uint8), ("offsets", offsets, np.int64),
+                           ("valid", valid, np.bool_)):
+        if (not isinstance(a, np.ndarray) or a.ndim != 1 or a.dtype != dtype
+                or not a.flags.c_contiguous):
+            raise ValueError(f"arrow_codes: the {name} {part} must be a 1-D "
+                             f"C-contiguous {np.dtype(dtype).name} array")
+    if len(offsets) != len(valid) + 1:
+        raise ValueError(f"arrow_codes: {len(offsets)} {name} offsets beside "
+                         f"{len(valid)} rows")
+    lens = np.diff(offsets)
+    if offsets[0] < 0 or offsets[-1] > len(buf) or (lens < 0).any():
+        raise ValueError(f"arrow_codes: the {name} offsets fall outside its "
+                         f"{len(buf)}-byte buffer or run backwards")
+    return lens
+
+
+@_timed(_tele.SPAN_ARROW_CODES)
+def arrow_codes(seq_buf, seq_offsets, seq_valid, qual_buf, qual_offsets, qual_valid):
+    """The ``sequence`` and ``qual`` string columns (each a flat buffer,
+    offsets and validity) -> (bases u8[N, L], quals u8[N, L], lengths
+    i32[N], has_qual bool[N]) in one pass, L = max(1, longest sequence).
+    Bases go through ``schema.BASE_ENCODE_LUT`` and pad with ``BASE_PAD``;
+    a present quality (not empty, not ``*``) is ``byte - SANGER_OFFSET``
+    (u8) over its length, a read without one reads 0 over its sequence,
+    and ``QUAL_PAD`` fills the rest.  A null sequence has length 0.
+    Raises on a part of the wrong dtype or shape, or offsets outside their
+    buffer."""
+    from adam_tpu_torch.formats import schema
+
+    seq_lens = _string_lengths("sequence", seq_buf, seq_offsets, seq_valid)
+    _string_lengths("qual", qual_buf, qual_offsets, qual_valid)
+    n = len(seq_valid)
+    if len(qual_valid) != n:
+        raise ValueError(f"arrow_codes: {n} sequences beside {len(qual_valid)} quals")
+    lengths = np.where(seq_valid, seq_lens, 0).astype(np.int32)
+    L = max(1, int(lengths.max()) if n else 1)
+    bases = np.empty((n, L), np.uint8)
+    quals = np.empty((n, L), np.uint8)
+    has_qual = np.empty(n, np.bool_)
+    lib().arrow_codes(
+        _u8_ptr(seq_buf), seq_offsets.ctypes.data_as(_i64p),
+        lengths.ctypes.data_as(_i32p),
+        _u8_ptr(qual_buf), qual_offsets.ctypes.data_as(_i64p),
+        _u8_ptr(qual_valid.view(np.uint8)), ct.c_int64(n), ct.c_int64(L),
+        _u8_ptr(schema.BASE_ENCODE_LUT), schema.BASE_PAD, schema.QUAL_PAD,
+        schema.SANGER_OFFSET,
+        _u8_ptr(bases.reshape(-1)), _u8_ptr(quals.reshape(-1)),
+        _u8_ptr(has_qual.view(np.uint8)), ct.c_int(_nthreads()),
+    )
+    return bases, quals, lengths, has_qual
 
 
 def _encode_prep(batch, side, rg_names: Sequence[str]):

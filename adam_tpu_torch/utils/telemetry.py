@@ -204,6 +204,7 @@ SPAN_REALIGN_DECIDE = _span("realign.decide")  # scoring, rewrite decisions, wri
 SPAN_OQ_STASH = _span("bqsr.apply.oq_stash")
 SPAN_PARQUET_READ = _span("parquet.read_table")    # io/parquet.load_alignments
 SPAN_PARQUET_FROM_ARROW = _span("parquet.from_arrow")
+SPAN_ARROW_CODES = _span("Arrow Codes (native)")  # native.arrow_codes, a timer row too
 SPAN_KMERS_HISTOGRAM = _span("kmers.histogram")  # device sort + run lengths + fetch
 SPAN_KMERS_DECODE = _span("kmers.decode")        # keys -> the dict of strings
 # the transform service's waits, both on TRACE: a coalescer ticket from its
@@ -215,8 +216,9 @@ PORT_ONLY_SPANS = frozenset({
     SPAN_KNOWN_SITES, SPAN_SETUP, SPAN_PASS_A_WAIT, SPAN_FINISH,
     SPAN_OBSERVE_MD_WALK, SPAN_OBSERVE_SNP_MASK, SPAN_REALIGN_PREP,
     SPAN_REALIGN_SWEEP, SPAN_REALIGN_DECIDE, SPAN_OQ_STASH,
-    SPAN_PARQUET_READ, SPAN_PARQUET_FROM_ARROW, SPAN_KMERS_HISTOGRAM,
-    SPAN_KMERS_DECODE, SPAN_BATCH_TICKET_WAIT, SPAN_PACE_WAIT,
+    SPAN_PARQUET_READ, SPAN_PARQUET_FROM_ARROW, SPAN_ARROW_CODES,
+    SPAN_KMERS_HISTOGRAM, SPAN_KMERS_DECODE, SPAN_BATCH_TICKET_WAIT,
+    SPAN_PACE_WAIT,
 })
 # the counters of this package only (PORT_ONLY_METRICS)
 C_OBSERVE_SNP_MASKED = _metric("bqsr.observe.snp_masked")  # residues on a known site

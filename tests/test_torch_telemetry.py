@@ -43,7 +43,7 @@ def test_registered_names_equal_jax(both, what):
     port_only = {"registered_spans": tt.PORT_ONLY_SPANS,
                  "registered_metrics": tt.PORT_ONLY_METRICS,
                  "registered_names": tt.PORT_ONLY_SPANS | tt.PORT_ONLY_METRICS}[what]
-    assert len(tt.PORT_ONLY_SPANS) == 16 and len(tt.PORT_ONLY_METRICS) == 1
+    assert len(tt.PORT_ONLY_SPANS) == 17 and len(tt.PORT_ONLY_METRICS) == 1
     assert {"sched.batch.ticket_wait", "sched.pace.wait"} <= tt.PORT_ONLY_SPANS  # the service's waits
     assert not port_only & getattr(jt, what)()
     assert getattr(tt, what)() == getattr(jt, what)() | port_only
